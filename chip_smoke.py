@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU and
+checks it.  Run from the root of a checkout:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. device: the card's name and power limit (``nvidia-smi``);
+  2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  3. kernels: each kernel at the main path's shapes against its plain
+     PyTorch version on the same inputs (bit-exact for the bit kernels,
+     ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)`` for the fp32
+     products, which differ only in summation order), with its median time
+     over 25 launches from a cold L2 cache, the plain version's, the
+     ``torch.matmul`` yardstick's (TF32 off; the port never calls it) and
+     the card's lower bound;
+  4. reference: on a small input, PowerSGD and SignSGD aggregation on the
+     card (kernels) against the same code on the CPU (plain versions);
+  5. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
+     seed 0) on a one-rank NCCL group, the aggregator pointed at the
+     ``data`` axis as the tests do: 3 PowerSGD steps, then 2 SignSGD steps,
+     batch 4 x 512 tokens.  Every loss must be finite and each kernel's
+     launch count must equal its count per step times the steps.  Each run
+     then takes one more step under ``torch.profiler``, kept out of the
+     step records and launch counts; its device time is printed by layer,
+     with the share of the last unprofiled step's wall time in which no
+     kernel ran.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
+before printing any result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
+REPS = 25
+FP32_RTOL = 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ------------------------------------------------------------------ timing
+def time_ms(fn, flush) -> float:
+    """Median device time of ``fn`` over REPS launches, each after the L2
+    cache was overwritten (the caller finds its bucket in device memory)."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(REPS):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp32_err(out, ref) -> float:
+    err = (out - ref).abs().max().item()
+    scale = max(1.0, ref.abs().max().item())
+    if not err <= FP32_RTOL * scale:
+        raise AssertionError(f"max |kernel - plain| = {err} > "
+                             f"{FP32_RTOL} * {scale}")
+    return err
+
+
+# ------------------------------------------------------------------ phases
+def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns {kernel name: record}; each record's first case is the shape
+    the headline numbers come from."""
+    import torch
+
+    from repro_torch.kernels import bitpack as kb
+    from repro_torch.kernels import powersgd as kp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+
+    def case(name, label, kernel, plain, library, nbytes, ops, exact):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if exact:
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{name} {label}: kernel != plain")
+            err = 0.0
+        else:
+            err = fp32_err(out, ref)
+        b_ms, b_by = bound(nbytes, ops)
+        c = {"case": label, "max_abs_err": err,
+             "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
+             "library_ms": time_ms(library, flush) if library else None,
+             "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[kernels] {name} {label}: " + json.dumps(c))
+        recs.setdefault(name, []).append(c)
+
+    for r_, c_ in ((rows, cols), (last_rows, last_cols)):
+        m = torch.randn(r_, c_, generator=gen, device=dev)
+        q = torch.randn(c_, rank, generator=gen, device=dev)
+        p = torch.randn(r_, rank, generator=gen, device=dev)
+        mt = m.T
+        nb = 4 * (r_ * c_ + (r_ + c_) * rank)
+        ops = 2 * r_ * c_ * rank
+        case("powersgd_encode", f"M@Q {r_}x{c_} r{rank}",
+             lambda: kp.encode(m, q), lambda: kp.plain_encode(m, q),
+             lambda: torch.matmul(m, q), nb, ops, False)
+        case("powersgd_encode", f"M^T@P {c_}x{r_} (view) r{rank}",
+             lambda: kp.encode(mt, p), lambda: kp.plain_encode(mt, p),
+             lambda: torch.matmul(mt, p), nb, ops, False)
+        case("powersgd_decode", f"P@Q^T {r_}x{c_} r{rank}",
+             lambda: kp.decode(p, q), lambda: kp.plain_decode(p, q),
+             lambda: torch.matmul(p, q.T), nb, ops, False)
+        del m, q, p, mt
+
+    for n in (n_full, n_last):
+        g = torch.randn(n, generator=gen, device=dev)
+        g[:4] = torch.tensor([-0.0, float("nan"), 0.0, -1e-30])
+        words = -(-n // 32)
+        case("pack_signs", f"n={n}", lambda: kb.pack_signs(g),
+             lambda: kb.plain_pack_signs(g), None, 4 * n + 4 * words, n,
+             True)
+        for p_rows in (1, 4):
+            gathered = torch.stack([
+                kb.pack_signs(torch.randn(n, generator=gen, device=dev))
+                for _ in range(p_rows)])
+            case("popcount_votes", f"n={n} p={p_rows}",
+                 lambda: kb.popcount_votes(gathered, n),
+                 lambda: kb.plain_popcount_votes(gathered, n), None,
+                 4 * p_rows * words + 4 * n, 3 * p_rows * n, True)
+        del g
+    del flush
+    torch.cuda.empty_cache()
+    return recs
+
+
+def reference_phase():
+    """PowerSGD and SignSGD aggregation of the same buckets and state on
+    the card and on the CPU (the plain versions): outputs and new state
+    agree to fp32 summation order, SignSGD's signs exactly."""
+    import torch
+
+    from repro_torch.core import aggregator as agg_mod
+
+    gen = torch.Generator().manual_seed(1)
+    sizes = (70_000, 5_000)                 # a ragged matrix shape, a small one
+    buckets = [torch.randn(n, generator=gen) for n in sizes]
+    for comp in ("powersgd", "signsgd"):
+        cfg = agg_mod.AggregatorConfig(compressor=comp,
+                                       compress_axes=("data",), raw_axes=())
+        agg = agg_mod.GradAggregator(cfg)
+        states = [agg.compressor.init_state(n, gen) for n in sizes]
+        for st in states:
+            if hasattr(st, "err"):
+                st.err.copy_(0.1 * torch.randn(st.err.shape, generator=gen))
+        cpu_out, cpu_st = agg.aggregate_bucket_list(buckets, states)
+        gpu_out, gpu_st = agg.aggregate_bucket_list(
+            [b.cuda() for b in buckets],
+            [type(s)(*[t.cuda() for t in s]) for s in states])
+        for a, b in zip(gpu_out, cpu_out):
+            fp32_err(a.cpu(), b)
+            if comp == "signsgd" and not torch.equal(a.cpu().sign(),
+                                                     b.sign()):
+                raise AssertionError("signsgd: signs differ from the CPU")
+        for a, b in zip(gpu_st, cpu_st):
+            for x, y in zip(a, b):
+                fp32_err(x.cpu(), y)
+        log(f"[reference] {comp}: card == CPU on buckets {sizes}")
+
+
+#: kernel-name fragments -> the layer they belong to, first match wins
+KERNEL_GROUPS = (
+    ("compression kernels", ("encode_rows", "encode_cols", "sum_splits",
+                             "decode_kernel", "pack_kernel",
+                             "votes_kernel")),
+    ("nccl", ("nccl",)),
+    ("matmul", ("gemm", "sm90_", "cutlass", "nvjet", "xmma", "cublas")),
+)
+
+
+def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
+    """Device time of one profiled step by layer (ms), and the share of
+    an unprofiled step's wall time ``step_s`` in which no kernel ran
+    (kernels do not overlap on the one stream the port uses); the
+    profiled step's own wall time, profiler cost included, is
+    ``profiled_s``."""
+    groups: dict[str, float] = {}
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if not us or not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        name = ev.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other kernels")
+        groups[group] = groups.get(group, 0.0) + us / 1e3
+        top.append((us / 1e3, ev.key[:60], ev.count))
+    busy = sum(groups.values())
+    top.sort(reverse=True)
+    return {"step_ms": step_s * 1e3, "profiled_step_ms": profiled_s * 1e3,
+            "device_busy_ms": busy,
+            "idle_share": (1 - busy / (step_s * 1e3)) if busy else None,
+            "by_layer_ms": groups,
+            "top": [{"ms": t, "kernel": k, "count": c} for t, k, c in top[:12]]}
+
+
+def train_phase(comp: str, steps: int, per_step: dict[str, int]):
+    """Full-width training through the port's entry points; returns the
+    per-step records and the launch counts of the run."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = cfgs.get("tinyllama-1.1b")
+    setup = ts.build(arch, "cuda", zero1=False, compression=comp)
+    # one rank: point the aggregator back at the size-1 data axis, as the
+    # tests do, so every bucket still runs through the compressor
+    setup.agg_cfg = dataclasses.replace(setup.agg_cfg,
+                                        compress_axes=("data",), raw_axes=())
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
+    data = (batch_at(dcfg, s) for s in range(steps + 1))
+    tcfg = TrainerConfig(total_steps=steps, log_every=1,
+                         schedule=ScheduleConfig(peak_lr=3e-4,
+                                                 warmup_steps=1,
+                                                 total_steps=steps))
+    trainer = Trainer(setup, tcfg, data)
+    trainer.state = ts.init_state(setup, seed=0)
+    log(f"[train] {comp}: {sum(p.numel() for p in setup.model.parameters()):,}"
+        f" params, {setup.layout.n_buckets} buckets of "
+        f"{setup.layout.bucket_elems:,} (last {setup.layout.last_elems:,})")
+    kbuild.reset_launches()
+    trainer.run()
+    torch.cuda.synchronize()
+    counts = dict(kbuild.LAUNCHES)
+    history = list(trainer.history)
+    # one more step under the profiler, kept out of the history and counts
+    tcfg.total_steps = steps + 1
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.run()
+    torch.cuda.synchronize()
+    profiled = trainer.history.pop()
+    log(f"[profile] {comp} " + json.dumps(
+        device_breakdown(prof, profiled["step_s"], history[-1]["step_s"])))
+    want = {k: v * steps for k, v in per_step.items()}
+    for k in ("powersgd_encode", "powersgd_decode", "pack_signs",
+              "popcount_votes"):
+        if counts.get(k, 0) != want.get(k, 0):
+            raise AssertionError(f"{comp}: {k} launched {counts.get(k, 0)} "
+                                 f"times, expected {want.get(k, 0)}")
+    for rec in history + [profiled]:
+        if not math.isfinite(rec["loss"]) or not math.isfinite(
+                rec["grad_norm"]):
+            raise AssertionError(f"{comp}: non-finite metrics {rec}")
+    log(f"[train] {comp}: launches {counts}")
+    del trainer, setup, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return history, counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import bucketing
+    from repro_torch.core.compression.powersgd import matrix_shape
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.model import Model
+
+    t_start = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[device] {kind}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
+    log(smi)
+
+    t0 = time.perf_counter()
+    path = kbuild.build()
+    kbuild.lib()
+    log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+
+    # the main path's shapes, from the full-size layout (no allocation)
+    arch = cfgs.get("tinyllama-1.1b")
+    layout = bucketing.layout_for(
+        list(Model(arch, device="meta").parameters()), arch.plan.bucket_mb)
+    rank = arch.plan.powersgd_rank
+    rows, cols = matrix_shape(layout.bucket_elems)
+    last_rows, last_cols = matrix_shape(layout.last_elems)
+    recs = kernel_phase(rows, cols, last_rows, last_cols,
+                        layout.bucket_elems, layout.last_elems, rank)
+
+    torch.cuda.set_device(0)
+    mesh_mod.init_world(torch.device("cuda", 0))
+    try:
+        reference_phase()
+        nb = layout.n_buckets
+        psgd_hist, psgd_counts = train_phase(
+            "powersgd", 3, {"powersgd_encode": 2 * nb, "powersgd_decode": nb})
+        sign_hist, sign_counts = train_phase(
+            "signsgd", 2, {"pack_signs": nb, "popcount_votes": nb})
+    finally:
+        dist.destroy_process_group()
+    log("[train] " + json.dumps({"powersgd": psgd_hist,
+                                 "signsgd": sign_hist}))
+
+    sources = {
+        "powersgd_encode": ("src/repro_torch/kernels/csrc/powersgd.cu",
+                            "src/repro/kernels/powersgd.py:43", psgd_counts),
+        "powersgd_decode": ("src/repro_torch/kernels/csrc/powersgd.cu",
+                            "src/repro/kernels/powersgd.py:77", psgd_counts),
+        "pack_signs": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                       "src/repro/kernels/bitpack.py:35", sign_counts),
+        "popcount_votes": ("src/repro_torch/kernels/csrc/bitpack.cu",
+                           "src/repro/kernels/bitpack.py:72", sign_counts),
+    }
+    kernels = []
+    for name, (src, replaces, counts) in sources.items():
+        head = recs[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in recs[name]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["case"],
+            "cases": recs[name]})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,105 @@
+"""DP-axis gradient aggregation.  Counterpart of ``repro.core.aggregator``
+for the DDP path (the FSDP ``aggregate_shard`` comes with its slice).
+
+``aggregate_bucketed``: the gradient leaves -> 25 MB buckets, each bucket
+compressed-aggregated over the compress axes (the PyTorch-DDP comm-hook
+path the paper measures), after a raw mean over the raw axes if any.
+Which collective moves each payload is the config's ``CommPlan``.  The
+mesh has no ``pod`` axis yet, so ``from_plan`` knows one pod only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+from repro_torch.core import bucketing
+from repro_torch.core.compression import base as cbase
+from repro_torch.parallel import commplan as cp
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorConfig:
+    compressor: str = "none"          # compressor name for the compress axes
+    compress_axes: Sequence[str] = ("data",)
+    raw_axes: Sequence[str] = ()
+    bucket_mb: float = 25
+    compressor_kwargs: dict = dataclasses.field(default_factory=dict)
+    comm: cp.CommPlan = dataclasses.field(default_factory=cp.CommPlan)
+
+    def build(self) -> cbase.Compressor:
+        return cbase.make(self.compressor, **self.compressor_kwargs)
+
+
+class GradAggregator:
+    """Owns the compressor; compressor state is passed in and returned."""
+
+    def __init__(self, cfg: AggregatorConfig):
+        self.cfg = cfg
+        self.compressor = cfg.build()
+
+    def aggregate_bucket_list(self, buckets, states):
+        """THE bucket loop: each bucket through ``aggregate_one``.
+        ``states`` may be empty for stateless compressors."""
+        outs, news = [], []
+        for i, b in enumerate(buckets):
+            ob, ns = self.aggregate_one(b, states[i] if states else ())
+            outs.append(ob)
+            news.append(ns)
+        return outs, tuple(news)
+
+    def aggregate_bucketed(self, grads: Sequence[torch.Tensor], states,
+                           layout: bucketing.BucketLayout):
+        """grads: the local gradient leaves (replicated params).  Returns
+        the aggregated leaves and the new compressor states."""
+        buckets = bucketing.to_buckets(grads, layout)
+        outs, news = self.aggregate_bucket_list(buckets, states)
+        return bucketing.from_buckets(outs, grads, layout), news
+
+    def aggregate_one(self, bucket: torch.Tensor, state: Any):
+        """One bucket: encode -> reduce (``cfg.comm``) -> decode."""
+        raw, comp = tuple(self.cfg.raw_axes), tuple(self.cfg.compress_axes)
+        plan = self.cfg.comm
+        if self.cfg.compressor == "none":
+            return cp.mean_reduce(bucket, raw + comp, plan), state
+        if raw:
+            bucket = cp.mean_reduce(bucket, raw, cp.CommPlan("allreduce"))
+        payload = self.compressor.encode_and_reduce(bucket, state, comp,
+                                                    plan)
+        return self.compressor.decode(payload, bucket, state)
+
+
+def comm_from_plan(plan) -> cp.CommPlan:
+    """``ParallelPlan.comm`` as a validated :class:`CommPlan`: legal for the
+    compressor's associativity, and ``reduce_to_owner_broadcast`` only with
+    an owner-sharded update."""
+    comm = cp.CommPlan.parse(getattr(plan, "comm", "auto"))
+    if comm.kind != "auto":
+        comp = cbase.make(plan.compression, **cbase.plan_kwargs(plan))
+        comm.validate(comp.associative)
+    if comm.kind == "reduce_to_owner_broadcast" and not (
+            getattr(plan, "zero1", False) and plan.compression == "none"):
+        raise cp.CommPlanError(
+            "comm='reduce_to_owner_broadcast' requires zero1=True and "
+            "compression='none'")
+    return comm
+
+
+def from_plan(plan) -> AggregatorConfig:
+    """Translate an ``ArchConfig.plan`` into the aggregation policy of a
+    single pod: the configured compressor over ``data``, or a raw mean
+    over it for ``none``.  ``plan.compress_axes`` is not read: the port
+    has no ``pod`` axis yet, and ``train_step.build`` refuses any value
+    but the default ``"pod"``."""
+    kw = cbase.plan_kwargs(plan)
+    compress_axes: tuple[str, ...] = ("data",)
+    raw_axes: tuple[str, ...] = ()
+    if plan.compression == "none":
+        compress_axes, raw_axes = (), ("data",)
+    return AggregatorConfig(
+        compressor=plan.compression,
+        compress_axes=compress_axes,
+        raw_axes=raw_axes,
+        bucket_mb=plan.bucket_mb,
+        compressor_kwargs=kw,
+        comm=comm_from_plan(plan),
+    )

@@ -1,0 +1,210 @@
+"""Compressor API: ``encode -> Payload -> reduce -> decode``.
+
+Counterpart of ``repro.core.compression.base``; the contract is the same:
+
+    encode(bucket, state, rank) -> Payload
+        Local and collective-free: the 1-D gradient bucket plus carried
+        state (error feedback, warm starts) become the exact tensors that
+        cross the wire.
+    reduce(payload, axes, plan) -> Payload  [``reduce_payload``]
+        The only phase that touches the network.  The collective is the
+        declarative :class:`CommPlan`; the payload's ``associative`` flag
+        validates the plan instead of dispatching it.
+    decode(payload, bucket, state) -> (mean_bucket, new_state)
+        Local and collective-free.  ``payload.local`` carries this rank's
+        pre-reduce tensors.
+
+``aggregate`` composes the three and is what the train step calls.  Wire
+bytes are derived from the payloads: ``wire_round_bytes`` runs the encode
+path on the ``meta`` device, so it allocates nothing and launches no
+kernel.
+
+Ported compressors: ``none``, ``powersgd`` and ``signsgd``.  The other
+names of the JAX registry, and the ``ef:`` wrapper, raise
+``NotImplementedError`` until their slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.parallel import commplan as cp
+
+AxisNames = Sequence[str]
+
+#: registry names of the JAX package that later slices port.
+NOT_PORTED = ("mstopk", "randomk", "qsgd", "terngrad")
+#: name prefix of the error-feedback wrapper (a later slice).
+EF_PREFIX = "ef:"
+
+
+# --------------------------------------------------------------------------
+# Payload: the self-describing wire format
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class Payload:
+    """One collective round's wire content.
+
+    ``tensors``      name -> tensor; these exact tensors cross the wire
+                     (before ``reduce``) or came back from it (after).
+    ``associative``  True -> the reduction is a mean of these tensors;
+                     False -> every rank needs every rank's tensors
+                     (all-gather), which come back with a leading peer
+                     axis of size p.
+    ``local``        after ``reduce_payload``: this rank's pre-reduce
+                     ``tensors``.
+    """
+    tensors: dict
+    associative: bool = True
+    local: Any = None
+
+    @property
+    def nbytes(self) -> int:
+        """Per-peer wire bytes of this round (meaningful pre-reduce)."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.tensors.values()))
+
+    def wire_spec(self) -> dict:
+        """{tensor name: {shape, dtype, nbytes}} — the declared wire
+        format (dtype names as numpy spells them)."""
+        return {k: dict(shape=tuple(t.shape),
+                        dtype=str(t.dtype).removeprefix("torch."),
+                        nbytes=int(t.numel() * t.element_size()))
+                for k, t in self.tensors.items()}
+
+
+def reduce_payload(payload: Payload, axes: AxisNames,
+                   plan: Optional[cp.CommPlan] = None) -> Payload:
+    """The reduce phase: THE single place a compression payload meets a
+    collective.  ``plan=None`` (``auto``) all-reduces associative payloads
+    and all-gathers the rest; illegal combinations raise
+    :class:`repro_torch.parallel.commplan.CommPlanError`."""
+    axes = tuple(axes)
+    plan = cp.CommPlan.parse(plan).resolve(payload.associative)
+    if payload.associative:
+        tensors = {k: cp.mean_reduce(t, axes, plan)
+                   for k, t in payload.tensors.items()}
+    else:
+        tensors = {k: cp.gather_tensor(t, axes)
+                   for k, t in payload.tensors.items()}
+    return dataclasses.replace(payload, tensors=tensors,
+                               local=payload.tensors)
+
+
+# --------------------------------------------------------------------------
+# the three-phase contract
+# --------------------------------------------------------------------------
+class Compressor:
+    name: str = "abstract"
+    associative: bool = True
+
+    def init_state(self, n: int, generator: Optional[torch.Generator] = None,
+                   device: "str | torch.device" = "cpu") -> Any:
+        """Per-bucket persistent state (error feedback, warm start)."""
+        return ()
+
+    def _compensated(self, bucket: torch.Tensor, state: Any) -> torch.Tensor:
+        """Error-compensated fp32 gradient: g + the carried residual."""
+        g = bucket.float()
+        return g + state.err if getattr(self, "error_feedback", False) else g
+
+    def encode(self, bucket: torch.Tensor, state: Any,
+               rank: Optional[int] = None) -> Payload:
+        raise NotImplementedError
+
+    def encode_and_reduce(self, bucket: torch.Tensor, state: Any,
+                          axes: AxisNames,
+                          plan: Optional[cp.CommPlan] = None) -> Payload:
+        rank = dist.get_rank(mesh_mod.group(axes)) if tuple(axes) else 0
+        return reduce_payload(self.encode(bucket, state, rank=rank), axes,
+                              plan)
+
+    def decode(self, payload: Payload, bucket: torch.Tensor, state: Any):
+        raise NotImplementedError
+
+    def aggregate(self, bucket: torch.Tensor, state: Any, axes: AxisNames,
+                  plan: Optional[cp.CommPlan] = None):
+        payload = self.encode_and_reduce(bucket, state, axes, plan)
+        return self.decode(payload, bucket, state)
+
+    # ---- wire accounting: derived from the payloads ----------------------
+    def wire_rounds(self, bucket: torch.Tensor, state: Any) -> list[Payload]:
+        """One Payload per collective round, collective-free."""
+        return [self.encode(bucket, state)]
+
+    def wire_round_bytes(self, n: int, itemsize: int = 4) -> tuple[int, ...]:
+        """Per-round wire bytes (per peer), from the encode path run on
+        the ``meta`` device."""
+        cache = self.__dict__.setdefault("_wire_cache", {})
+        if (n, itemsize) not in cache:
+            dtype = {2: torch.bfloat16, 4: torch.float32,
+                     8: torch.float64}.get(itemsize, torch.float32)
+            bucket = torch.zeros((n,), dtype=dtype, device="meta")
+            state = self.init_state(n, None, device="meta")
+            cache[(n, itemsize)] = tuple(
+                p.nbytes for p in self.wire_rounds(bucket, state))
+        return cache[(n, itemsize)]
+
+
+# --------------------------------------------------------------------------
+# registry: the single plan -> compressor-kwargs mapping
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CompressorSpec:
+    name: str
+    cls: type
+    plan_fields: tuple[tuple[str, str], ...] = ()
+
+
+_REGISTRY: dict[str, CompressorSpec] = {}
+
+
+def register_compressor(name: str, **plan_fields: str) -> Callable[[type],
+                                                                   type]:
+    """Class decorator; ``plan_fields`` maps constructor kwargs to
+    ``ParallelPlan`` attributes (``plan_kwargs`` reads it)."""
+    def deco(cls: type) -> type:
+        _REGISTRY[name] = CompressorSpec(name, cls, tuple(plan_fields.items()))
+        cls.registry_name = name
+        return cls
+    return deco
+
+
+def _load_builtins() -> None:
+    from repro_torch.core.compression import (none, powersgd,  # noqa: F401
+                                              signsgd)
+
+
+def registry() -> dict[str, CompressorSpec]:
+    _load_builtins()
+    return dict(_REGISTRY)
+
+
+def _spec(name: str) -> CompressorSpec:
+    _load_builtins()
+    if name.startswith(EF_PREFIX) or name in NOT_PORTED:
+        raise NotImplementedError(f"compressor {name!r} is not ported yet "
+                                  f"(have {sorted(_REGISTRY)})")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown compressor {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def make(name: str, **kw) -> Compressor:
+    """Factory: ``make('powersgd', rank=4)``."""
+    return _spec(name).cls(**kw)
+
+
+def plan_kwargs(plan) -> dict:
+    """Constructor kwargs for ``plan.compression``, read off the registered
+    spec's ``ParallelPlan`` field mapping."""
+    return {kwarg: getattr(plan, field)
+            for kwarg, field in _spec(plan.compression).plan_fields}
+
+
+def from_plan(plan) -> Compressor:
+    return make(plan.compression, **plan_kwargs(plan))

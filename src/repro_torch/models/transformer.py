@@ -1,0 +1,81 @@
+"""Dense transformer backbone: the pre-norm GQA attention + SwiGLU block
+and the chunked LM loss.  Counterpart of the dense-family parts of
+``repro.models.transformer`` at tensor-parallel degree 1.
+
+A block's parameters arrive as a dict keyed by their names under
+``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
+the stacked leaves.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.attention import causal_attention
+from repro_torch.models.layers import (ShardCtx, apply_rope, linear, rmsnorm,
+                                       unembed_logits, vocab_parallel_xent)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    g = linear(p["mlp.gate.w"], x, ctx)
+    u = linear(p["mlp.up.w"], x, ctx)
+    return linear(p["mlp.down.w"], F.silu(g) * u, ctx)
+
+
+def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+               ctx: ShardCtx) -> torch.Tensor:
+    """x: the pre-normed (B, S, d) input; returns the attention output
+    (the caller adds the residual)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = linear(p["attn.wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p["attn.wk.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p["attn.wv.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = causal_attention(q, k, v, positions)
+    return linear(p["attn.wo.w"], out.reshape(b, s, cfg.n_heads * hd), ctx)
+
+
+def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cfg, ctx: ShardCtx) -> torch.Tensor:
+    x = x + attn_apply(p, rmsnorm(p["ln1.scale"], x, cfg.norm_eps),
+                       positions, cfg, ctx)
+    return x + mlp_apply(p, rmsnorm(p["ln2.scale"], x, cfg.norm_eps), ctx)
+
+
+def _chunk_loss(table: torch.Tensor, xb: torch.Tensor, lb: torch.Tensor,
+                ctx: ShardCtx) -> torch.Tensor:
+    logits = unembed_logits(table, xb, ctx)
+    per_tok = vocab_parallel_xent(logits, lb.clamp(min=0))
+    return (per_tok * (lb >= 0)).sum()
+
+
+def lm_loss(final_scale: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
+            labels: torch.Tensor, cfg, ctx: ShardCtx,
+            xent_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """Memory-bounded LM loss: the logits are produced and consumed one
+    sequence chunk at a time, each chunk recomputed in the backward pass,
+    so peak memory holds one chunk of logits.  labels < 0 are masked out.
+    Returns (sum of token losses, token count), both local."""
+    x = rmsnorm(final_scale, x, cfg.norm_eps)
+    s = x.shape[1]
+    chunk = min(xent_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c in range(x.shape[1] // chunk):
+        xb = x[:, c * chunk:(c + 1) * chunk]
+        lb = labels[:, c * chunk:(c + 1) * chunk]
+        if torch.is_grad_enabled():
+            loss = checkpoint(_chunk_loss, table, xb, lb, ctx,
+                              use_reentrant=False)
+        else:
+            loss = _chunk_loss(table, xb, lb, ctx)
+        total = total + loss
+        count = count + (lb >= 0).sum()
+    return total, count
