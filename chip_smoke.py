@@ -8,23 +8,29 @@ Phases, each fatal on failure:
   1. device: the card's name and power limit (``nvidia-smi``);
   2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc``;
   3. kernels: each kernel at the main path's shapes against its plain
-     PyTorch version on the same inputs (bit-exact for the bit kernels,
+     PyTorch version on the same inputs (bit-exact for the bit kernels, QSGD
+     quantization and threshold masking, edge inputs included;
      ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)`` for the fp32
      products, which differ only in summation order), with its median time
      over 25 launches from a cold L2 cache, the plain version's, the
      ``torch.matmul`` yardstick's (TF32 off; the port never calls it) and
      the card's lower bound;
-  4. reference: on a small input, PowerSGD and SignSGD aggregation on the
-     card (kernels) against the same code on the CPU (plain versions);
+  4. reference: on a small input, every compressor's aggregation on the
+     card (kernels) against the same code on the CPU (plain versions),
+     with the CPU's draws moved to the card through each scheme's draw
+     function; and one QSGD bucket aggregated on the card with PyTorch's
+     sync debug mode set to error (no host-device synchronisation);
   5. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
-     ``data`` axis as the tests do: 3 PowerSGD steps, then 2 SignSGD steps,
-     batch 4 x 512 tokens.  Every loss must be finite and each kernel's
-     launch count must equal its count per step times the steps.  Each run
-     then takes one more step under ``torch.profiler``, kept out of the
-     step records and launch counts; its device time is printed by layer,
-     with the share of the last unprofiled step's wall time in which no
-     kernel ran.
+     ``data`` axis as the tests do, batch 4 x 512 tokens: 3 PowerSGD steps,
+     2 SignSGD steps, 3 QSGD steps (8 bits, error feedback on), then one
+     step each of TernGrad, RandomK, MSTop-K and ``ef:qsgd``.  Every loss
+     must be finite and each kernel's launch count must equal its count
+     per step times the steps (``threshold_mask`` is on no path, as in the
+     JAX package: 0).  Each run then takes one more step under
+     ``torch.profiler``, kept out of the step records and launch counts;
+     its device time is printed by layer, with the share of the last
+     unprofiled step's wall time in which no kernel ran.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -49,6 +55,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 REPS = 25
 FP32_RTOL = 1e-5
+#: QSGD's norm and TernGrad's max|g| are reductions taken in another order
+#: on the card than on the CPU; where they differ in the last bit a level
+#: may move by one step on at most this share of the elements (and one).
+LEVEL_SHARE = 1e-4
+#: every kernel, by its launch-count name in ``build.LAUNCHES``
+KERNELS = ("powersgd_encode", "powersgd_decode", "pack_signs",
+           "popcount_votes", "qsgd_quantize", "threshold_mask")
 
 
 def log(msg: str) -> None:
@@ -90,6 +103,38 @@ def fp32_err(out, ref) -> float:
     return err
 
 
+def level_err(out, ref, step: float, what: str) -> float:
+    """fp32-close, except that a level may move by one ``step`` on at most
+    LEVEL_SHARE of the elements (and one)."""
+    diff = (out - ref).abs()
+    bad = diff > FP32_RTOL * max(1.0, ref.abs().max().item())
+    n_bad = int(bad.sum())
+    if n_bad > max(1, LEVEL_SHARE * ref.numel()) or (
+            n_bad and not diff[bad].max().item() <= 1.001 * step + 1e-5):
+        raise AssertionError(f"{what}: {n_bad} of {ref.numel()} elements "
+                             f"differ, by up to {diff.max().item()} "
+                             f"(one level: {step})")
+    return diff.max().item()
+
+
+def same_bits(a, b) -> bool:
+    """Bit-for-bit equality: fp32 compared as its bits, so ``-0.0`` and
+    ``0.0`` differ and equal NaNs agree."""
+    import torch
+    if a.dtype == b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def on_device(state, device):
+    """A compressor state (NamedTuples, nested) with its tensors on
+    ``device``; a ``key`` stays on the host, as the port keeps it."""
+    return type(state)(*[
+        on_device(v, device) if isinstance(v, tuple)
+        else (v if name == "key" else v.to(device))
+        for name, v in zip(state._fields, state)])
+
+
 # ------------------------------------------------------------------ phases
 def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
     """Each kernel against its plain version at the main path's shapes.
@@ -99,6 +144,8 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
 
     from repro_torch.kernels import bitpack as kb
     from repro_torch.kernels import powersgd as kp
+    from repro_torch.kernels import qsgd as kq
+    from repro_torch.kernels import topk as kt
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -107,11 +154,19 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
     torch.backends.cudnn.allow_tf32 = False
     recs = {}
 
+    def check(name, label, kernel, plain):
+        """Bit-for-bit on an edge input; not timed."""
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not same_bits(out, ref):
+            raise AssertionError(f"{name} {label}: kernel != plain")
+        log(f"[kernels] {name} {label}: bit-exact")
+
     def case(name, label, kernel, plain, library, nbytes, ops, exact):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         if exact:
-            if not torch.equal(out, ref):
+            if not same_bits(out, ref):
                 raise AssertionError(f"{name} {label}: kernel != plain")
             err = 0.0
         else:
@@ -158,50 +213,159 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
                  lambda: kb.plain_popcount_votes(gathered, n), None,
                  4 * p_rows * words + 4 * n, 3 * p_rows * n, True)
         del g
+
+    for n in (n_full, n_last):
+        g = torch.randn(n, generator=gen, device=dev)
+        u = torch.rand(n, generator=gen, device=dev)
+        norm = torch.linalg.vector_norm(g) + 1e-12
+        for levels in (127, 1):
+            # 9 bytes and about 8 fp32 operations per element
+            case("qsgd_quantize", f"n={n} levels={levels}",
+                 lambda: kq.quantize(g, norm, levels, u),
+                 lambda: kq.plain_quantize(g, norm, levels, u), None,
+                 9 * n + 4, 8 * n, True)
+        t = torch.quantile(g.abs(), 0.99)         # MSTop-K's 1%
+        g[:5] = torch.tensor([-0.0, float("nan"), 0.0, float("-inf"),
+                              float("inf")])
+        case("threshold_mask", f"n={n} t=p99", lambda: kt.threshold_mask(g, t),
+             lambda: kt.plain_threshold_mask(g, t), None, 8 * n + 4, 2 * n,
+             True)
+        del g, u
+    # edge inputs at the full bucket size
+    n = n_full
+    u = torch.rand(n, generator=gen, device=dev)
+    zeros = torch.zeros(n, device=dev)
+    one_hot = torch.zeros(n, device=dev)
+    one_hot[n // 3] = -1.0                    # s == levels: no carry
+    signed = torch.randn(n, generator=gen, device=dev)
+    signed[::3], signed[1::3] = -0.0, 0.0
+    for label, g in (("zeros", zeros), ("one-hot", one_hot),
+                     ("signed zeros", signed)):
+        norm = torch.linalg.vector_norm(g) + 1e-12
+        for levels in (127, 1):
+            check("qsgd_quantize", f"{label} levels={levels}",
+                  lambda: kq.quantize(g, norm, levels, u),
+                  lambda: kq.plain_quantize(g, norm, levels, u))
+    q = kq.quantize(one_hot, torch.linalg.vector_norm(one_hot) + 1e-12,
+                    127, u)
+    if q[n // 3].item() != -127 or int((q != 0).sum()) != 1:
+        raise AssertionError("qsgd_quantize: one-hot bucket is not -127")
+    for tv in (0.0, -1.0, float("inf")):      # -0.0 kept where t <= 0
+        t = torch.tensor(tv, device=dev)
+        check("threshold_mask", f"signed zeros t={tv}",
+              lambda: kt.threshold_mask(signed, t),
+              lambda: kt.plain_threshold_mask(signed, t))
+    del u, zeros, one_hot, signed, q
     del flush
     torch.cuda.empty_cache()
     return recs
 
 
 def reference_phase():
-    """PowerSGD and SignSGD aggregation of the same buckets and state on
-    the card and on the CPU (the plain versions): outputs and new state
-    agree to fp32 summation order, SignSGD's signs exactly."""
+    """Every compressor's aggregation of the same buckets and state on the
+    card and on the CPU (the plain versions): outputs and new state agree
+    to fp32 summation order, SignSGD's signs exactly, QSGD's and
+    TernGrad's levels up to one step on LEVEL_SHARE of the elements.  The
+    stochastic schemes draw on the CPU, and their draw functions move the
+    draws to the card, so both sides round with the same numbers.  Then
+    one QSGD and one ``ef:qsgd`` bucket are aggregated on the card with
+    the sync debug mode set to error."""
     import torch
 
     from repro_torch.core import aggregator as agg_mod
+    from repro_torch.core.compression import qsgd, randomk, terngrad
 
     gen = torch.Generator().manual_seed(1)
     sizes = (70_000, 5_000)                 # a ragged matrix shape, a small one
     buckets = [torch.randn(n, generator=gen) for n in sizes]
-    for comp in ("powersgd", "signsgd"):
-        cfg = agg_mod.AggregatorConfig(compressor=comp,
-                                       compress_axes=("data",), raw_axes=())
-        agg = agg_mod.GradAggregator(cfg)
-        states = [agg.compressor.init_state(n, gen) for n in sizes]
-        for st in states:
-            if hasattr(st, "err"):
-                st.err.copy_(0.1 * torch.randn(st.err.shape, generator=gen))
-        cpu_out, cpu_st = agg.aggregate_bucket_list(buckets, states)
-        gpu_out, gpu_st = agg.aggregate_bucket_list(
-            [b.cuda() for b in buckets],
-            [type(s)(*[t.cuda() for t in s]) for s in states])
-        for a, b in zip(gpu_out, cpu_out):
-            fp32_err(a.cpu(), b)
-            if comp == "signsgd" and not torch.equal(a.cpu().sign(),
-                                                     b.sign()):
-                raise AssertionError("signsgd: signs differ from the CPU")
-        for a, b in zip(gpu_st, cpu_st):
-            for x, y in zip(a, b):
-                fp32_err(x.cpu(), y)
-        log(f"[reference] {comp}: card == CPU on buckets {sizes}")
+    draw_fns = {(qsgd, "uniform"): qsgd.uniform,
+                (terngrad, "uniform"): terngrad.uniform,
+                (randomk, "indices"): randomk.indices}
+
+    def on_cpu_then(fn):
+        return lambda *a: fn(*a[:-1], "cpu").to(a[-1])
+    for (mod, attr), fn in draw_fns.items():
+        setattr(mod, attr, on_cpu_then(fn))
+    try:
+        for comp in ("powersgd", "signsgd", "qsgd", "terngrad", "randomk",
+                     "mstopk", "ef:qsgd", "ef:signsgd"):
+            cfg = agg_mod.AggregatorConfig(compressor=comp,
+                                           compress_axes=("data",),
+                                           raw_axes=())
+            agg = agg_mod.GradAggregator(cfg)
+            states = [live_state(agg.compressor.init_state(n, gen), n, gen)
+                      for n in sizes]
+            cpu_out, cpu_st = agg.aggregate_bucket_list(buckets, states)
+            gpu_out, gpu_st = agg.aggregate_bucket_list(
+                [b.cuda() for b in buckets],
+                [on_device(s, "cuda") for s in states])
+            stochastic = comp.removeprefix("ef:") in ("qsgd", "terngrad")
+            for b, st, a, ref, new, new_ref in zip(
+                    buckets, states, gpu_out, cpu_out, gpu_st, cpu_st):
+                g = b + sum(t for t in flat_state(st)
+                            if t.shape == b.shape)
+                step = (g.norm().item() / 127 if "qsgd" in comp
+                        else g.abs().max().item())
+                pairs = [(a.cpu(), ref, "out")] + [
+                    (x.cpu(), y, f"state {i}") for i, (x, y) in enumerate(
+                        zip(flat_state(new), flat_state(new_ref)))]
+                for x, y, what in pairs:
+                    if stochastic:
+                        level_err(x, y, step, f"{comp} {what}")
+                    else:
+                        fp32_err(x, y)
+                if "signsgd" in comp and not torch.equal(a.cpu().sign(),
+                                                         ref.sign()):
+                    raise AssertionError(f"{comp}: signs differ from the CPU")
+            log(f"[reference] {comp}: card == CPU on buckets {sizes}")
+    finally:
+        for (mod, attr), fn in draw_fns.items():
+            setattr(mod, attr, fn)
+    # the port's own draws, made on the card from the host-side key
+    for comp in ("qsgd", "ef:qsgd"):
+        agg = agg_mod.GradAggregator(agg_mod.AggregatorConfig(
+            compressor=comp, compress_axes=("data",), raw_axes=()))
+        b = buckets[0].cuda()
+        st = on_device(agg.compressor.init_state(b.numel(), gen), "cuda")
+        agg.aggregate_one(b, st)                           # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            agg.aggregate_one(b, st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"[reference] {comp}: one bucket aggregated on the card "
+            f"without a host-device sync")
+
+
+def flat_state(state) -> list:
+    """The tensors of a state (NamedTuples, nested), keys left out."""
+    out = []
+    for name, v in zip(state._fields, state):
+        if isinstance(v, tuple):
+            out += flat_state(v)
+        elif name != "key":
+            out.append(v)
+    return out
+
+
+def live_state(state, n: int, gen):
+    """``state`` with a live error-feedback residual in every (n,) fp32
+    field, as a step after the first has."""
+    import torch
+    for t in flat_state(state):
+        if t.shape == (n,) and t.dtype == torch.float32:
+            t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return state
 
 
 #: kernel-name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = (
     ("compression kernels", ("encode_rows", "encode_cols", "sum_splits",
                              "decode_kernel", "pack_kernel",
-                             "votes_kernel")),
+                             "votes_kernel", "quantize_kernel",
+                             "threshold_mask_kernel")),
     ("nccl", ("nccl",)),
     ("matmul", ("gemm", "sm90_", "cutlass", "nvjet", "xmma", "cublas")),
 )
@@ -280,8 +444,7 @@ def train_phase(comp: str, steps: int, per_step: dict[str, int]):
     log(f"[profile] {comp} " + json.dumps(
         device_breakdown(prof, profiled["step_s"], history[-1]["step_s"])))
     want = {k: v * steps for k, v in per_step.items()}
-    for k in ("powersgd_encode", "powersgd_decode", "pack_signs",
-              "popcount_votes"):
+    for k in KERNELS:
         if counts.get(k, 0) != want.get(k, 0):
             raise AssertionError(f"{comp}: {k} launched {counts.get(k, 0)} "
                                  f"times, expected {want.get(k, 0)}")
@@ -339,31 +502,45 @@ def main() -> int:
     try:
         reference_phase()
         nb = layout.n_buckets
-        psgd_hist, psgd_counts = train_phase(
-            "powersgd", 3, {"powersgd_encode": 2 * nb, "powersgd_decode": nb})
-        sign_hist, sign_counts = train_phase(
-            "signsgd", 2, {"pack_signs": nb, "popcount_votes": nb})
+        runs = {                 # name -> (steps, launches per step)
+            "powersgd": (3, {"powersgd_encode": 2 * nb,
+                             "powersgd_decode": nb}),
+            "signsgd": (2, {"pack_signs": nb, "popcount_votes": nb}),
+            "qsgd": (3, {"qsgd_quantize": nb}),
+            "terngrad": (1, {}), "randomk": (1, {}), "mstopk": (1, {}),
+            "ef:qsgd": (1, {"qsgd_quantize": nb})}
+        hist, counts = {}, {}
+        for comp, (steps, per_step) in runs.items():
+            hist[comp], counts[comp] = train_phase(comp, steps, per_step)
     finally:
         dist.destroy_process_group()
-    log("[train] " + json.dumps({"powersgd": psgd_hist,
-                                 "signsgd": sign_hist}))
+    log("[train] " + json.dumps(hist))
 
+    # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
         "powersgd_encode": ("src/repro_torch/kernels/csrc/powersgd.cu",
-                            "src/repro/kernels/powersgd.py:43", psgd_counts),
+                            "src/repro/kernels/powersgd.py:43", "powersgd"),
         "powersgd_decode": ("src/repro_torch/kernels/csrc/powersgd.cu",
-                            "src/repro/kernels/powersgd.py:77", psgd_counts),
+                            "src/repro/kernels/powersgd.py:77", "powersgd"),
         "pack_signs": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                       "src/repro/kernels/bitpack.py:35", sign_counts),
+                       "src/repro/kernels/bitpack.py:35", "signsgd"),
         "popcount_votes": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                           "src/repro/kernels/bitpack.py:72", sign_counts),
+                           "src/repro/kernels/bitpack.py:72", "signsgd"),
+        "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
+                          "src/repro/kernels/qsgd.py:31", "qsgd"),
+        # on no path, as in the JAX package: its launches over every run
+        "threshold_mask": ("src/repro_torch/kernels/csrc/topk.cu",
+                           "src/repro/kernels/topk.py:26", None),
     }
     kernels = []
-    for name, (src, replaces, counts) in sources.items():
+    for name, (src, replaces, run) in sources.items():
         head = recs[name][0]
+        launches = counts[run].get(name, 0) if run else sum(
+            c.get(name, 0) for c in counts.values())
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches,
+            "main_path_run": run or "none (off-path, as in the JAX package)",
             "max_abs_err": max(c["max_abs_err"] for c in recs[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

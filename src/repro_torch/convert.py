@@ -2,9 +2,12 @@
 
 PyTorch's and JAX's random generators never give the same draws, so
 comparisons of the two start from carried-over state: the parameter tree
-and the per-bucket compressor state (PowerSGD ``q``/``err``, SignSGD
-``err``).  Everything arrives as numpy arrays (``jax.device_get`` on the
-JAX side); this module imports neither JAX nor the JAX package.
+and the per-bucket compressor state (PowerSGD ``q``/``err``, the ``err``
+of the other schemes, the ``key`` of the stochastic ones, and the
+``ef:`` wrapper's ``EFState(inner, residual)`` with its nested inner
+state).  Everything arrives as numpy arrays (``jax.device_get`` on the JAX
+side, and ``jax.random.key_data`` for a key: two uint32 words); this
+module imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -44,19 +47,30 @@ def load_params(model: torch.nn.Module, tree: Mapping) -> None:
             p.copy_(src)
 
 
+def _state(template: tuple, src: Any, index: Optional[int],
+           device: "str | torch.device") -> tuple:
+    """One JAX state (a NamedTuple, or a mapping of field name -> value)
+    -> the port's NamedTuple of ``template``'s type, field by field."""
+    fields = {}
+    for name, tmpl in zip(template._fields, template):
+        a = src[name] if isinstance(src, Mapping) else getattr(src, name)
+        if isinstance(tmpl, tuple):              # a nested state
+            fields[name] = _state(tmpl, a, index, device)
+            continue
+        a = np.asarray(a)
+        if index is not None:
+            a = a[index]
+        if name == "key":                        # raw key words: the host
+            fields[name] = torch.from_numpy(a.astype(np.int64))
+        else:
+            fields[name] = torch.from_numpy(np.array(a)).to(device)
+    return type(template)(**fields)
+
+
 def agg_states(compressor, states: Sequence[Any], index: Optional[int] = 0,
                device: "str | torch.device" = "cpu") -> tuple:
-    """Per-bucket JAX compressor states (NamedTuples of arrays) -> the
-    port's.  ``index`` picks one rank's row of the leading device dim the
-    JAX TrainState carries; ``None`` when there is none."""
-    cls = type(compressor.init_state(1, None, device="meta"))
-    out = []
-    for st in states:
-        fields = {}
-        for name in cls._fields:
-            a = np.asarray(getattr(st, name))
-            if index is not None:
-                a = a[index]
-            fields[name] = torch.from_numpy(np.array(a)).to(device)
-        out.append(cls(**fields))
-    return tuple(out)
+    """Per-bucket JAX compressor states -> the port's.  ``index`` picks one
+    rank's row of the leading device dim the JAX TrainState carries;
+    ``None`` when there is none.  Keys stay on the host."""
+    template = compressor.init_state(1, None, device="meta")
+    return tuple(_state(template, st, index, device) for st in states)

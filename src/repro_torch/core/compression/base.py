@@ -19,9 +19,21 @@ bytes are derived from the payloads: ``wire_round_bytes`` runs the encode
 path on the ``meta`` device, so it allocates nothing and launches no
 kernel.
 
-Ported compressors: ``none``, ``powersgd`` and ``signsgd``.  The other
-names of the JAX registry, and the ``ef:`` wrapper, raise
-``NotImplementedError`` until their slice.
+Ported compressors: every name of the JAX registry (``none``,
+``powersgd``, ``signsgd``, ``qsgd``, ``terngrad``, ``randomk``,
+``mstopk``), and any of them but ``powersgd`` behind the ``ef:`` prefix
+(``make("ef:randomk")``): the error-feedback wrapper of
+``repro_torch.adaptive.feedback`` around the inner compressor, with the
+inner scheme's plan fields.
+
+Randomness.  A stochastic compressor's state carries a ``key``: two
+32-bit words in an ``int64`` tensor that stays on the host (the layout of
+``jax.random.key_data``).  Its draws come from a generator on the bucket's
+device seeded from the key (``key_generator``), so drawing costs no
+host-device synchronisation; ``decode`` advances the key as JAX's
+``split`` does (``split_key``).  Torch's Philox and JAX's threefry give
+different draws from the same key, so the parity tests replace each
+scheme's one draw function with JAX's draws.
 """
 from __future__ import annotations
 
@@ -36,10 +48,52 @@ from repro_torch.parallel import commplan as cp
 
 AxisNames = Sequence[str]
 
-#: registry names of the JAX package that later slices port.
-NOT_PORTED = ("mstopk", "randomk", "qsgd", "terngrad")
-#: name prefix of the error-feedback wrapper (a later slice).
+#: name prefix resolving to the error-feedback wrapper.
 EF_PREFIX = "ef:"
+
+
+# --------------------------------------------------------------------------
+# keys of the stochastic compressors
+# --------------------------------------------------------------------------
+def new_key(generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A fresh key on the host: two words drawn from ``generator`` (zeros
+    without one)."""
+    if generator is None:
+        return torch.zeros((2,), dtype=torch.int64)
+    return torch.randint(0, 2**32, (2,), generator=generator,
+                         device=generator.device, dtype=torch.int64).cpu()
+
+
+def _seed(key: torch.Tensor, salt: int = 0) -> int:
+    k0, k1 = key.tolist()
+    return ((k0 << 32 | k1) ^ (salt * 0x9E3779B97F4A7C15)) % 2**64
+
+
+def split_key(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(carry, sub): the key to keep and one to draw from, as JAX's
+    ``split`` gives them; computed on the host."""
+    gen = torch.Generator().manual_seed(_seed(key))
+    words = torch.randint(0, 2**32, (4,), generator=gen, dtype=torch.int64)
+    return words[:2], words[2:]
+
+
+def key_generator(key: torch.Tensor, device: "str | torch.device",
+                  salt: int = 0) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded from ``key`` and ``salt`` (a rank,
+    as JAX's ``fold_in``); ``None`` on ``meta``, where nothing is drawn."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(_seed(key, salt))
+
+
+def rank_uniform(key: torch.Tensor, rank: Optional[int], n: int,
+                 device: "str | torch.device") -> torch.Tensor:
+    """The (n,) uniform draw in [0, 1) of one encode: from the key's ``sub``
+    half, different on each rank (JAX: ``uniform(fold_in(sub, rank))``)."""
+    _, sub = split_key(key)
+    return torch.rand((n,), generator=key_generator(sub, device, rank or 0),
+                      device=device)
 
 
 # --------------------------------------------------------------------------
@@ -101,6 +155,9 @@ def reduce_payload(payload: Payload, axes: AxisNames,
 class Compressor:
     name: str = "abstract"
     associative: bool = True
+    #: True -> error feedback is structural (always-on state, PowerSGD):
+    #: the ``ef:`` wrapper rejects these instead of compensating twice.
+    builtin_error_feedback: bool = False
 
     def init_state(self, n: int, generator: Optional[torch.Generator] = None,
                    device: "str | torch.device" = "cpu") -> Any:
@@ -175,8 +232,9 @@ def register_compressor(name: str, **plan_fields: str) -> Callable[[type],
 
 
 def _load_builtins() -> None:
-    from repro_torch.core.compression import (none, powersgd,  # noqa: F401
-                                              signsgd)
+    from repro_torch.core.compression import (mstopk, none,  # noqa: F401
+                                              powersgd, qsgd, randomk,
+                                              signsgd, terngrad)
 
 
 def registry() -> dict[str, CompressorSpec]:
@@ -185,23 +243,28 @@ def registry() -> dict[str, CompressorSpec]:
 
 
 def _spec(name: str) -> CompressorSpec:
+    """The registered spec of ``name``, or of its inner scheme for an
+    ``ef:`` name."""
     _load_builtins()
-    if name.startswith(EF_PREFIX) or name in NOT_PORTED:
-        raise NotImplementedError(f"compressor {name!r} is not ported yet "
-                                  f"(have {sorted(_REGISTRY)})")
+    name = name.removeprefix(EF_PREFIX)
     if name not in _REGISTRY:
         raise KeyError(f"unknown compressor {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def make(name: str, **kw) -> Compressor:
-    """Factory: ``make('powersgd', rank=4)``."""
+    """Factory: ``make('powersgd', rank=4)``; ``make('ef:<name>', **kw)``
+    builds the inner compressor and wraps it in error feedback."""
+    if name.startswith(EF_PREFIX):
+        from repro_torch.adaptive.feedback import wrap_error_feedback
+        return wrap_error_feedback(make(name[len(EF_PREFIX):], **kw))
     return _spec(name).cls(**kw)
 
 
 def plan_kwargs(plan) -> dict:
     """Constructor kwargs for ``plan.compression``, read off the registered
-    spec's ``ParallelPlan`` field mapping."""
+    spec's ``ParallelPlan`` field mapping (the inner scheme's for an
+    ``ef:`` name)."""
     return {kwarg: getattr(plan, field)
             for kwarg, field in _spec(plan.compression).plan_fields}
 

@@ -58,6 +58,7 @@ class PowerSGDState(NamedTuple):
 @register_compressor("powersgd", rank="powersgd_rank")
 class PowerSGD(Compressor):
     associative = True
+    builtin_error_feedback = True      # err and the warm start are its state
 
     def __init__(self, rank: int = 4, min_cols: int = 128):
         self.rank = rank

@@ -31,13 +31,7 @@ from repro_torch.kernels.ref import popcount_votes as plain_popcount_votes  # no
 
 
 def pack_signs(g: torch.Tensor) -> torch.Tensor:
-    if g.device.type != "cuda":
-        raise ValueError(f"g must be a CUDA tensor, got {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"g must be float32, got {g.dtype}")
-    if g.dim() != 1 or not g.is_contiguous():
-        raise ValueError(f"g must be contiguous and 1-D, got shape "
-                         f"{tuple(g.shape)}")
+    build.check_cuda_fp32("g", g)
     n = g.shape[0]
     out = torch.empty((-(-n // 32),), dtype=torch.int32, device=g.device)
     with torch.cuda.device(g.device):

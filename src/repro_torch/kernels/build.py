@@ -37,6 +37,8 @@ _SIGNATURES = {
     "rt_powersgd_decode": (_VP, _VP, _LL, _LL, _INT, _VP, _VP),
     "rt_pack_signs": (_VP, _LL, _VP, _VP),
     "rt_popcount_votes": (_VP, _INT, _LL, _LL, _VP, _VP),
+    "rt_qsgd_quantize": (_VP, _VP, _VP, _INT, _LL, _VP, _VP),
+    "rt_topk_threshold_mask": (_VP, _VP, _LL, _VP, _VP),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -125,6 +127,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().rt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def check_cuda_fp32(name: str, t, dim: int = 1) -> None:
+    """Refuse what a streaming kernel does not take: a tensor off the card,
+    not fp32, not contiguous, or not ``dim``-D (0 for a scalar that the
+    kernel reads through a pointer)."""
+    import torch
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != dim or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and {dim}-D, got shape "
+                         f"{tuple(t.shape)}")
 
 
 def stream_of(t) -> int:

@@ -42,3 +42,25 @@ def popcount_votes(gathered: torch.Tensor, n: int) -> torch.Tensor:
         from repro_torch.kernels import bitpack
         return bitpack.popcount_votes(gathered, n)
     return ref.popcount_votes(gathered, n)
+
+
+def qsgd_quantize(g: torch.Tensor, norm: torch.Tensor, levels: int,
+                  u: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(g):
+        from repro_torch.kernels import qsgd
+        return qsgd.quantize(g, norm, levels, u)
+    return ref.qsgd_quantize(g, norm, levels, u)
+
+
+def topk_threshold_mask(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    if _on_cuda(g):
+        from repro_torch.kernels import topk
+        return topk.threshold_mask(g, t)
+    return ref.topk_threshold_mask(g, t)
+
+
+def topk_select(g: torch.Tensor, k: int):
+    """Exact selection on every device, as in the JAX package: the
+    threshold-and-mask path is a separate op because its contract
+    (about k elements) differs."""
+    return ref.topk_select(g, k)

@@ -58,3 +58,41 @@ def popcount_votes(gathered: torch.Tensor, n: int) -> torch.Tensor:
     shifts = torch.arange(32, dtype=torch.int64, device=gathered.device)
     bits = (gathered.to(torch.int64)[:, :, None] >> shifts) & 1
     return bits.sum(dim=0).reshape(-1)[:n].to(torch.int32)
+
+
+# ---------------------------------------------------------------- top-k
+def topk_select(g: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by magnitude: (signed values, int32 indices), largest
+    magnitude first."""
+    _, idx = torch.topk(g.abs(), k)
+    return g[idx], idx.to(torch.int32)
+
+
+def topk_threshold_mask(g: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """|g| >= t ? g : 0.  NaN masks to 0; -0.0 is kept when t <= 0."""
+    return torch.where(g.abs() >= t, g, torch.zeros_like(g))
+
+
+def sampled_threshold(g: torch.Tensor, k: int,
+                      generator: "torch.Generator | None" = None,
+                      sample: int = 4096) -> torch.Tensor:
+    """Estimate the |g| threshold that keeps about k elements from the
+    (1 - k/n) quantile of ``sample`` magnitudes drawn with replacement
+    (the 'multi-stage' trick of MSTop-K: no full sort)."""
+    n = g.shape[0]
+    idx = torch.randint(0, n, (min(sample, n),), generator=generator,
+                        device=g.device)
+    return torch.quantile(g[idx].abs(), 1.0 - k / n)
+
+
+# ---------------------------------------------------------------- qsgd
+def qsgd_quantize(g: torch.Tensor, norm: torch.Tensor, levels: int,
+                  u: torch.Tensor) -> torch.Tensor:
+    """Stochastic uniform quantization to int8 levels in [-levels, levels]:
+    sign(g) * (floor(s) + [u < s - floor(s)]) with s = |g| / norm * levels,
+    in that order of operations (the JAX oracle's).  ``u`` is the uniform
+    draw in [0, 1), one per element; E[q * norm / levels] = g."""
+    scaled = g.abs() / norm * levels
+    low = torch.floor(scaled)
+    up = (u < scaled - low).to(torch.float32)
+    return (torch.sign(g) * (low + up)).to(torch.int8)

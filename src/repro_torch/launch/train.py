@@ -39,7 +39,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--compression", default=None,
-                    help="none|powersgd|signsgd")
+                    help="none|powersgd|signsgd|qsgd|terngrad|randomk|"
+                         "mstopk, or ef:<name> (error feedback; not "
+                         "ef:powersgd)")
     ap.add_argument("--comm", default=None,
                     help="auto|allreduce|reduce_scatter_allgather|gather_all")
     ap.add_argument("--log-every", type=int, default=10)

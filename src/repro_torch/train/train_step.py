@@ -9,10 +9,12 @@ is aggregated by the configured compressor over the DP axes.  Loss scaling
 is the JAX package's: ``loss_sum * p_dp / n_tokens_global``, so the mean
 over the ranks of the local gradients is the global-mean gradient.
 
-``build`` raises ``NotImplementedError`` on what later slices port: FSDP,
-ZeRO-1 (the ``tinyllama-1.1b`` default: pass ``zero1=False``), the
-overlapped schedule, accumulation, bf16 parameters, other optimizers,
-compressors and comm plans, and ``compress_axes`` other than ``"pod"``.
+Every compressor of the JAX registry runs here, and ``ef:<name>`` for
+all but PowerSGD.  ``build`` raises ``NotImplementedError`` on what later
+slices port: FSDP, ZeRO-1 (the ``tinyllama-1.1b`` default: pass
+``zero1=False``), the overlapped schedule, accumulation, the adaptive
+controller, bf16 parameters, other optimizers and comm plans, and
+``compress_axes`` other than ``"pod"``.
 Like the JAX ``build``, it drops reduction axes of size 1: on one rank the
 compressor is not run unless the caller points ``agg_cfg`` back at the
 ``data`` axis.
@@ -115,8 +117,11 @@ def _compressed(setup: TrainSetup) -> bool:
 
 def init_state(setup: TrainSetup, seed: int = 0) -> dict:
     """Fresh parameters from ``seed`` and zero optimizer and compressor
-    state (PowerSGD's warm starts are drawn from a second seed, the same
-    on every rank)."""
+    state.  PowerSGD's warm starts and the stochastic compressors' keys
+    are drawn bucket by bucket from one generator of a second seed, so
+    every bucket has its own and every rank the same (QSGD and TernGrad
+    fold the rank into their draws; RandomK needs the same indices on
+    every rank)."""
     dev = setup.device
     setup.model.init_params(torch.Generator(device=dev).manual_seed(seed))
     params = list(setup.model.parameters())

@@ -2,22 +2,31 @@
 JAX package's oracles (``repro.kernels.ref``) on the same numpy inputs, and
 the dispatch rules of ``repro_torch.kernels.ops``.
 
-Tolerances: the bit kernels are exact; the fp32 products use
-``rtol=atol=1e-5`` (both sides accumulate in fp32, in different orders).
-M is drawn with variance 1 / max(rows, cols) so that the products are of
-order one and the tolerance is relative to the values compared.
-The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+Tolerances: the bit kernels, QSGD quantization and threshold masking are
+exact (the same inputs, the same fp32 operations in the same order); the
+fp32 products use ``rtol=atol=1e-5`` (both sides accumulate in fp32, in
+different orders).  M is drawn with variance 1 / max(rows, cols) so that
+the products are of order one and the tolerance is relative to the values
+compared.  QSGD's uniform draw is JAX's own (``jax.random.uniform`` of the
+key the JAX function gets, which is what its ``bernoulli`` compares
+against).  The CUDA kernels themselves run only on the card
+(``chip_smoke.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import qsgd as jqsgd
 from repro.kernels import ref as jref
+from repro.kernels import topk as jtopk
 from repro_torch.kernels import bitpack as kb
 from repro_torch.kernels import build, ops
 from repro_torch.kernels import powersgd as kp
+from repro_torch.kernels import qsgd as kq
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk as kt
 
 # the shapes of tests/test_kernels.py::test_powersgd_encode_decode
 PSGD_SHAPES = [(8, 128, 1), (256, 512, 4), (300, 700, 4), (1000, 130, 16),
@@ -86,6 +95,93 @@ def test_popcount_votes_match_jax(n, p):
         got.numpy(), np.asarray(jref.popcount_votes(jnp.asarray(gathered), n)))
 
 
+def _qsgd_input(case, n, seed):
+    g = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    if case == "zeros":                 # norm = 1e-12, every level 0
+        g[:] = 0.0
+    elif case == "one-hot":             # s == levels exactly: no carry
+        g[:] = 0.0
+        g[n // 3] = -1.0
+    elif case == "signed-zeros":
+        g[::3] = -0.0
+        g[1::3] = 0.0
+    return g
+
+
+@pytest.mark.parametrize("case,n,levels", [
+    ("normal", 33, 1), ("normal", 1000, 7), ("normal", 70_000, 127),
+    ("zeros", 1000, 127), ("one-hot", 1000, 127), ("one-hot", 1000, 1),
+    ("signed-zeros", 1000, 7)])
+def test_qsgd_quantize_matches_jax_bit_for_bit(case, n, levels):
+    g = _qsgd_input(case, n, n + levels)
+    norm = np.float32(np.linalg.norm(g)) + np.float32(1e-12)
+    key = jax.random.key(n * 131 + levels)
+    u = np.array(jax.random.uniform(key, (n,), jnp.float32))
+    got = tref.qsgd_quantize(_t(g), torch.tensor(norm), levels, _t(u))
+    assert got.dtype == torch.int8 and got.shape == (n,)
+    want = np.asarray(jref.qsgd_quantize(jnp.asarray(g), jnp.asarray(norm),
+                                         levels, key))
+    np.testing.assert_array_equal(got.numpy(), want)
+    pallas = np.asarray(jqsgd.quantize(jnp.asarray(g), jnp.asarray(norm),
+                                       levels, key, interpret=True))
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    assert np.abs(got.numpy()).max() <= levels
+    if case == "one-hot":
+        assert got.numpy()[n // 3] == -levels and np.count_nonzero(got) == 1
+    if case in ("zeros", "signed-zeros"):
+        assert not got.numpy()[::3].any()
+
+
+def _mask_input(n, seed):
+    g = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    special = np.array([-0.0, np.nan, 0.0, -np.inf, np.inf, 1e-30],
+                       np.float32)
+    g[:special.size] = special
+    return g
+
+
+@pytest.mark.parametrize("n,t", [(6, 0.0), (1000, 0.0), (1000, -1.0),
+                                 (1000, 1.5), (70_000, 2.0),
+                                 (70_000, np.inf)])
+def test_topk_threshold_mask_matches_jax_exactly(n, t):
+    g = _mask_input(n, n)
+    t = np.float32(t)
+    got = tref.topk_threshold_mask(_t(g), torch.tensor(t)).numpy()
+    want = np.asarray(jref.topk_threshold_mask(jnp.asarray(g),
+                                               jnp.asarray(t)))
+    pallas = np.asarray(jtopk.threshold_mask(jnp.asarray(g), jnp.asarray(t),
+                                             interpret=True))
+    # bit patterns: -0.0 kept where t <= 0, NaN masked to +0.0
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), pallas.view(np.int32))
+    assert got[1] == 0 and not np.isnan(got).any()
+    if t <= 0:
+        assert np.signbit(got[0])
+
+
+@pytest.mark.parametrize("n,k", [(1000, 10), (70_000, 700), (5_000, 1)])
+def test_topk_select_matches_jax(n, k):
+    g = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    vals, idx = tref.topk_select(_t(g), k)
+    jvals, jidx = jref.topk_select(jnp.asarray(g), k)
+    assert idx.dtype == torch.int32 and vals.shape == (k,)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+@pytest.mark.parametrize("n,frac", [(100_000, 0.01), (1_000_000, 0.01),
+                                    (200_000, 0.05)])
+def test_sampled_threshold_keeps_about_k(n, frac):
+    """The sampled threshold keeps between half and twice k elements at
+    MSTop-K's fractions (the JAX package's check)."""
+    g = torch.from_numpy(
+        np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    k = int(n * frac)
+    t = tref.sampled_threshold(g, k, torch.Generator().manual_seed(n))
+    kept = int((tref.topk_threshold_mask(g, t) != 0).sum())
+    assert 0.5 * k <= kept <= 2 * k, (kept, k)
+
+
 def test_ops_dispatch_cpu_to_plain_and_count_nothing():
     build.reset_launches()
     m, q = torch.randn(40, 128), torch.randn(128, 4)
@@ -97,6 +193,14 @@ def test_ops_dispatch_cpu_to_plain_and_count_nothing():
     assert torch.equal(w, tref.pack_signs(g))
     assert torch.equal(ops.popcount_votes(w[None], 100),
                        tref.popcount_votes(w[None], 100))
+    norm, u = g.norm() + 1e-12, torch.rand(100)
+    assert torch.equal(ops.qsgd_quantize(g, norm, 127, u),
+                       tref.qsgd_quantize(g, norm, 127, u))
+    t = torch.tensor(0.5)
+    assert torch.equal(ops.topk_threshold_mask(g, t),
+                       tref.topk_threshold_mask(g, t))
+    for a, b in zip(ops.topk_select(g, 7), tref.topk_select(g, 7)):
+        assert torch.equal(a, b)
     assert sum(build.LAUNCHES.values()) == 0
 
 
@@ -104,8 +208,13 @@ def test_ops_run_shape_only_on_meta():
     m = torch.empty(2560, 2560, device="meta")
     q = torch.empty(2560, 4, device="meta")
     assert ops.powersgd_encode(m.T, q).shape == (2560, 4)
-    assert ops.pack_signs(torch.empty(6_553_600, device="meta")).shape \
-        == (204_800,)
+    g = torch.empty(6_553_600, device="meta")
+    assert ops.pack_signs(g).shape == (204_800,)
+    q = ops.qsgd_quantize(g, torch.empty((), device="meta"), 127,
+                          torch.empty_like(g))
+    assert q.shape == (6_553_600,) and q.dtype == torch.int8
+    vals, idx = ops.topk_select(g, 65_536)
+    assert vals.shape == idx.shape == (65_536,) and idx.dtype == torch.int32
 
 
 @pytest.mark.parametrize("call", [
@@ -113,7 +222,11 @@ def test_ops_run_shape_only_on_meta():
     lambda: kp.decode(torch.randn(4, 2), torch.randn(8, 2)),
     lambda: kb.pack_signs(torch.randn(64)),
     lambda: kb.popcount_votes(torch.zeros(2, 2, dtype=torch.int32), 64),
-], ids=["encode", "decode", "pack_signs", "popcount_votes"])
+    lambda: kq.quantize(torch.randn(64), torch.tensor(8.0), 127,
+                        torch.rand(64)),
+    lambda: kt.threshold_mask(torch.randn(64), torch.tensor(0.5)),
+], ids=["encode", "decode", "pack_signs", "popcount_votes", "quantize",
+        "threshold_mask"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """The kernel wrappers launch or raise: a CPU tensor is refused before
     anything is built, never handed to the plain version."""

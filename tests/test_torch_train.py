@@ -1,10 +1,14 @@
 """Two full steps of the slice — the classic DDP step with ``zero1=False``,
-AdamW and PowerSGD or SignSGD — on one rank, against the JAX package's
-``make_step`` from carried-over parameters and compressor state.  Both
-builds drop the size-1 ``data`` axis; both are pointed back at it (as
+AdamW and PowerSGD, SignSGD or QSGD — on one rank, against the JAX
+package's ``make_step`` from carried-over parameters and compressor state.
+Both builds drop the size-1 ``data`` axis; both are pointed back at it (as
 ``tests/test_adaptive.py`` does) so every bucket runs through the
-compressor.  Also: what ``build`` refuses, and that the entry points
-refuse to run without a GPU unless asked for the CPU.
+compressor.  QSGD gets JAX's draws: the test computes, from each bucket's
+carried-over key, the uniform that the JAX step draws for it in each step,
+and hands them to the port's ``qsgd.uniform`` in the order the port asks
+for them (bucket by bucket, step by step).  Also: what ``build`` refuses,
+and that the entry points refuse to run without a GPU unless asked for the
+CPU.
 
 Tolerances (bf16 compute on both sides, rounded at different places):
 loss ``rtol=1e-3``; grad norm ``rtol=1e-2``; parameters ``atol`` of
@@ -33,6 +37,7 @@ from repro.launch.mesh import make_local_mesh
 from repro.train import train_step as jts
 from repro_torch import convert
 from repro_torch.configs import base as tcfgs
+from repro_torch.core.compression import qsgd as tqsgd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train import train_step as tts
 
@@ -63,7 +68,11 @@ def _run_jax(comp):
         setup.agg_cfg, compress_axes=("data",), raw_axes=())
     setup.state_specs = jts._state_specs(setup)
     state = jts.init_state(setup, jax.random.key(0))
-    start = jax.device_get({"params": state["params"], "agg": state["agg"]})
+    start = jax.tree.map(
+        lambda x: np.asarray(jax.random.key_data(x)
+                             if jnp.issubdtype(x.dtype, jax.dtypes.prng_key)
+                             else x),
+        jax.device_get({"params": state["params"], "agg": state["agg"]}))
     batches = _batches()
     step = jts.make_step(setup)(batches[0])
     metrics = []
@@ -92,10 +101,35 @@ def _run_port(comp, start):
     return metrics, setup.model
 
 
-@pytest.mark.parametrize("comp", ["powersgd", "signsgd"])
-def test_two_steps_match_jax(comp):
+def _qsgd_draws(agg):
+    """JAX's uniforms for every QSGD encode of the run, in the port's call
+    order: the JAX step splits each bucket's key, folds in the rank (0)
+    and advances the key by the split's first half."""
+    keys = [jax.random.wrap_key_data(st.key[0]) for st in agg]
+    draws = []
+    for _ in range(STEPS):
+        for i, st in enumerate(agg):
+            carry, sub = jax.random.split(keys[i])
+            draws.append(np.array(jax.random.uniform(
+                jax.random.fold_in(sub, 0), st.err.shape[1:], jnp.float32)))
+            keys[i] = carry
+    return draws
+
+
+@pytest.mark.parametrize("comp", ["powersgd", "signsgd", "qsgd"])
+def test_two_steps_match_jax(comp, monkeypatch):
     start, jmetrics, jparams = _run_jax(comp)
+    if comp == "qsgd":
+        draws = iter(_qsgd_draws(start["agg"]))
+
+        def uniform(key, rank, n, device):
+            u = next(draws)
+            assert rank == 0 and u.shape == (n,)
+            return torch.from_numpy(u)
+        monkeypatch.setattr(tqsgd, "uniform", uniform)
     tmetrics, model = _run_port(comp, start)
+    if comp == "qsgd":
+        assert next(draws, None) is None        # every draw was used
     for jm, tm in zip(jmetrics, tmetrics):
         assert tm["tokens"] == int(jm["tokens"]) == 128
         np.testing.assert_allclose(tm["loss"], float(jm["loss"]), rtol=1e-3)
@@ -114,17 +148,32 @@ def test_two_steps_match_jax(comp):
     dict(),                                      # the arch's zero1=True
     dict(zero1=False, dp_mode="fsdp"),
     dict(zero1=False, overlap=True),
-    dict(zero1=False, compression="qsgd"),
+    dict(zero1=False, adaptive=True),
     dict(zero1=False, comm="hierarchical"),
     dict(zero1=False, param_dtype="bfloat16"),
     dict(zero1=False, optimizer="adafactor"),
     dict(zero1=False, compress_axes="all"),
-], ids=["zero1", "fsdp", "overlap", "qsgd", "hierarchical", "bf16-params",
-        "adafactor", "compress-axes-all"])
+], ids=["zero1", "fsdp", "overlap", "adaptive", "hierarchical",
+        "bf16-params", "adafactor", "compress-axes-all"])
 def test_build_refuses_what_is_not_ported(overrides):
     cfg = tcfgs.reduced(tcfgs.get("tinyllama-1.1b"))
     with pytest.raises(NotImplementedError):
         tts.build(cfg, "cpu", **overrides)
+
+
+def test_init_state_gives_every_bucket_its_own_key():
+    """The stochastic compressors' keys come bucket by bucket from one
+    seeded generator: distinct across buckets, repeated for the seed, and
+    on the host."""
+    setup = tts.build(tcfgs.reduced(tcfgs.get("tinyllama-1.1b")), "cpu",
+                      compression="ef:qsgd", **OVERRIDES)
+    setup.agg_cfg = dataclasses.replace(
+        setup.agg_cfg, compress_axes=("data",), raw_axes=())
+    keys = [st.inner.key for st in tts.init_state(setup)["agg"]]
+    assert len(keys) == 4 and all(k.device.type == "cpu" for k in keys)
+    assert len({tuple(k.tolist()) for k in keys}) == 4
+    again = [st.inner.key for st in tts.init_state(setup)["agg"]]
+    assert all(torch.equal(a, b) for a, b in zip(keys, again))
 
 
 def test_make_step_refuses_accumulation():
@@ -165,6 +214,23 @@ def test_launcher_raises_without_gpu_and_runs_on_cpu():
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "agg=signsgd@()" in out.stdout and "done at step 2" in out.stdout
+
+
+def test_launcher_runs_qsgd_on_four_gloo_ranks():
+    """``--compression qsgd`` through the launcher on 4 CPU ranks: the
+    ``data`` axis has size 4, so every bucket is quantized and
+    all-gathered."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "16",
+         "--log-every", "1", "--compression", "qsgd"],
+        env=env, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "world=4" in out.stdout and "agg=qsgd@('data',)" in out.stdout
+    assert "done at step 2" in out.stdout
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
