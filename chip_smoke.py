@@ -11,10 +11,16 @@ Phases, each fatal on failure:
      PyTorch version on the same inputs (bit-exact for the bit kernels, QSGD
      quantization and threshold masking, edge inputs included;
      ``max|kernel - plain| <= 1e-5 * max(1, max|plain|)`` for the fp32
-     products, which differ only in summation order), with its median time
-     over 25 launches from a cold L2 cache, the plain version's, the
-     ``torch.matmul`` yardstick's (TF32 off; the port never calls it) and
-     the card's lower bound;
+     products, which differ only in summation order), with the median,
+     fastest and slowest of 25 launches, each after a 256 MB read that
+     leaves the L2 clean, for the kernel, its plain version and the
+     ``torch.matmul`` yardstick (TF32 off; the port never calls it), and
+     the card's lower bound.  The PowerSGD kernels also run on ragged,
+     misaligned and transposed inputs at ranks 1, 3, 4 and 16, twice each
+     (the same bits required), encode also on two streams at once (the
+     bits it gives alone required), and are timed once more after a write
+     flush and warm (the ``[timer]`` line).  The SM and memory clocks and
+     the temperature are printed before and after the phase;
   4. reference: on a small input, every compressor's aggregation on the
      card (kernels) against the same code on the CPU (plain versions),
      with the CPU's draws moved to the card through each scheme's draw
@@ -30,7 +36,8 @@ Phases, each fatal on failure:
      JAX package: 0).  Each run then takes one more step under
      ``torch.profiler``, kept out of the step records and launch counts;
      its device time is printed by layer, with the share of the last
-     unprofiled step's wall time in which no kernel ran.
+     unprofiled step's wall time in which no kernel ran, and every
+     compression kernel by name (launches, ms, us per launch).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -54,6 +61,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 REPS = 25
+SPIN_CYCLES = 200_000            # about 0.1 ms at the H100's 1.98 GHz
 FP32_RTOL = 1e-5
 #: QSGD's norm and TernGrad's max|g| are reductions taken in another order
 #: on the card than on the CPU; where they differ in the last bit a level
@@ -69,15 +77,15 @@ def log(msg: str) -> None:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(fn, flush) -> float:
-    """Median device time of ``fn`` over REPS launches, each after the L2
-    cache was overwritten (the caller finds its bucket in device memory)."""
+def time_ms(fn, evict) -> dict:
+    """Device time of ``fn`` over REPS launches, each after ``evict()``:
+    the median, the fastest and the slowest (ms)."""
     import torch
     for _ in range(3):
         fn()
     times = []
     for _ in range(REPS):
-        flush.zero_()
+        evict()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -85,7 +93,35 @@ def time_ms(fn, flush) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return {"ms": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+def evictors(flush) -> dict:
+    """Ways to empty the 50 MB L2 before a timed launch.  ``read`` sums a
+    buffer five times the L2's size, so the L2 is left holding clean lines
+    and the timed kernel's misses write nothing back: the timer of every
+    ``ms`` this script reports.  ``write`` zeroes the buffer instead (the
+    timer's earlier form): the L2 is left full of dirty lines, and the
+    timed kernel's misses pay for writing them back.  ``warm`` evicts nothing,
+    as on the training path, where M is written just before the encode.
+    Each ends with a 0.1 ms spin on the card, so that the timed launch is
+    queued before the card is free and its host-side cost stays out of
+    the time."""
+    import torch
+
+    def then_spin(fn):
+        return lambda: (fn(), torch.cuda._sleep(SPIN_CYCLES))
+    return {"read": then_spin(flush.sum), "write": then_spin(flush.zero_),
+            "warm": then_spin(lambda: None)}
+
+
+def clocks(when: str) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[clocks] {when}: {smi}")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -150,6 +186,7 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    evict = evictors(flush)["read"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     recs = {}
@@ -172,10 +209,13 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
         else:
             err = fp32_err(out, ref)
         b_ms, b_by = bound(nbytes, ops)
-        c = {"case": label, "max_abs_err": err,
-             "ms": time_ms(kernel, flush), "plain_ms": time_ms(plain, flush),
-             "library_ms": time_ms(library, flush) if library else None,
-             "bound_ms": b_ms, "bound_by": b_by}
+        t = {"": time_ms(kernel, evict), "plain_": time_ms(plain, evict),
+             "library_": time_ms(library, evict) if library else None}
+        c = {"case": label, "max_abs_err": err}
+        for pre, v in t.items():
+            c[pre + "ms"] = v and v["ms"]
+        c.update(bound_ms=b_ms, bound_by=b_by, spread_ms={
+            pre + "ms": [v["min"], v["max"]] for pre, v in t.items() if v})
         log(f"[kernels] {name} {label}: " + json.dumps(c))
         recs.setdefault(name, []).append(c)
 
@@ -195,7 +235,16 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
         case("powersgd_decode", f"P@Q^T {r_}x{c_} r{rank}",
              lambda: kp.decode(p, q), lambda: kp.plain_decode(p, q),
              lambda: torch.matmul(p, q.T), nb, ops, False)
+        for label, fn in (("M@Q", lambda: kp.encode(m, q)),
+                          ("M^T@P", lambda: kp.encode(mt, p)),
+                          ("P@Q^T", lambda: kp.decode(p, q))):
+            if not same_bits(fn(), fn()):
+                raise AssertionError(f"powersgd {label} {r_}x{c_}: two "
+                                     f"launches differ")
+        if (r_, c_) == (rows, cols):
+            flush_check(m, q, p, flush)
         del m, q, p, mt
+    powersgd_edges(gen)
 
     for n in (n_full, n_last):
         g = torch.randn(n, generator=gen, device=dev)
@@ -259,6 +308,108 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
     del flush
     torch.cuda.empty_cache()
     return recs
+
+
+def flush_check(m, q, p, flush) -> None:
+    """The PowerSGD kernels and a read-only yardstick (``torch.sum`` of M)
+    timed after each way of emptying the L2 (``evictors``), with the
+    bytes bound of each; prints one ``[timer]`` line."""
+    import torch
+
+    from repro_torch.kernels import powersgd as kp
+    rows, cols = m.shape
+    rank = q.shape[1]
+    nb = 4 * (rows * cols + (rows + cols) * rank)
+    fns = {f"torch.sum {rows}x{cols}": (lambda: torch.sum(m),
+                                        4 * rows * cols),
+           "encode M@Q": (lambda: kp.encode(m, q), nb),
+           "encode M^T@P": (lambda: kp.encode(m.T, p), nb),
+           "decode P@Q^T": (lambda: kp.decode(p, q), nb)}
+    out = {}
+    for name, (fn, nbytes) in fns.items():
+        out[name] = {how: time_ms(fn, ev)["ms"]
+                     for how, ev in evictors(flush).items()}
+        out[name]["bound_ms"] = bound(nbytes, 0)[0]
+    log("[timer] " + json.dumps(out))
+
+
+def powersgd_edges(gen) -> None:
+    """encode (M@Q and the transposed view) and decode against their plain
+    versions at ranks 1, 3, 4 and 16 on ragged shapes, the last bucket's
+    shape, and a view whose pointer and row stride are not 16-byte aligned
+    (storage offset 1, odd column count); each kernel launched twice on the
+    same input must give the same bits; then ``two_streams``."""
+    import torch
+
+    from repro_torch.kernels import powersgd as kp
+    dev = torch.device("cuda")
+
+    def rand(*shape, offset=0):
+        n = math.prod(shape)
+        flat = torch.randn(n + offset, generator=gen, device=dev)
+        return flat[offset:].view(*shape)
+
+    n = 0
+    for rank in (1, 3, 4, 16):
+        for shape, offset in (((1, 127), 0), ((127, 1), 0), ((37, 129), 0),
+                              ((2302, 2432), 0), ((37, 129), 1)):
+            rows, cols = shape
+            m = rand(rows, cols, offset=offset)
+            q, p = rand(cols, rank, offset=offset), rand(rows, rank,
+                                                         offset=offset)
+            for label, kernel, plain in (
+                    ("M@Q", lambda: kp.encode(m, q),
+                     lambda: kp.plain_encode(m, q)),
+                    ("M^T@P", lambda: kp.encode(m.T, p),
+                     lambda: kp.plain_encode(m.T, p)),
+                    ("P@Q^T", lambda: kp.decode(p, q),
+                     lambda: kp.plain_decode(p, q)),
+                    ("Q@P^T", lambda: kp.decode(q, p),
+                     lambda: kp.plain_decode(q, p))):
+                what = f"{label} {rows}x{cols} r{rank} offset {offset}"
+                out = kernel()
+                try:
+                    fp32_err(out, plain())
+                except AssertionError as e:
+                    raise AssertionError(f"powersgd {what}: {e}") from None
+                if not same_bits(out, kernel()):
+                    raise AssertionError(f"powersgd {what}: two launches "
+                                         f"differ")
+                n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] powersgd edge cases: {n} within {FP32_RTOL} of plain, "
+        f"each repeated bit for bit")
+    two_streams(rand)
+
+
+def two_streams(rand, rows=2560, cols=2560, rank=4, rounds=8) -> None:
+    """Encodes of split plans (M@Q and M^T@P at a bucket's shape) queued
+    on two streams at once, ``rounds`` of each on each: every result must
+    be the bits the same encode gives alone, so the streams' arrival
+    counters never meet."""
+    import torch
+
+    from repro_torch.kernels import powersgd as kp
+    work = []
+    for _ in range(2):
+        m = rand(rows, cols)
+        work += [(m, rand(cols, rank)), (m.T, rand(rows, rank))]
+    alone = [kp.encode(m, x) for m, x in work]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(rounds):
+        for i, (m, x) in enumerate(work):
+            with torch.cuda.stream(streams[i // 2]):
+                outs.append((i, kp.encode(m, x)))
+    torch.cuda.synchronize()
+    for i, out in outs:
+        if not same_bits(out, alone[i]):
+            raise AssertionError(f"powersgd encode {('M@Q', 'M^T@P')[i % 2]} "
+                                 f"on stream {i // 2}: bits differ from the "
+                                 f"same encode alone")
+    log(f"[kernels] powersgd encode on two streams at once: {len(outs)} "
+        f"launches, each the bits of the same encode alone")
 
 
 def reference_phase():
@@ -362,7 +513,7 @@ def live_state(state, n: int, gen):
 
 #: kernel-name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = (
-    ("compression kernels", ("encode_rows", "encode_cols", "sum_splits",
+    ("compression kernels", ("encode_rows", "encode_cols",
                              "decode_kernel", "pack_kernel",
                              "votes_kernel", "quantize_kernel",
                              "threshold_mask_kernel")),
@@ -378,7 +529,7 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
     profiled step's own wall time, profiler cost included, is
     ``profiled_s``."""
     groups: dict[str, float] = {}
-    top = []
+    top, compression = [], []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -390,13 +541,19 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
                       if any(k in name for k in keys)), "other kernels")
         groups[group] = groups.get(group, 0.0) + us / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
+        if group == "compression kernels":
+            compression.append({"kernel": ev.key[:90], "count": ev.count,
+                                "ms": us / 1e3,
+                                "us_per_launch": us / ev.count})
     busy = sum(groups.values())
     top.sort(reverse=True)
     return {"step_ms": step_s * 1e3, "profiled_step_ms": profiled_s * 1e3,
             "device_busy_ms": busy,
             "idle_share": (1 - busy / (step_s * 1e3)) if busy else None,
             "by_layer_ms": groups,
-            "top": [{"ms": t, "kernel": k, "count": c} for t, k, c in top[:12]]}
+            "top": [{"ms": t, "kernel": k, "count": c} for t, k, c in top[:12]],
+            "compression_kernels": sorted(compression,
+                                          key=lambda c: -c["ms"])}
 
 
 def train_phase(comp: str, steps: int, per_step: dict[str, int]):
@@ -494,8 +651,10 @@ def main() -> int:
     rank = arch.plan.powersgd_rank
     rows, cols = matrix_shape(layout.bucket_elems)
     last_rows, last_cols = matrix_shape(layout.last_elems)
+    clocks("before the kernel phase")
     recs = kernel_phase(rows, cols, last_rows, last_cols,
                         layout.bucket_elems, layout.last_elems, rank)
+    clocks("after the kernel phase")
 
     torch.cuda.set_device(0)
     mesh_mod.init_world(torch.device("cuda", 0))

@@ -31,10 +31,10 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "rt_powersgd_encode": (_VP, _LL, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _INT,
-                           _VP),
-    "rt_powersgd_encode_splits": (_LL, _LL, _VP),
-    "rt_powersgd_decode": (_VP, _VP, _LL, _LL, _INT, _VP, _VP),
+    "rt_powersgd_encode": (_VP, _LL, _LL, _LL, _LL, _VP, _INT, _VP, _VP, _VP,
+                           _LL, _INT, _INT, _INT, _LL, _INT, _LL, _VP),
+    "rt_powersgd_decode": (_VP, _VP, _LL, _LL, _INT, _VP, _INT, _INT, _LL,
+                           _INT, _LL, _VP),
     "rt_pack_signs": (_VP, _LL, _VP, _VP),
     "rt_popcount_votes": (_VP, _INT, _LL, _LL, _VP, _VP),
     "rt_qsgd_quantize": (_VP, _VP, _VP, _INT, _LL, _VP, _VP),

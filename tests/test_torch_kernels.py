@@ -244,3 +244,167 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build, "_lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.lib()
+
+
+# ------------------------------------------------ PowerSGD launch plans
+H100_SMS = 132
+
+
+def _view(case):
+    """A CPU fp32 view for a named layout: (tensor, transposed?)."""
+    kind, rows, cols = case
+    if kind == "offset1":            # pointer and row stride unaligned
+        return torch.zeros(rows * cols + 1)[1:].view(rows, cols)
+    if kind == "padded":             # aligned pointer, row stride 130
+        return torch.zeros(rows, cols + 2)[:, :cols]
+    if kind == "offset4":            # aligned pointer and stride
+        return torch.zeros(rows * cols + 4)[4:].view(rows, cols)
+    return torch.zeros(rows, cols)
+
+
+def _plan_of(m, rank=4, sms=H100_SMS):
+    return kp.encode_plan(tuple(m.shape), m.stride(), m.storage_offset(),
+                          rank, sms)
+
+
+# (layout, rows, cols) -> (form, vec) of M @ Q and of M^T @ P
+PLAN_CASES = [
+    (("plain", 2560, 2560), ("rows", 4), ("cols", 4)),   # first bucket
+    (("plain", 2302, 2432), ("rows", 4), ("cols", 4)),   # last bucket
+    (("plain", 1, 127), ("rows", 1), ("rows", 1)),       # tiny bucket
+    (("plain", 127, 1), ("rows", 1), ("rows", 1)),
+    (("plain", 37, 129), ("rows", 1), ("cols", 1)),
+    (("plain", 1, 128), ("rows", 4), ("rows", 1)),
+    (("offset1", 37, 129), ("rows", 1), ("cols", 1)),
+    (("offset1", 36, 128), ("rows", 1), ("cols", 1)),
+    (("offset4", 36, 128), ("rows", 4), ("cols", 4)),
+    (("padded", 8, 128), ("rows", 1), ("cols", 1)),
+]
+
+
+@pytest.mark.parametrize("case,want,want_t", PLAN_CASES,
+                         ids=[f"{k}-{r}x{c}" for (k, r, c), _, _ in PLAN_CASES])
+def test_encode_plan_picks_the_variant(case, want, want_t):
+    """16-byte loads only where the pointer, the row stride and the walked
+    length allow them; the transposed view goes to the column form unless
+    a size-1 dim makes it a row."""
+    m = _view(case)
+    for rank in (1, 3, 4, 16):
+        assert _plan_of(m, rank)[:2] == want
+        assert _plan_of(m.T, rank)[:2] == want_t
+
+
+@pytest.mark.parametrize("rows,cols,vec", [(2560, 2560, 4), (2302, 2432, 4),
+                                           (1, 127, 1), (127, 1, 1),
+                                           (37, 129, 1), (129, 37, 1)])
+def test_decode_plan_picks_the_variant(rows, cols, vec):
+    for rank in (1, 4, 16):
+        plan = kp.decode_plan(rows, cols, rank, H100_SMS)
+        assert (plan.form, plan.vec) == ("decode", vec)
+        width = 32 * vec * kp.DECODE_CWARPS
+        assert plan.tiles * width >= cols > (plan.tiles - 1) * width
+        assert plan.xvec == (4 if rank % 4 == 0 else 1)
+        assert kp.decode_plan(rows, cols, rank, H100_SMS, 1).xvec == 1
+
+
+def test_factor_rows_are_read_as_float4_only_where_aligned():
+    m = torch.zeros(64, 128)
+    for rank, x_offset, xvec in ((4, 0, 4), (16, 4, 4), (8, 2, 1), (3, 0, 1),
+                                 (1, 0, 1)):
+        for view in (m, m.T):
+            plan = kp.encode_plan(tuple(view.shape), view.stride(), 0, rank,
+                                  H100_SMS, x_offset)
+            assert plan.xvec == xvec, (rank, x_offset, plan)
+
+
+def _covered(n, plan):
+    """How many splits hold each of the n reduction elements."""
+    hits = np.zeros(n, np.int64)
+    for y in range(plan.splits):
+        lo, hi = y * plan.per, min(n, (y + 1) * plan.per)
+        assert lo < hi or n == 0, f"split {y} of {plan} is empty"
+        hits[lo:hi] += 1
+    return hits
+
+
+@pytest.mark.parametrize("sms", [1, 8, 114, H100_SMS, 144])
+@pytest.mark.parametrize("rows,cols", [(2560, 2560), (2302, 2432), (1, 127),
+                                       (127, 1), (37, 129), (1, 1),
+                                       (40_000, 164), (3, 70_000), (5, 0)])
+def test_split_plans_cover_the_reduction_once(rows, cols, sms):
+    m = torch.zeros(rows, cols)
+    for view, n_a, n_b in ((m, rows, cols), (m.T, cols, rows)):
+        plan = _plan_of(view, 4, sms)
+        assert (_covered(n_b, plan) == 1).all(), plan
+        assert 1 <= plan.splits <= 65535
+        if plan.form == "rows":      # the splits cut along 16-byte words
+            assert plan.per % 4 == 0
+        tile = kp.ROWS_THREADS // 32 * kp.ROWS_PER_WARP \
+            if plan.form == "rows" else 32 * plan.vec
+        assert plan.tiles == -(-n_a // tile)
+    if cols:
+        plan = kp.decode_plan(rows, cols, 4, sms)
+        assert (_covered(rows, plan) == 1).all() and plan.splits <= 65535
+
+
+@pytest.mark.parametrize("rows,cols", [(2560, 2560), (2302, 2432)])
+def test_split_plans_fill_the_card_at_the_bucket_shapes(rows, cols):
+    """At both bucket shapes every PowerSGD launch has at least one block
+    for each SM of an H100, and about WARPS_PER_SM on each: at
+    least three quarters of it (the splits are whole multiples of a warp's
+    unrolled step), and less than one split more."""
+    m = torch.zeros(rows, cols)
+    plans = [_plan_of(m), _plan_of(m.T), kp.decode_plan(rows, cols, 4,
+                                                        H100_SMS)]
+    threads = {"rows": kp.ROWS_THREADS, "cols": kp.COLS_THREADS,
+               "decode": kp.DECODE_THREADS}
+    for plan in plans:
+        assert (plan.vec, plan.xvec) == (4, 4)
+        per_split = plan.tiles * threads[plan.form] // 32
+        want = kp.WARPS_PER_SM * H100_SMS
+        assert plan.tiles * plan.splits >= H100_SMS, plan
+        assert 0.75 * want <= per_split * plan.splits < want + per_split
+
+
+@pytest.fixture
+def meta_ok(monkeypatch):
+    """Let the wrappers take ``meta`` tensors as if they lay on the card,
+    so that their refusals can be reached without one; anything that
+    would reach the kernel library fails."""
+    monkeypatch.setattr(kp, "_require_cuda_fp32", lambda name, t: None)
+    monkeypatch.setattr(build, "lib", lambda: pytest.fail("launched"))
+
+
+@pytest.mark.parametrize("rank", [0, 17])
+def test_wrappers_refuse_ranks_outside_1_to_16(meta_ok, rank):
+    m = torch.empty(64, 128, device="meta")
+    with pytest.raises(ValueError, match="rank"):
+        kp.encode(m, torch.empty(128, rank, device="meta"))
+    with pytest.raises(ValueError, match="rank"):
+        kp.decode(torch.empty(64, rank, device="meta"),
+                  torch.empty(128, rank, device="meta"))
+    with pytest.raises(ValueError, match="rank"):
+        kp.encode_plan((64, 128), (128, 1), 0, rank, H100_SMS)
+
+
+def test_encode_refuses_strides_with_no_unit_dim(meta_ok):
+    m = torch.empty_strided((64, 128), (256, 2), device="meta")
+    with pytest.raises(ValueError, match="unit stride"):
+        kp.encode(m, torch.empty(128, 4, device="meta"))
+    with pytest.raises(ValueError, match="unit stride"):
+        kp.encode_plan((64, 128), (256, 2), 0, 4, H100_SMS)
+
+
+def test_arrival_counters_are_kept_per_stream(monkeypatch):
+    """Encodes on one stream share their arrival counters (each launch
+    leaves them zeroed for the next); encodes on two streams, which may
+    overlap, never share them."""
+    monkeypatch.setattr(kp, "_counters", {})
+    dev = torch.device("cpu")
+    a = kp._counters_for(dev, 1, 20)
+    assert kp._counters_for(dev, 1, 20) is a and a.numel() >= 20
+    assert not a.any() and a.dtype == torch.int32
+    b = kp._counters_for(dev, 2, 20)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    big = kp._counters_for(dev, 1, a.numel() + 1)
+    assert big.numel() > a.numel() and kp._counters_for(dev, 2, 20) is b
