@@ -19,7 +19,11 @@ Phases, each fatal on failure:
      misaligned and transposed inputs at ranks 1, 3, 4 and 16, twice each
      (the same bits required), encode also on two streams at once (the
      bits it gives alone required), and are timed once more after a write
-     flush and warm (the ``[timer]`` line).  The SM and memory clocks and
+     flush and warm (the ``[timer]`` line).  ``popcount_votes`` is timed at
+     p = 1 and 4 at both bucket shapes and p = 16 at the full one, and
+     checked bit for bit at p from 1 to 512 and n from 1 to 1,000,003 on
+     random, all-ones, all-zeros and pad-bits-set words, each launched
+     twice (the same bits required).  The SM and memory clocks and
      the temperature are printed before and after the phase;
   4. reference: on a small input, every compressor's aggregation on the
      card (kernels) against the same code on the CPU (plain versions),
@@ -253,7 +257,8 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
         case("pack_signs", f"n={n}", lambda: kb.pack_signs(g),
              lambda: kb.plain_pack_signs(g), None, 4 * n + 4 * words, n,
              True)
-        for p_rows in (1, 4):
+        # p = 16 at the full bucket only, to put the scaling in p on record
+        for p_rows in (1, 4, 16) if n == n_full else (1, 4):
             gathered = torch.stack([
                 kb.pack_signs(torch.randn(n, generator=gen, device=dev))
                 for _ in range(p_rows)])
@@ -261,7 +266,8 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
                  lambda: kb.popcount_votes(gathered, n),
                  lambda: kb.plain_popcount_votes(gathered, n), None,
                  4 * p_rows * words + 4 * n, 3 * p_rows * n, True)
-        del g
+        del g, gathered
+    votes_edges(gen)
 
     for n in (n_full, n_last):
         g = torch.randn(n, generator=gen, device=dev)
@@ -410,6 +416,65 @@ def two_streams(rand, rows=2560, cols=2560, rank=4, rounds=8) -> None:
                                  f"same encode alone")
     log(f"[kernels] powersgd encode on two streams at once: {len(outs)} "
         f"launches, each the bits of the same encode alone")
+
+
+#: popcount_votes card checks: rows, counts, and the most bytes the plain
+#: version's int64 (p, words, 32) temporary may take (larger pairs skipped)
+VOTES_PS = (1, 2, 3, 4, 5, 7, 8, 15, 16, 31, 32, 33, 64, 255, 256, 512)
+VOTES_NS = (1, 31, 33, 4097, 1_000_003)
+VOTES_PLAIN_BYTES = 2**31
+
+
+def votes_edges(gen) -> None:
+    """popcount_votes against its plain version, bit for bit, for every p
+    in VOTES_PS and n in VOTES_NS: random words, random words with one word
+    more than n needs, all ones (every count p), all zeros, and random words
+    whose last word has every pad bit past n set.  Each is launched twice,
+    the same bits required; n = 0 gives an empty result."""
+    import torch
+
+    from repro_torch.kernels import bitpack as kb
+    dev = torch.device("cuda")
+
+    def rand(p, words):
+        return torch.randint(-2**31, 2**31, (p, words), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    checked, skipped = 0, []
+    for p in VOTES_PS:
+        for n in VOTES_NS:
+            words = -(-n // 32)
+            if 8 * 32 * p * words > VOTES_PLAIN_BYTES:
+                skipped.append((p, n))
+                continue
+            padded = rand(p, words)
+            if n % 32:
+                padded[:, -1] |= -(1 << n % 32)
+            cases = {"random": rand(p, words),
+                     "spare word": rand(p, words + 1),
+                     "ones": torch.full((p, words), -1, dtype=torch.int32,
+                                        device=dev),
+                     "zeros": torch.zeros((p, words), dtype=torch.int32,
+                                          device=dev),
+                     "pad bits set": padded}
+            for label, w in cases.items():
+                out, again = kb.popcount_votes(w, n), kb.popcount_votes(w, n)
+                ref = kb.plain_popcount_votes(w, n)
+                what = f"popcount_votes p={p} n={n} {label}"
+                if not same_bits(out, ref):
+                    raise AssertionError(f"{what}: kernel != plain")
+                if not same_bits(out, again):
+                    raise AssertionError(f"{what}: two launches differ")
+                want = {"ones": p, "zeros": 0}.get(label)
+                if want is not None and not bool((out == want).all()):
+                    raise AssertionError(f"{what}: counts are not {want}")
+                checked += 1
+            del cases, padded
+    if kb.popcount_votes(rand(3, 2), 0).numel() != 0:
+        raise AssertionError("popcount_votes n=0: result not empty")
+    torch.cuda.synchronize()
+    log(f"[kernels] popcount_votes edge cases: {checked} bit-exact, each "
+        f"launched twice with the same bits; skipped (p, n) {skipped}")
 
 
 def reference_phase():

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,7 +37,7 @@ _SIGNATURES = {
     "rt_powersgd_decode": (_VP, _VP, _LL, _LL, _INT, _VP, _INT, _INT, _LL,
                            _INT, _LL, _VP),
     "rt_pack_signs": (_VP, _LL, _VP, _VP),
-    "rt_popcount_votes": (_VP, _INT, _LL, _LL, _VP, _VP),
+    "rt_popcount_votes": (_VP, _INT, _LL, _LL, _VP, _INT, _LL, _VP),
     "rt_qsgd_quantize": (_VP, _VP, _VP, _INT, _LL, _VP, _VP),
     "rt_topk_threshold_mask": (_VP, _VP, _LL, _VP, _VP),
 }
@@ -141,6 +142,14 @@ def check_cuda_fp32(name: str, t, dim: int = 1) -> None:
     if t.dim() != dim or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous and {dim}-D, got shape "
                          f"{tuple(t.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def sms(device) -> int:
+    """The number of SMs of ``device``, which the launch plans size their
+    grids from (read once per device)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> int:

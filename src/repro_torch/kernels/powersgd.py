@@ -25,7 +25,6 @@ streams may overlap and each has its own.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -154,11 +153,6 @@ def _offset(t: torch.Tensor) -> int:
     return t.data_ptr() // 4 % 4
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -186,8 +180,8 @@ def encode(m: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"q must be a contiguous ({n_b}, r) tensor on "
                          f"{m.device}, got {tuple(q.shape)} on {q.device}")
     s_a, s_b = _unit_strides(m.shape, m.stride())
-    plan = encode_plan((n_a, n_b), m.stride(), _offset(m), r, _sms(m.device),
-                       _offset(q))
+    plan = encode_plan((n_a, n_b), m.stride(), _offset(m), r,
+                       build.sms(m.device), _offset(q))
     stream = build.stream_of(m)
     out = torch.empty((n_a, r), dtype=torch.float32, device=m.device)
     scratch = counters = None
@@ -220,7 +214,7 @@ def decode(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
                          f"{tuple(q.shape)} on {q.device}")
     if not (p.is_contiguous() and q.is_contiguous()):
         raise ValueError("p and q must be contiguous")
-    plan = decode_plan(rows, cols, r, _sms(p.device),
+    plan = decode_plan(rows, cols, r, build.sms(p.device),
                        _offset(p) or _offset(q))
     out = torch.empty((rows, cols), dtype=torch.float32, device=p.device)
     with torch.cuda.device(p.device):

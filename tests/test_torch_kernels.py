@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import bitpack as jbitpack
 from repro.kernels import qsgd as jqsgd
 from repro.kernels import ref as jref
 from repro.kernels import topk as jtopk
@@ -83,7 +84,7 @@ def test_pack_unpack_match_jax(n):
 
 
 @pytest.mark.parametrize("n", BIT_NS)
-@pytest.mark.parametrize("p", [1, 3, 4])
+@pytest.mark.parametrize("p", [1, 3, 4, 2, 5, 8, 31, 32, 33, 64])
 def test_popcount_votes_match_jax(n, p):
     rng = np.random.default_rng(n * 10 + p)
     words = -(-n // 32)
@@ -93,6 +94,38 @@ def test_popcount_votes_match_jax(n, p):
     assert got.dtype == torch.int32 and got.shape == (n,)
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jref.popcount_votes(jnp.asarray(gathered), n)))
+
+
+def _bitmap(fill, p, words, n, seed):
+    """(p, words) uint32 words: all ones, all zeros, or random words whose
+    last word has every pad bit past n set."""
+    if fill == "ones":
+        return np.full((p, words), 0xFFFFFFFF, np.uint32)
+    if fill == "zeros":
+        return np.zeros((p, words), np.uint32)
+    w = np.random.default_rng(seed).integers(0, 2**32, (p, words),
+                                             dtype=np.uint64).astype(np.uint32)
+    if n % 32:
+        w[:, -1] |= np.uint32((0xFFFFFFFF << (n % 32)) & 0xFFFFFFFF)
+    return w
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+@pytest.mark.parametrize("p", [1, 4, 33, 256])
+@pytest.mark.parametrize("fill", ["ones", "zeros", "pad-bits-set"])
+def test_popcount_votes_edge_bitmaps_match_jax(fill, p, n):
+    """All-ones bitmaps count p everywhere, all-zeros 0, and set pad bits
+    past n never reach the output, in the port and in the JAX oracle and
+    Pallas kernel (interpret mode, as tests/test_kernels.py runs it)."""
+    words = -(-n // 32)
+    gathered = _bitmap(fill, p, words, n, p * 1000 + n)
+    got = tref.popcount_votes(_t(gathered.view(np.int32)), n).numpy()
+    want = np.asarray(jref.popcount_votes(jnp.asarray(gathered), n))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(jbitpack.popcount_votes(
+        jnp.asarray(gathered), n, interpret=True)))
+    if fill != "pad-bits-set":
+        assert (got == (p if fill == "ones" else 0)).all()
 
 
 def _qsgd_input(case, n, seed):
@@ -364,6 +397,127 @@ def test_split_plans_fill_the_card_at_the_bucket_shapes(rows, cols):
         want = kp.WARPS_PER_SM * H100_SMS
         assert plan.tiles * plan.splits >= H100_SMS, plan
         assert 0.75 * want <= per_split * plan.splits < want + per_split
+
+
+# ------------------------------------------------ vote-count launch plans
+BUCKET_NS = [6_553_600, 5_597_184]       # the main path's two bucket sizes
+
+
+def _walk(plan):
+    """How many times the kernel's warps visit each word group: warp w
+    takes groups w * per_warp + j, then strides by every warp's share."""
+    n_warps = plan.blocks * kb.VOTES_THREADS // 32
+    hits = np.zeros(plan.groups + plan.per_warp * n_warps, np.int64)
+    for warp in range(n_warps):
+        starts = np.arange(warp * plan.per_warp, plan.groups,
+                           n_warps * plan.per_warp)
+        for j in range(plan.per_warp):
+            np.add.at(hits, starts + j, 1)
+    return hits[:plan.groups]
+
+
+@pytest.mark.parametrize("sms", [1, 8, 114, H100_SMS, 144])
+@pytest.mark.parametrize("p", [1, 4, 256])
+@pytest.mark.parametrize("n", [0, 1, 33, 1024, 1025, 4097, 1_000_003,
+                               *BUCKET_NS])
+def test_votes_plan_covers_every_group_once(n, p, sms):
+    """Every group of 32 words (1024 counts) is visited by exactly one
+    warp, and the groups cover the n counts and no group more."""
+    plan = kb.votes_plan(p, -(-n // 32), n, sms)
+    assert plan.groups == -(-n // kb.GROUP_ELEMS)
+    assert plan.groups * kb.GROUP_ELEMS >= n > \
+        (plan.groups - 1) * kb.GROUP_ELEMS or n == 0
+    assert (_walk(plan) == 1).all(), plan
+
+
+@pytest.mark.parametrize("p", [1, 4, 16, 512])
+def test_votes_plan_sizes_the_grid_from_the_sm_count(p):
+    """The grid is never more than VOTES_BLOCKS_PER_SM blocks per SM; where
+    the groups are fewer it is as many blocks as they fill, so at both of
+    the main path's bucket sizes an H100 runs it in one resident wave."""
+    for n in (1, 100_000, *BUCKET_NS, 200_000_000):
+        words = -(-n // 32)
+        for sms in (1, 8, H100_SMS):
+            plan = kb.votes_plan(p, words, n, sms)
+            cap = kb.VOTES_BLOCKS_PER_SM * sms
+            warps = -(-plan.groups // plan.per_warp)
+            assert 1 <= plan.blocks <= cap
+            assert plan.blocks == min(cap, -(-warps // (kb.VOTES_THREADS
+                                                        // 32)))
+    full, last = (kb.votes_plan(p, -(-n // 32), n, H100_SMS)
+                  for n in BUCKET_NS)
+    if p < 256:
+        assert (full.blocks, last.blocks) == (400, 342)
+
+
+@pytest.mark.parametrize("p,planes,wide", [(1, 1, False), (2, 2, False),
+                                           (3, 2, False), (4, 3, False),
+                                           (16, 5, False), (255, 8, False),
+                                           (256, 8, True), (512, 8, True)])
+def test_votes_plan_counts_in_bit_length_planes(p, planes, wide):
+    """bit_length(p) planes hold every count up to p; from p = 256 the
+    kernel counts in chunks of 255 rows, one group per warp step."""
+    plan = kb.votes_plan(p, 32, 1000, H100_SMS)
+    assert (plan.planes, plan.wide) == (planes, wide)
+    assert plan.per_warp == (1 if wide else kb.VOTES_GROUPS)
+    assert p < 2**plan.planes or wide
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1024, 4097, *BUCKET_NS])
+def test_votes_plan_splits_the_tail(n):
+    """The first n - n % 4 counts go out in 16-byte stores, the last
+    n % 4 one by one: the kernel's 16-byte store at element e (a multiple
+    of 4) is taken exactly where e + 4 <= n."""
+    plan = kb.votes_plan(4, -(-n // 32) + 1, n, H100_SMS)
+    assert plan.vec_elems + plan.scalar_elems == n
+    assert plan.vec_elems % 4 == 0 and 0 <= plan.scalar_elems < 4
+    vec = [e for e in range(0, plan.groups * kb.GROUP_ELEMS, 4) if e + 4 <= n]
+    assert len(vec) * 4 == plan.vec_elems
+
+
+@pytest.mark.parametrize("p,words,n", [(1, 2**26, 2**31), (4, 2**27, 2**32),
+                                       (1, 2, 65), (0, 4, 64), (-1, 4, 64),
+                                       (1, 4, -1)])
+def test_votes_plan_refuses(p, words, n):
+    """n from 2**31 (32-bit element indices), n past 32 x words, and p < 1
+    raise ValueError."""
+    with pytest.raises(ValueError):
+        kb.votes_plan(p, words, n, H100_SMS)
+
+
+def test_votes_plan_takes_n_just_below_2_31():
+    plan = kb.votes_plan(1, 2**26, 2**31 - 1, H100_SMS)
+    assert plan.blocks == kb.VOTES_BLOCKS_PER_SM * H100_SMS
+    assert plan.scalar_elems == 3
+
+
+def test_both_wrappers_read_the_sm_count_from_build(monkeypatch):
+    """The SM count lives in ``build.sms`` (read once per device): the
+    PowerSGD wrappers plan with it before they launch, the vote count's
+    plan takes it as an argument, and neither wrapper module keeps its
+    own."""
+    seen = []
+
+    class Planned(Exception):
+        pass
+
+    def sms(dev):
+        seen.append(dev)
+        raise Planned
+
+    monkeypatch.setattr(build, "sms", sms)
+    monkeypatch.setattr(kp, "_require_cuda_fp32", lambda name, t: None)
+    monkeypatch.setattr(build, "lib", lambda: pytest.fail("launched"))
+    with pytest.raises(Planned):
+        kp.encode(torch.empty(64, 128, device="meta"),
+                  torch.empty(128, 4, device="meta"))
+    with pytest.raises(Planned):
+        kp.decode(torch.empty(64, 4, device="meta"),
+                  torch.empty(128, 4, device="meta"))
+    assert seen == [torch.device("meta")] * 2
+    assert not hasattr(kp, "_sms") and not hasattr(kb, "_sms")
+    assert kb.votes_plan(1, 204_800, 6_553_600, 7).blocks == \
+        kb.VOTES_BLOCKS_PER_SM * 7
 
 
 @pytest.fixture
