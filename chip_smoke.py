@@ -28,20 +28,33 @@ Phases, each fatal on failure:
   4. reference: on a small input, every compressor's aggregation on the
      card (kernels) against the same code on the CPU (plain versions),
      with the CPU's draws moved to the card through each scheme's draw
-     function; and one QSGD bucket aggregated on the card with PyTorch's
-     sync debug mode set to error (no host-device synchronisation);
+     function; one QSGD bucket aggregated on the card with PyTorch's
+     sync debug mode set to error (no host-device synchronisation); and
+     the reduced model's ZeRO-1 step (``none``, PowerSGD, SignSGD,
+     ``reduce_to_owner_broadcast``, ``accum=2``) on the card against the
+     CPU from the same start (``zero1_reference``);
   5. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
-     ``data`` axis as the tests do, batch 4 x 512 tokens: 3 PowerSGD steps,
-     2 SignSGD steps, 3 QSGD steps (8 bits, error feedback on), then one
-     step each of TernGrad, RandomK, MSTop-K and ``ef:qsgd``.  Every loss
-     must be finite and each kernel's launch count must equal its count
-     per step times the steps (``threshold_mask`` is on no path, as in the
-     JAX package: 0).  Each run then takes one more step under
-     ``torch.profiler``, kept out of the step records and launch counts;
-     its device time is printed by layer, with the share of the last
-     unprofiled step's wall time in which no kernel ran, and every
-     compression kernel by name (launches, ms, us per launch).
+     ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
+     step (``zero1=False``, fp32 parameters, 168 buckets): 3 PowerSGD
+     steps, 2 SignSGD steps, 3 QSGD steps (8 bits, error feedback on),
+     then one step each of TernGrad, RandomK, MSTop-K and ``ef:qsgd``.
+     The arch as configured (ZeRO-1, bf16 working parameters, one fp32
+     master shard, 84 buckets): 3 steps uncompressed, 3 PowerSGD, 2
+     SignSGD, 2 QSGD, one step of ``reduce_to_owner_broadcast`` and one
+     of ``accum=2``.  Every loss and grad norm must be finite and each
+     kernel's launch count must equal its count per step times the steps
+     (``threshold_mask`` is on no path, as in the JAX package: 0).  Each
+     run prints the peak of ``torch.cuda.max_memory_allocated`` per step,
+     then takes one more step under ``torch.profiler``, kept out of the
+     step records and launch counts; its device time is printed by layer,
+     with the share of the last unprofiled step's wall time in which no
+     kernel ran, and every compression kernel by name (launches, ms, us
+     per launch).
+
+The kernels are timed at the ZeRO-1 step's shapes (the headline case of
+each record) and at the classic step's; the ``kernels`` line counts each
+kernel's launches in the ZeRO-1 run that drives it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -176,8 +189,10 @@ def on_device(state, device):
 
 
 # ------------------------------------------------------------------ phases
-def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
-    """Each kernel against its plain version at the main path's shapes.
+def kernel_phase(shapes, rank):
+    """Each kernel against its plain version at the main path's shapes:
+    ``shapes`` lists (tag, PowerSGD rows, cols, bucket elements), the
+    ZeRO-1 step's full and last bucket first, then the classic step's.
     Returns {kernel name: record}; each record's first case is the shape
     the headline numbers come from."""
     import torch
@@ -223,20 +238,20 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
         log(f"[kernels] {name} {label}: " + json.dumps(c))
         recs.setdefault(name, []).append(c)
 
-    for r_, c_ in ((rows, cols), (last_rows, last_cols)):
+    for tag, r_, c_, _ in shapes:
         m = torch.randn(r_, c_, generator=gen, device=dev)
         q = torch.randn(c_, rank, generator=gen, device=dev)
         p = torch.randn(r_, rank, generator=gen, device=dev)
         mt = m.T
         nb = 4 * (r_ * c_ + (r_ + c_) * rank)
         ops = 2 * r_ * c_ * rank
-        case("powersgd_encode", f"M@Q {r_}x{c_} r{rank}",
+        case("powersgd_encode", f"{tag} M@Q {r_}x{c_} r{rank}",
              lambda: kp.encode(m, q), lambda: kp.plain_encode(m, q),
              lambda: torch.matmul(m, q), nb, ops, False)
-        case("powersgd_encode", f"M^T@P {c_}x{r_} (view) r{rank}",
+        case("powersgd_encode", f"{tag} M^T@P {c_}x{r_} (view) r{rank}",
              lambda: kp.encode(mt, p), lambda: kp.plain_encode(mt, p),
              lambda: torch.matmul(mt, p), nb, ops, False)
-        case("powersgd_decode", f"P@Q^T {r_}x{c_} r{rank}",
+        case("powersgd_decode", f"{tag} P@Q^T {r_}x{c_} r{rank}",
              lambda: kp.decode(p, q), lambda: kp.plain_decode(p, q),
              lambda: torch.matmul(p, q.T), nb, ops, False)
         for label, fn in (("M@Q", lambda: kp.encode(m, q)),
@@ -245,49 +260,52 @@ def kernel_phase(rows, cols, last_rows, last_cols, n_full, n_last, rank):
             if not same_bits(fn(), fn()):
                 raise AssertionError(f"powersgd {label} {r_}x{c_}: two "
                                      f"launches differ")
-        if (r_, c_) == (rows, cols):
+        if tag == "classic full":
             flush_check(m, q, p, flush)
         del m, q, p, mt
     powersgd_edges(gen)
 
-    for n in (n_full, n_last):
+    for tag, _, _, n in shapes:
         g = torch.randn(n, generator=gen, device=dev)
         g[:4] = torch.tensor([-0.0, float("nan"), 0.0, -1e-30])
         words = -(-n // 32)
-        case("pack_signs", f"n={n}", lambda: kb.pack_signs(g),
+        case("pack_signs", f"{tag} n={n}", lambda: kb.pack_signs(g),
              lambda: kb.plain_pack_signs(g), None, 4 * n + 4 * words, n,
              True)
-        # p = 16 at the full bucket only, to put the scaling in p on record
-        for p_rows in (1, 4, 16) if n == n_full else (1, 4):
+        # p = 16 at the classic full bucket only, to put the scaling in p
+        # on record
+        for p_rows in (1, 4, 16) if tag == "classic full" else (1, 4):
             gathered = torch.stack([
                 kb.pack_signs(torch.randn(n, generator=gen, device=dev))
                 for _ in range(p_rows)])
-            case("popcount_votes", f"n={n} p={p_rows}",
+            case("popcount_votes", f"{tag} n={n} p={p_rows}",
                  lambda: kb.popcount_votes(gathered, n),
                  lambda: kb.plain_popcount_votes(gathered, n), None,
                  4 * p_rows * words + 4 * n, 3 * p_rows * n, True)
         del g, gathered
     votes_edges(gen)
 
-    for n in (n_full, n_last):
+    for tag, _, _, n in shapes:
         g = torch.randn(n, generator=gen, device=dev)
         u = torch.rand(n, generator=gen, device=dev)
         norm = torch.linalg.vector_norm(g) + 1e-12
         for levels in (127, 1):
             # 9 bytes and about 8 fp32 operations per element
-            case("qsgd_quantize", f"n={n} levels={levels}",
+            case("qsgd_quantize", f"{tag} n={n} levels={levels}",
                  lambda: kq.quantize(g, norm, levels, u),
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
-        t = torch.quantile(g.abs(), 0.99)         # MSTop-K's 1%
-        g[:5] = torch.tensor([-0.0, float("nan"), 0.0, float("-inf"),
-                              float("inf")])
-        case("threshold_mask", f"n={n} t=p99", lambda: kt.threshold_mask(g, t),
-             lambda: kt.plain_threshold_mask(g, t), None, 8 * n + 4, 2 * n,
-             True)
+        if tag.startswith("classic"):         # on no path: classic only
+            t = torch.quantile(g.abs(), 0.99)         # MSTop-K's 1%
+            g[:5] = torch.tensor([-0.0, float("nan"), 0.0, float("-inf"),
+                                  float("inf")])
+            case("threshold_mask", f"{tag} n={n} t=p99",
+                 lambda: kt.threshold_mask(g, t),
+                 lambda: kt.plain_threshold_mask(g, t), None, 8 * n + 4,
+                 2 * n, True)
         del g, u
-    # edge inputs at the full bucket size
-    n = n_full
+    # edge inputs at the classic full bucket size
+    n = next(n for tag, _, _, n in shapes if tag == "classic full")
     u = torch.rand(n, generator=gen, device=dev)
     zeros = torch.zeros(n, device=dev)
     one_hot = torch.zeros(n, device=dev)
@@ -621,9 +639,74 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
                                           key=lambda c: -c["ms"])}
 
 
-def train_phase(comp: str, steps: int, per_step: dict[str, int]):
-    """Full-width training through the port's entry points; returns the
-    per-step records and the launch counts of the run."""
+def zero1_reference(steps: int = 2, lr: float = 1e-3) -> None:
+    """The reduced ``tinyllama-1.1b`` (2 layers, d_model 128, vocab 512)
+    with the arch's ZeRO-1 defaults, ``steps`` steps on the card and on the
+    CPU from the same bf16 parameters and compressor state: ``none``,
+    PowerSGD, SignSGD, ``reduce_to_owner_broadcast`` and ``accum=2``.  The
+    model computes in fp32 on both sides, so the gradients differ only in
+    summation order: losses within ``rtol=1e-4``; parameters within the
+    AdamW rule of the CPU tests (max ``2 * lr * steps + 1e-4``, at most 2%
+    of elements beyond ``lr / 2``, median at most ``lr / 50``)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.train import train_step as ts
+
+    arch = cfgs.reduced(cfgs.get("tinyllama-1.1b"))
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=32, global_batch=4, seed=1)
+    runs = {"none": ({}, 1), "powersgd": (dict(compression="powersgd"), 1),
+            "signsgd": (dict(compression="signsgd"), 1),
+            "rtob": (dict(comm="reduce_to_owner_broadcast"), 1),
+            "accum2": ({}, 2)}
+    for label, (overrides, accum) in runs.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            setup = ts.build(arch, dev, bucket_mb=0.125, **overrides)
+            setup.agg_cfg = dataclasses.replace(
+                setup.agg_cfg, compress_axes=("data",), raw_axes=())
+            setup.model.ctx = dataclasses.replace(
+                setup.model.ctx, compute_dtype=torch.float32)
+            state = ts.init_state(setup, seed=0)
+            if dev == "cuda":             # the CPU run's starting point
+                with torch.no_grad():
+                    for p, p0 in zip(setup.model.parameters(), start):
+                        p.copy_(p0)
+                state = ts._fill_zero1_master(setup, state)
+                state["agg"] = tuple(on_device(st, "cuda") for st in agg0)
+            else:
+                start = [p.detach().clone() for p in
+                         setup.model.parameters()]
+                agg0 = tuple(on_device(st, "cpu") for st in state["agg"])
+            step = ts.make_step(setup, accum=accum)
+            losses = []
+            for s in range(steps):
+                state, m = step(state, batch_at(dcfg, s), lr)
+                losses.append(m["loss"].item())
+            out[dev] = (losses, [p.detach().float().cpu()
+                                 for p in setup.model.parameters()])
+        (l_cpu, p_cpu), (l_gpu, p_gpu) = out["cpu"], out["cuda"]
+        if not all(math.isclose(a, b, rel_tol=1e-4)
+                   for a, b in zip(l_gpu, l_cpu)):
+            raise AssertionError(f"zero1 {label}: losses {l_gpu} on the "
+                                 f"card, {l_cpu} on the CPU")
+        for a, b in zip(p_gpu, p_cpu):
+            diff = (a - b).abs()
+            if not (diff.max().item() <= 2 * lr * steps + 1e-4
+                    and (diff > lr / 2).float().mean().item() <= 0.02
+                    and diff.median().item() <= lr / 50):
+                raise AssertionError(f"zero1 {label}: parameters differ by "
+                                     f"up to {diff.max().item()}")
+        log(f"[reference] zero1 {label}: card == CPU over {steps} steps "
+            f"(losses {l_gpu})")
+
+
+def train_phase(label: str, steps: int, per_step: dict[str, int],
+                accum: int = 1, **overrides):
+    """Full-width training through the port's entry points, built from the
+    arch's plan with ``overrides``; returns the per-step records and the
+    launch counts of the run."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -634,22 +717,35 @@ def train_phase(comp: str, steps: int, per_step: dict[str, int]):
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     arch = cfgs.get("tinyllama-1.1b")
-    setup = ts.build(arch, "cuda", zero1=False, compression=comp)
+    torch.cuda.reset_peak_memory_stats()
+    setup = ts.build(arch, "cuda", **overrides)
     # one rank: point the aggregator back at the size-1 data axis, as the
     # tests do, so every bucket still runs through the compressor
     setup.agg_cfg = dataclasses.replace(setup.agg_cfg,
                                         compress_axes=("data",), raw_axes=())
     dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
     data = (batch_at(dcfg, s) for s in range(steps + 1))
-    tcfg = TrainerConfig(total_steps=steps, log_every=1,
+    tcfg = TrainerConfig(total_steps=steps, log_every=1, accum=accum,
                          schedule=ScheduleConfig(peak_lr=3e-4,
                                                  warmup_steps=1,
                                                  total_steps=steps))
     trainer = Trainer(setup, tcfg, data)
     trainer.state = ts.init_state(setup, seed=0)
-    log(f"[train] {comp}: {sum(p.numel() for p in setup.model.parameters()):,}"
-        f" params, {setup.layout.n_buckets} buckets of "
-        f"{setup.layout.bucket_elems:,} (last {setup.layout.last_elems:,})")
+    log(f"[train] {label}: {sum(p.numel() for p in setup.model.parameters()):,}"
+        f" params of {str(setup.layout.dtype).removeprefix('torch.')}, "
+        f"zero1={setup.zero1} rtob={setup.rtob} accum={accum} "
+        f"comp={setup.agg_cfg.compressor}, {setup.layout.n_buckets} buckets "
+        f"of {setup.layout.bucket_elems:,} (last "
+        f"{setup.layout.last_elems:,}); after init "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if setup.zero1:
+        shard = trainer.state["opt"]["shard"]
+        if {k: (v.dtype, v.shape) for k, v in shard.items()} != {
+                k: (torch.float32, (setup.layout.n_elements,))
+                for k in ("master", "m", "v")}:
+            raise AssertionError(f"{label}: the ZeRO-1 shards are not one "
+                                 f"fp32 copy of the {setup.layout.n_elements}"
+                                 f" parameters")
     kbuild.reset_launches()
     trainer.run()
     torch.cuda.synchronize()
@@ -663,18 +759,25 @@ def train_phase(comp: str, steps: int, per_step: dict[str, int]):
         trainer.run()
     torch.cuda.synchronize()
     profiled = trainer.history.pop()
-    log(f"[profile] {comp} " + json.dumps(
+    log(f"[profile] {label} " + json.dumps(
         device_breakdown(prof, profiled["step_s"], history[-1]["step_s"])))
     want = {k: v * steps for k, v in per_step.items()}
     for k in KERNELS:
         if counts.get(k, 0) != want.get(k, 0):
-            raise AssertionError(f"{comp}: {k} launched {counts.get(k, 0)} "
+            raise AssertionError(f"{label}: {k} launched {counts.get(k, 0)} "
                                  f"times, expected {want.get(k, 0)}")
     for rec in history + [profiled]:
         if not math.isfinite(rec["loss"]) or not math.isfinite(
                 rec["grad_norm"]):
-            raise AssertionError(f"{comp}: non-finite metrics {rec}")
-    log(f"[train] {comp}: launches {counts}")
+            raise AssertionError(f"{label}: non-finite metrics {rec}")
+    params = list(setup.model.parameters())
+    if not all(p.dtype == setup.layout.dtype and bool(torch.isfinite(p).all())
+               for p in params):
+        raise AssertionError(f"{label}: parameters not finite or not "
+                             f"{setup.layout.dtype}")
+    log(f"[train] {label}: launches {counts}; peak "
+        f"{max(r['peak_mem_gb'] for r in history):.2f} GiB "
+        f"(torch.cuda.max_memory_allocated in a step)")
     del trainer, setup, data
     gc.collect()
     torch.cuda.empty_cache()
@@ -693,6 +796,7 @@ def main() -> int:
     from repro_torch.core.compression.powersgd import matrix_shape
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
 
     t_start = time.perf_counter()
@@ -709,33 +813,59 @@ def main() -> int:
     kbuild.lib()
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
 
-    # the main path's shapes, from the full-size layout (no allocation)
+    # the main path's shapes, from the full-size layouts (no allocation):
+    # the arch's ZeRO-1 step (bf16 parameters) and the classic one (fp32)
     arch = cfgs.get("tinyllama-1.1b")
-    layout = bucketing.layout_for(
-        list(Model(arch, device="meta").parameters()), arch.plan.bucket_mb)
-    rank = arch.plan.powersgd_rank
-    rows, cols = matrix_shape(layout.bucket_elems)
-    last_rows, last_cols = matrix_shape(layout.last_elems)
+    layouts = {
+        name: bucketing.layout_for(list(Model(
+            arch, ShardCtx(param_dtype=dtype), device="meta").parameters()),
+            arch.plan.bucket_mb)
+        for name, dtype in (("zero1", torch.bfloat16),
+                            ("classic", torch.float32))}
+    shapes = [(f"{name} {which}", *matrix_shape(n), n)
+              for name, lay in layouts.items()
+              for which, n in (("full", lay.bucket_elems),
+                               ("last", lay.last_elems))]
+    log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
-    recs = kernel_phase(rows, cols, last_rows, last_cols,
-                        layout.bucket_elems, layout.last_elems, rank)
+    recs = kernel_phase(shapes, arch.plan.powersgd_rank)
     clocks("after the kernel phase")
 
     torch.cuda.set_device(0)
     mesh_mod.init_world(torch.device("cuda", 0))
     try:
         reference_phase()
-        nb = layout.n_buckets
-        runs = {                 # name -> (steps, launches per step)
+        zero1_reference()
+        nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
+        runs = {  # name -> (steps, launches per step, accum, build overrides)
             "powersgd": (3, {"powersgd_encode": 2 * nb,
-                             "powersgd_decode": nb}),
-            "signsgd": (2, {"pack_signs": nb, "popcount_votes": nb}),
-            "qsgd": (3, {"qsgd_quantize": nb}),
-            "terngrad": (1, {}), "randomk": (1, {}), "mstopk": (1, {}),
-            "ef:qsgd": (1, {"qsgd_quantize": nb})}
+                             "powersgd_decode": nb}, 1,
+                         dict(zero1=False, compression="powersgd")),
+            "signsgd": (2, {"pack_signs": nb, "popcount_votes": nb}, 1,
+                        dict(zero1=False, compression="signsgd")),
+            "qsgd": (3, {"qsgd_quantize": nb}, 1,
+                     dict(zero1=False, compression="qsgd")),
+            "terngrad": (1, {}, 1, dict(zero1=False, compression="terngrad")),
+            "randomk": (1, {}, 1, dict(zero1=False, compression="randomk")),
+            "mstopk": (1, {}, 1, dict(zero1=False, compression="mstopk")),
+            "ef:qsgd": (1, {"qsgd_quantize": nb}, 1,
+                        dict(zero1=False, compression="ef:qsgd")),
+            # the arch as configured: ZeRO-1, bf16 working parameters
+            "zero1 none": (3, {}, 1, {}),
+            "zero1 powersgd": (3, {"powersgd_encode": 2 * nz,
+                                   "powersgd_decode": nz}, 1,
+                               dict(compression="powersgd")),
+            "zero1 signsgd": (2, {"pack_signs": nz, "popcount_votes": nz}, 1,
+                              dict(compression="signsgd")),
+            "zero1 qsgd": (2, {"qsgd_quantize": nz}, 1,
+                           dict(compression="qsgd")),
+            "zero1 rtob": (1, {}, 1, dict(comm="reduce_to_owner_broadcast")),
+            "zero1 accum2": (1, {}, 2, {}),
+        }
         hist, counts = {}, {}
-        for comp, (steps, per_step) in runs.items():
-            hist[comp], counts[comp] = train_phase(comp, steps, per_step)
+        for label, (steps, per_step, accum, overrides) in runs.items():
+            hist[label], counts[label] = train_phase(
+                label, steps, per_step, accum, **overrides)
     finally:
         dist.destroy_process_group()
     log("[train] " + json.dumps(hist))
@@ -743,15 +873,18 @@ def main() -> int:
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
         "powersgd_encode": ("src/repro_torch/kernels/csrc/powersgd.cu",
-                            "src/repro/kernels/powersgd.py:43", "powersgd"),
+                            "src/repro/kernels/powersgd.py:43",
+                            "zero1 powersgd"),
         "powersgd_decode": ("src/repro_torch/kernels/csrc/powersgd.cu",
-                            "src/repro/kernels/powersgd.py:77", "powersgd"),
+                            "src/repro/kernels/powersgd.py:77",
+                            "zero1 powersgd"),
         "pack_signs": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                       "src/repro/kernels/bitpack.py:35", "signsgd"),
+                       "src/repro/kernels/bitpack.py:35", "zero1 signsgd"),
         "popcount_votes": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                           "src/repro/kernels/bitpack.py:72", "signsgd"),
+                           "src/repro/kernels/bitpack.py:72",
+                           "zero1 signsgd"),
         "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
-                          "src/repro/kernels/qsgd.py:31", "qsgd"),
+                          "src/repro/kernels/qsgd.py:31", "zero1 qsgd"),
         # on no path, as in the JAX package: its launches over every run
         "threshold_mask": ("src/repro_torch/kernels/csrc/topk.cu",
                            "src/repro/kernels/topk.py:26", None),

@@ -2,7 +2,8 @@
 
 PyTorch's and JAX's random generators never give the same draws, so
 comparisons of the two start from carried-over state: the parameter tree
-and the per-bucket compressor state (PowerSGD ``q``/``err``, the ``err``
+(fp32 or bf16), the ZeRO-1 optimizer shards, and the per-bucket
+compressor state (PowerSGD ``q``/``err``, the ``err``
 of the other schemes, the ``key`` of the stochastic ones, and the
 ``ef:`` wrapper's ``EFState(inner, residual)`` with its nested inner
 state).  Everything arrives as numpy arrays (``jax.device_get`` on the JAX
@@ -31,8 +32,20 @@ def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype.  bf16 arrays
+    (``ml_dtypes.bfloat16``, which numpy names ``bfloat16``) travel as
+    their 16-bit patterns, so every bit arrives, NaN payloads included."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 def load_params(model: torch.nn.Module, tree: Mapping) -> None:
-    """Copy a JAX parameter tree into ``model`` (same names and shapes)."""
+    """Copy a JAX parameter tree into ``model`` (same names and shapes).
+    Each parameter keeps its dtype; a source of the same dtype is copied
+    bit for bit."""
     flat = flatten(tree)
     params = dict(model.named_parameters())
     if list(flat) != list(params):
@@ -40,11 +53,22 @@ def load_params(model: torch.nn.Module, tree: Mapping) -> None:
                          f"{list(params)}")
     with torch.no_grad():
         for name, p in params.items():
-            src = torch.from_numpy(np.array(flat[name], dtype=np.float32))
+            src = to_tensor(flat[name])
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} vs "
                                  f"{tuple(p.shape)}")
             p.copy_(src)
+
+
+def opt_state(state: Mapping, index: int,
+              device: "str | torch.device" = "cpu") -> dict:
+    """A JAX ZeRO-1 optimizer state, ``{"t", "shard": {"master", "m",
+    "v"}}`` with a leading ``(n_dev, cap)`` device dim, -> the port's:
+    ``t`` as an int and rank ``index``'s ``(cap,)`` row of each shard on
+    ``device``."""
+    return {"t": int(np.asarray(state["t"])),
+            "shard": {k: to_tensor(np.asarray(state["shard"][k])[index])
+                      .to(device) for k in ("master", "m", "v")}}
 
 
 def _state(template: tuple, src: Any, index: Optional[int],

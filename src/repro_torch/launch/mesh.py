@@ -69,6 +69,11 @@ def group(axes: Sequence[str]):
     return dist.group.WORLD
 
 
+def rank(axes: Sequence[str]) -> int:
+    """This process's index along ``axes`` (``jax.lax.axis_index``)."""
+    return dist.get_rank(group(axes))
+
+
 def axis_sizes() -> dict[str, int]:
     return {"data": dist.get_world_size()}
 

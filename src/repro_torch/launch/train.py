@@ -1,7 +1,9 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
-Runs the port's classic DDP step (``zero1=False``, no overlap) on the card,
-or on the CPU with ``--device cpu``.  Under ``torchrun`` each process
+Runs the port's classic DDP step (no overlap) as the arch configures it
+(``tinyllama-1.1b``: ZeRO-1 with bf16 working parameters) on the card, or
+on the CPU with ``--device cpu``; ``--accum`` splits each rank's batch
+into microbatches.  Under ``torchrun`` each process
 joins the group from its environment and drives ``cuda:LOCAL_RANK``;
 without it the run is a group of one rank.  As in the JAX package, a
 reduction axis of size 1 is dropped, so a one-rank run aggregates nothing.
@@ -36,6 +38,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1,
+                    help="microbatches per step (gradients summed in fp32)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--compression", default=None,
@@ -43,7 +47,9 @@ def main(argv=None):
                          "mstopk, or ef:<name> (error feedback; not "
                          "ef:powersgd)")
     ap.add_argument("--comm", default=None,
-                    help="auto|allreduce|reduce_scatter_allgather|gather_all")
+                    help="auto|allreduce|reduce_scatter_allgather|"
+                         "gather_all|reduce_to_owner_broadcast (the last "
+                         "needs zero1 and --compression none)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -70,7 +76,7 @@ def main(argv=None):
     arch = cfgs.get(args.arch)
     if not args.full_size:
         arch = cfgs.reduced(arch)
-    overrides = {"zero1": False}
+    overrides = {}
     if args.compression:
         overrides["compression"] = args.compression
     if args.comm:
@@ -78,7 +84,9 @@ def main(argv=None):
     setup = ts.build(arch, dev, **overrides)
     if rank == 0:
         print(f"[train] arch={arch.name} device={dev} world={world} "
-              f"dp_mode={setup.arch.plan.dp_mode} zero1=False accum=1 "
+              f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
+              f"params={str(setup.layout.dtype).removeprefix('torch.')} "
+              f"accum={args.accum} "
               f"agg={setup.agg_cfg.compressor}@{setup.agg_cfg.compress_axes}"
               f" comm={setup.comm.spec_str()} buckets="
               f"{setup.layout.n_buckets}", flush=True)
@@ -87,6 +95,7 @@ def main(argv=None):
                      rank, world)
     tcfg = TrainerConfig(
         total_steps=args.steps, log_every=args.log_every if rank == 0 else 0,
+        accum=args.accum,
         schedule=ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                                 total_steps=args.steps))
     try:

@@ -2,9 +2,10 @@
 subset of ``repro.models.layers``).
 
 Weights are laid out ``(d_in, d_out)`` and applied as ``x @ w``, as in the
-JAX package.  Parameters are fp32 (the slice's ``param_dtype``) and cast
-to ``ShardCtx.compute_dtype`` at use; norms, rotary angles, softmax and the
-loss run in fp32.
+JAX package.  Parameters are stored in ``ShardCtx.param_dtype`` (fp32,
+or bf16 working copies under ZeRO-1 and ``param_dtype="bfloat16"``) and
+cast to ``ShardCtx.compute_dtype`` at use; norms, rotary angles, softmax
+and the loss run in fp32.
 """
 from __future__ import annotations
 
@@ -16,14 +17,21 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
 
 
 def trunc_normal_(t: torch.Tensor, std: float,
                   generator: torch.Generator) -> torch.Tensor:
-    """In place: ``std`` times a standard normal truncated to [-3, 3]."""
+    """In place: ``std`` times a standard normal truncated to [-3, 3],
+    drawn in fp32 and cast to ``t``'s dtype before the scaling, as the
+    JAX package's ``_trunc_normal`` does."""
     with torch.no_grad():
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0,
+        draw = t if t.dtype == torch.float32 else torch.empty(
+            t.shape, dtype=torch.float32, device=t.device)
+        torch.nn.init.trunc_normal_(draw, 0.0, 1.0, -3.0, 3.0,
                                     generator=generator)
+        if draw is not t:
+            t.copy_(draw)
         return t.mul_(std)
 
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ShardCtx, embedding_lookup,
                                        trunc_normal_)
@@ -54,13 +55,17 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...], "float | None"]]:
 
 class Model(nn.Module):
     def __init__(self, cfg, ctx: ShardCtx = ShardCtx(),
-                 device: "str | torch.device" = "cpu"):
+                 device: "str | torch.device | None" = None):
+        """Parameters of ``ctx.param_dtype``, uninitialised, on ``device``:
+        ``cuda`` unless the caller asks for ``cpu`` or ``meta``."""
         super().__init__()
         if cfg.family != "dense" or cfg.qk_norm or cfg.rope != "rope":
             raise NotImplementedError(
                 f"{cfg.name}: only the dense RoPE decoder is ported yet")
         if cfg.plan.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.plan.remat!r}")
+        if torch.device(device or "cuda").type != "meta":
+            device = mesh_mod.resolve_device(device)
         self.cfg = cfg
         self.ctx = ctx
         self._std = {}
@@ -72,7 +77,7 @@ class Model(nn.Module):
                     node.add_module(part, nn.Module())
                 node = getattr(node, part)
             node.register_parameter(leaf, nn.Parameter(torch.empty(
-                shape, dtype=torch.float32, device=device)))
+                shape, dtype=ctx.param_dtype, device=device)))
             self._std[name] = std
 
     def init_params(self, generator: torch.Generator) -> None:

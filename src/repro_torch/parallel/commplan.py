@@ -8,9 +8,12 @@ executable reductions run over ``torch.distributed`` process groups, which
 vocabulary: ``data``).  On a group of one rank every collective returns
 its input's value.
 
-Ported kinds: ``allreduce``, ``reduce_scatter_allgather`` and
-``gather_all``.  ``hierarchical`` and ``reduce_to_owner_broadcast`` parse
-and validate but raise ``NotImplementedError`` when executed.
+Ported kinds: ``allreduce``, ``reduce_scatter_allgather``,
+``gather_all`` and ``reduce_to_owner_broadcast`` (ZeRO-1's plan: in the
+step its gradient leg is ``owner_reduce_scatter`` and its broadcast leg
+``gather_tensor``; as a plain mean it is the two-shot ring).
+``hierarchical`` parses and validates but raises ``NotImplementedError``
+when executed.
 """
 from __future__ import annotations
 
@@ -199,7 +202,7 @@ def psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
 
 def gather_tensor(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     """``all_gather`` normalized to a leading peer axis ``(p, *shape)`` —
-    the non-associative wire shape."""
+    the non-associative wire shape (and ZeRO-1's param broadcast leg)."""
     p = axes_p(axes)
     flat = t.reshape(-1).contiguous()
     out = torch.empty(p * flat.numel(), dtype=t.dtype, device=t.device)
@@ -230,8 +233,8 @@ def mean_reduce(t: torch.Tensor, axes: Sequence[str], plan: CommPlan,
     """The mean of ``t`` over ``axes``, moved by ``plan``'s collective.
     Every kind returns the full mean on every rank (``gather_all``
     gathers then averages the peer rows: same value, another summation
-    order).  ``hierarchical`` and ``reduce_to_owner_broadcast`` wait for
-    the slices that bring their pod axis and their sharded consumer."""
+    order).  ``hierarchical`` waits for the slice that brings its pod
+    axis."""
     axes = tuple(axes)
     if not axes:
         return t
@@ -239,12 +242,31 @@ def mean_reduce(t: torch.Tensor, axes: Sequence[str], plan: CommPlan,
     kind = plan.resolve(associative=True).kind
     if kind == "allreduce":
         return psum(t, axes) / axes_p(axes)
-    if kind == "reduce_scatter_allgather":
+    if kind in ("reduce_scatter_allgather", "reduce_to_owner_broadcast"):
+        # without a sharded consumer, reduce-to-owner + broadcast of the
+        # reduced bucket IS the two-shot ring
         return _rs_ag_mean(t, axes)
     if kind == "gather_all":
         g = gather_tensor(t, axes)
         return (g.sum(dim=0) / axes_p(axes)).to(t.dtype)
-    if kind in ("hierarchical", "reduce_to_owner_broadcast"):
+    if kind == "hierarchical":
         raise NotImplementedError(
             f"comm plan {kind!r} is not ported yet")
     raise CommPlanError(kind)
+
+
+def owner_reduce_scatter(flat_tiles: torch.Tensor, axes: Sequence[str],
+                         ) -> torch.Tensor:
+    """Reduce-to-owner over an owner-aligned ``(p·cap,)`` layout: tile
+    ``r`` holds the elements rank ``r`` owns, so one reduce-scatter
+    delivers each owner the SUM of its shard, ``(cap,)``.  The
+    ``reduce_to_owner_broadcast`` gradient leg."""
+    p = axes_p(axes)
+    flat = flat_tiles.contiguous()
+    if flat.ndim != 1 or flat.shape[0] % p:
+        raise ValueError(f"tiles of shape {tuple(flat.shape)} do not split "
+                         f"into {p} owner tiles")
+    out = torch.empty(flat.shape[0] // p, dtype=flat.dtype,
+                      device=flat.device)
+    _reduce_scatter_single(out, flat, group=mesh_mod.group(axes))
+    return out

@@ -1,10 +1,15 @@
 """AdamW with global-norm clipping.  Counterpart of the replicated-parameter
 parts of ``repro.train.optimizer`` (``OptConfig``, ``global_norm``,
-``clip_by_global_norm``, ``AdamW``).
+``clip_by_global_norm``, ``AdamW``) and of its flat-space AdamW for the
+ZeRO-1 shards (``flat_adamw_init``, ``flat_adamw_update``).
 
-Parameters are fp32 and replicated over the data axis in this slice, so
-the global norm needs no collective.  ``AdamW.update`` writes the new parameters and
-moments in place to save a copy of each; it returns the same tensors.
+Parameters are replicated over the data axis (fp32, or bf16 working
+copies), so the global norm needs no collective.  Both updates run one
+elementwise function, ``adamw_math``, in the JAX package's operation
+order and in fp32, whatever the parameter's dtype; that is what makes the
+owner-sharded update bit-identical to the replicated one from the same
+bf16 parameters.  Updates are written in place to save a copy of each
+tensor; ``AdamW.update`` returns the same tensors.
 """
 from __future__ import annotations
 
@@ -41,6 +46,27 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
     return [g * scale.to(g.dtype) for g in grads], norm
 
 
+def adamw_math(p32: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, bc1: float, bc2: float, lr: float,
+               c: OptConfig) -> None:
+    """One AdamW step on fp32 tensors, in place on ``p32``, ``m`` and
+    ``v``; ``g`` is cast to fp32.  The JAX package's order of operations
+    (``upd1``, ``flat_adamw_update``), in eleven in-place passes over the
+    elements (``alpha=`` and ``addcmul_`` fuse a scale into an add).  The
+    replicated and the owner-sharded update both run this function, so
+    they give the same bits for the same values."""
+    g = g.float()
+    m.mul_(c.b1).add_(g, alpha=1 - c.b1)
+    v.mul_(c.b2).addcmul_(g, g, value=1 - c.b2)
+    step = (m / bc1).div_((v / bc2).sqrt_().add_(c.eps))
+    step.add_(p32, alpha=c.weight_decay)
+    p32.sub_(step, alpha=lr)
+
+
+def _bias_corrections(c: OptConfig, t: int) -> tuple[float, float]:
+    return 1.0 - c.b1 ** t, 1.0 - c.b2 ** t
+
+
 class AdamW:
     def __init__(self, cfg: OptConfig):
         self.cfg = cfg
@@ -53,23 +79,47 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
                params: Sequence[torch.Tensor], lr: float):
+        """Parameters of any float dtype: the step runs in fp32 from
+        ``p.float()`` and is written back in the parameter's dtype (a bf16
+        parameter rounds once, as JAX's ``astype(p.dtype)``)."""
         c = self.cfg
         if c.grad_clip:
             grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
         else:
             gnorm = global_norm(grads)
         t = state["t"] + 1
-        bc1 = 1.0 - c.b1 ** t
-        bc2 = 1.0 - c.b2 ** t
+        bc1, bc2 = _bias_corrections(c, t)
         for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-            g = g.float()
-            m.mul_(c.b1).add_(g, alpha=1 - c.b1)
-            v.mul_(c.b2).addcmul_(g, g, value=1 - c.b2)
-            step = (m / bc1) / ((v / bc2).sqrt_() + c.eps)
-            step.add_(p, alpha=c.weight_decay)
-            p.sub_(step, alpha=lr)
+            p32 = p.float()
+            adamw_math(p32, g, m, v, bc1, bc2, lr, c)
+            if p32 is not p:
+                p.copy_(p32)
         return params, {"m": state["m"], "v": state["v"], "t": t}, \
             {"grad_norm": gnorm}
+
+
+#: elements per pass of the flat update: its fp32 temporaries take a few
+#: chunks, not a few copies of a 1.1 B-element shard (the arithmetic is
+#: elementwise, so the bits do not depend on the chunking)
+FLAT_CHUNK = 2**26
+
+
+def flat_adamw_init(n: int, device: "str | torch.device") -> dict:
+    return {"m": torch.zeros((n,), dtype=torch.float32, device=device),
+            "v": torch.zeros((n,), dtype=torch.float32, device=device)}
+
+
+@torch.no_grad()
+def flat_adamw_update(p: torch.Tensor, g: torch.Tensor, st: dict, t: int,
+                      lr: float, cfg: OptConfig):
+    """1-D shard update (states sharded over DP = ZeRO-1): the fp32
+    master ``p`` and ``st``'s moments in place.  Returns ``(p, st)``."""
+    bc1, bc2 = _bias_corrections(cfg, t)
+    for a in range(0, p.shape[0], FLAT_CHUNK):
+        b = a + FLAT_CHUNK
+        adamw_math(p[a:b], g[a:b], st["m"][a:b], st["v"][a:b], bc1, bc2, lr,
+                   cfg)
+    return p, st
 
 
 def make(name: str, cfg: OptConfig) -> AdamW:

@@ -1,28 +1,43 @@
 """The classic DDP train step: loss -> backward -> bucketed gradient
 aggregation (the paper's subject) -> AdamW.  Counterpart of the ``ddp``
-path of ``repro.train.train_step`` with ``zero1=False``,
-``overlap=False`` and ``accum=1``.
+path of ``repro.train.train_step`` with ``overlap=False``.
 
-Each rank holds the full fp32 parameters and its own slice of the global
+Each rank holds the full parameters and its own slice of the global
 batch.  The gradient leaves are raveled into 25 MB buckets and each bucket
 is aggregated by the configured compressor over the DP axes.  Loss scaling
 is the JAX package's: ``loss_sum * p_dp / n_tokens_global``, so the mean
 over the ranks of the local gradients is the global-mean gradient.
 
+ZeRO-1 (``zero1=True``, the ``tinyllama-1.1b`` default): the parameters
+are bf16 working copies and the optimizer state is owner-sharded along
+bucket boundaries (``bucketing.owner_plan``).  Each rank runs flat AdamW
+(``optimizer.flat_adamw_update``) on the fp32 master of its own
+contiguous slice of the flat bucket space and all-gathers the updated bf16
+shards, which are copied in place into the model's parameters
+(``zero1_apply``).  Under ``comm="reduce_to_owner_broadcast"`` (ZeRO-1
+with the ``none`` compressor) the gradient is not aggregated at all: one
+reduce-scatter of the owner-aligned raw gradient inside the update is the
+step's only gradient collective.  ``param_dtype="bfloat16"`` gives bf16
+parameters with the replicated AdamW.
+
+``accum > 1`` is the classic accumulation: the step's batch is split into
+``accum`` microbatches whose gradients are summed in fp32 and divided by
+``accum`` before the aggregation.
+
 Every compressor of the JAX registry runs here, and ``ef:<name>`` for
 all but PowerSGD.  ``build`` raises ``NotImplementedError`` on what later
-slices port: FSDP, ZeRO-1 (the ``tinyllama-1.1b`` default: pass
-``zero1=False``), the overlapped schedule, accumulation, the adaptive
-controller, bf16 parameters, other optimizers and comm plans, and
-``compress_axes`` other than ``"pod"``.
-Like the JAX ``build``, it drops reduction axes of size 1: on one rank the
-compressor is not run unless the caller points ``agg_cfg`` back at the
-``data`` axis.
+slices port: FSDP, the overlapped schedule, the adaptive controller,
+other optimizers, the ``hierarchical`` comm plan, and ``compress_axes``
+other than ``"pod"``.
+Like the JAX ``build``, it drops reduction axes of size 1 from the
+aggregation: on one rank the compressor is not run unless the caller
+points ``agg_cfg`` back at the ``data`` axis.  ZeRO-1's own collectives
+run over the DP axes whatever their size.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +45,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import aggregator as agg_mod
 from repro_torch.core import bucketing
+from repro_torch.core.compression import base as cbase
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models.layers import ShardCtx
 from repro_torch.models.model import Model
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
@@ -49,10 +66,20 @@ class TrainSetup:
     agg_cfg: agg_mod.AggregatorConfig
     opt_cfg: opt_mod.OptConfig
     layout: bucketing.BucketLayout
+    zero1: bool = False
 
     @property
     def comm(self) -> cp.CommPlan:
         return self.agg_cfg.comm
+
+    @property
+    def rtob(self) -> bool:
+        """Is the reduce-to-owner/broadcast path active?  Then gradients
+        are not bucket-aggregated: the update's owner-aligned
+        reduce-scatter is the only gradient collective, and the updated
+        parameters ride the broadcast (gather) leg."""
+        return (self.zero1 and self.agg_cfg.compressor == "none"
+                and self.comm.kind == "reduce_to_owner_broadcast")
 
     @property
     def p_dp(self) -> int:
@@ -63,22 +90,21 @@ def _check_ported(plan) -> None:
     todo = []
     if plan.dp_mode != "ddp":
         todo.append(f"dp_mode={plan.dp_mode!r}")
-    for field in ("zero1", "overlap", "adaptive"):
+    for field in ("overlap", "adaptive"):
         if getattr(plan, field):
             todo.append(f"{field}=True")
-    if plan.param_dtype != "float32":
+    if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if plan.optimizer != "adamw":
         todo.append(f"optimizer={plan.optimizer!r}")
     if plan.compress_axes != "pod":         # the port has no pod axis yet
         todo.append(f"compress_axes={plan.compress_axes!r}")
-    kind = cp.CommPlan.parse(plan.comm).kind
-    if kind in ("hierarchical", "reduce_to_owner_broadcast"):
+    if cp.CommPlan.parse(plan.comm).kind == "hierarchical":
         todo.append(f"comm={plan.comm!r}")
     if todo:
         raise NotImplementedError(
             f"not ported yet: {', '.join(todo)} (this port runs the classic "
-            f"DDP step with zero1=False)")
+            f"DDP step, with or without ZeRO-1)")
 
 
 def build(arch: ArchConfig, device: "str | torch.device | None" = None,
@@ -90,6 +116,12 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     plan = dataclasses.replace(arch.plan, **plan_overrides) \
         if plan_overrides else arch.plan
     arch = dataclasses.replace(arch, plan=plan)
+    zero1 = plan.dp_mode == "ddp" and plan.zero1
+    if cp.CommPlan.parse(plan.comm).kind == "reduce_to_owner_broadcast" \
+            and not zero1:
+        raise cp.CommPlanError(
+            "comm='reduce_to_owner_broadcast' needs an owner-sharded "
+            "update: dp_mode='ddp' with zero1=True")
     _check_ported(plan)
     dev = mesh_mod.resolve_device(device)
     mesh_mod.init_world(dev)
@@ -102,12 +134,17 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
                             if sizes.get(a, 1) > 1),
         raw_axes=tuple(a for a in agg_cfg.raw_axes if sizes.get(a, 1) > 1))
     agg_cfg.comm.validate_axes(agg_cfg.raw_axes + agg_cfg.compress_axes)
-    model = Model(arch, device=dev)
+    # ZeRO-1: the replicated parameters are bf16 working copies and the
+    # fp32 master lives in the owner-sharded optimizer state;
+    # param_dtype="bfloat16" gives bf16 weights with fp32 optimizer stats
+    bf16 = zero1 or plan.param_dtype == "bfloat16"
+    ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32)
+    model = Model(arch, ctx, device=dev)
     layout = bucketing.layout_for(list(model.parameters()), plan.bucket_mb)
     return TrainSetup(arch=arch, model=model, device=dev,
                       dp_axes=dp_axes, agg_cfg=agg_cfg,
                       opt_cfg=opt_cfg or opt_mod.OptConfig(name=plan.optimizer),
-                      layout=layout)
+                      layout=layout, zero1=zero1)
 
 
 def _compressed(setup: TrainSetup) -> bool:
@@ -117,16 +154,23 @@ def _compressed(setup: TrainSetup) -> bool:
 
 def init_state(setup: TrainSetup, seed: int = 0) -> dict:
     """Fresh parameters from ``seed`` and zero optimizer and compressor
-    state.  PowerSGD's warm starts and the stochastic compressors' keys
-    are drawn bucket by bucket from one generator of a second seed, so
-    every bucket has its own and every rank the same (QSGD and TernGrad
-    fold the rank into their draws; RandomK needs the same indices on
-    every rank)."""
+    state (under ZeRO-1: this rank's ``(cap,)`` fp32 shards, the master
+    filled from the parameters).  PowerSGD's warm starts and the
+    stochastic compressors' keys are drawn bucket by bucket from one
+    generator of a second seed, so every bucket has its own and every rank
+    the same (QSGD and TernGrad fold the rank into their draws; RandomK
+    needs the same indices on every rank)."""
     dev = setup.device
     setup.model.init_params(torch.Generator(device=dev).manual_seed(seed))
     params = list(setup.model.parameters())
-    opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
-    state = {"step": 0, "params": params, "opt": opt.init(params), "agg": ()}
+    state = {"step": 0, "params": params, "agg": ()}
+    if setup.zero1:
+        cap = _zero1_plan(setup).cap
+        state["opt"] = {"t": 0, "shard": opt_mod.flat_adamw_init(cap, dev)}
+        state = _fill_zero1_master(setup, state)
+    else:
+        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
+        state["opt"] = opt.init(params)
     if _compressed(setup):
         gen = torch.Generator(device=dev).manual_seed(seed + AGG_SEED_OFFSET)
         comp = setup.agg_cfg.build()
@@ -135,6 +179,144 @@ def init_state(setup: TrainSetup, seed: int = 0) -> dict:
     return state
 
 
+# --------------------------------------------------------------------------
+# ZeRO-1
+# --------------------------------------------------------------------------
+def _zero1_plan(setup: TrainSetup) -> bucketing.OwnerPlan:
+    """The bucket -> owner-rank sharding of the optimizer state (shard
+    boundaries are the bucket boundaries of ``setup.layout``)."""
+    return bucketing.owner_plan(setup.layout, setup.p_dp)
+
+
+def _zero1_flat(layout: bucketing.BucketLayout,
+                leaves: Sequence[torch.Tensor], start: int,
+                out: torch.Tensor) -> torch.Tensor:
+    """``out`` <- the fp32 range ``[start, start + len(out))`` of the
+    owner-sliceable flat vector: the leaves raveled into buckets of the
+    layout's dtype, cast to fp32 and zero-padded past the end.  The JAX
+    package builds that vector and slices it; the port copies the range
+    leaf by leaf, so the flat vector never exists."""
+    return bucketing.read_flat(leaves, start, out, layout.dtype)
+
+
+def _zero1_own_slice(setup: TrainSetup, layout: bucketing.BucketLayout,
+                     plan: bucketing.OwnerPlan,
+                     leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """This DP rank's owned shard, ``(cap,)`` fp32."""
+    out = torch.empty(plan.cap, dtype=torch.float32, device=setup.device)
+    return _zero1_flat(layout, leaves,
+                       plan.starts[mesh_mod.rank(setup.dp_axes)], out)
+
+
+def _zero1_rtob_own_grad(setup: TrainSetup, layout: bucketing.BucketLayout,
+                         plan: bucketing.OwnerPlan,
+                         grads: Sequence[torch.Tensor]):
+    """The ``reduce_to_owner_broadcast`` gradient leg: lay the RAW local
+    gradient out as owner-aligned ``(p_dp · cap)`` fp32 tiles and run ONE
+    reduce-scatter, so each rank receives the sum of exactly its owned
+    shard; ``/ p_dp`` makes it the mean.  The global norm of the mean
+    gradient is the square root of the psum of each rank's owned sum of
+    squares (the cap-padded tail of a tile overlaps the next rank's region
+    and does not count), and the clip scales the shard as
+    ``clip_by_global_norm`` scales the leaves.
+
+    Returns ``(g_own_mean_clipped, grad_norm)``."""
+    cap, p = plan.cap, setup.p_dp
+    dp = setup.dp_axes
+    tiles = torch.empty(p * cap, dtype=torch.float32, device=setup.device)
+    for r, s in enumerate(plan.starts):
+        _zero1_flat(layout, grads, s, tiles[r * cap:(r + 1) * cap])
+    g_own = cp.owner_reduce_scatter(tiles, dp)
+    del tiles
+    g_own.div_(p)
+    owned = g_own[:plan.lengths[mesh_mod.rank(dp)]]
+    gnorm = cp.psum(torch.dot(owned, owned), dp).sqrt()
+    c = setup.opt_cfg
+    if c.grad_clip:
+        g_own.mul_(torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
+                               max=1.0))
+    return g_own, gnorm
+
+
+def zero1_apply(setup: TrainSetup, layout: bucketing.BucketLayout,
+                plan: bucketing.OwnerPlan, params: list, grads: list,
+                opt_state: dict, lr: float):
+    """Owner-sharded ZeRO-1 AdamW step:
+
+      1. clip grads by global norm (as ``AdamW.update`` does),
+      2. slice this rank's owned range out of the aggregated gradient —
+         or, under ``reduce_to_owner_broadcast``, reduce the raw gradient
+         straight to its owners (``_zero1_rtob_own_grad``),
+      3. flat AdamW on the fp32 master shard (``flat_adamw_update``),
+      4. all-gather the updated bf16 shards through the Payload reduce
+         machinery (a parameter shard is a non-associative payload),
+      5. copy the gathered pieces in place into the parameters
+         (``OwnerPlan.pieces``; a bucket split across owners is the
+         concatenation of its per-owner slices).
+
+    Returns ``(params, new_opt_state, grad_norm)``."""
+    c = setup.opt_cfg
+    t = opt_state["t"] + 1
+    if setup.rtob:
+        g_own, gnorm = _zero1_rtob_own_grad(setup, layout, plan, grads)
+    else:
+        if c.grad_clip:
+            grads, gnorm = opt_mod.clip_by_global_norm(grads, c.grad_clip)
+        else:
+            gnorm = opt_mod.global_norm(grads)
+        g_own = _zero1_own_slice(setup, layout, plan, grads)
+    del grads
+    st = opt_state["shard"]
+    master, mv = opt_mod.flat_adamw_update(
+        st["master"], g_own, {"m": st["m"], "v": st["v"]}, t, lr, c)
+    del g_own
+    payload = cbase.Payload({"shard": master.to(layout.dtype)},
+                            associative=False)
+    flat_p = cbase.reduce_payload(payload, setup.dp_axes) \
+        .tensors["shard"].reshape(-1)                # (p_dp · cap,)
+    del payload
+    for b in range(layout.n_buckets):
+        pos = plan.bucket_offsets[b]
+        for off, ln in plan.pieces[b]:
+            bucketing.write_flat(params, pos, flat_p[off:off + ln])
+            pos += ln
+    return params, {"t": t, "shard": {"master": master, **mv}}, gnorm
+
+
+def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout):
+    """The optimizer leg: ``update(params, grads, opt_state, lr) ->
+    (params, new_opt, grad_norm)`` — owner-sharded flat AdamW under
+    ZeRO-1, the configured optimizer otherwise."""
+    if setup.zero1:
+        plan = _zero1_plan(setup)
+
+        def update(params, grads, opt_state, lr):
+            return zero1_apply(setup, layout, plan, params, grads,
+                               opt_state, lr)
+    else:
+        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
+
+        def update(params, grads, opt_state, lr):
+            params, new_opt, om = opt.update(grads, opt_state, params, lr)
+            return params, new_opt, om["grad_norm"]
+    return update
+
+
+@torch.no_grad()
+def _fill_zero1_master(setup: TrainSetup, state: dict) -> dict:
+    """Set this rank's fp32 master to its owned slice of the parameters
+    (which are bf16 under ZeRO-1, so the master holds their exact
+    values)."""
+    master = _zero1_own_slice(setup, setup.layout, _zero1_plan(setup),
+                              state["params"])
+    shard = {**state["opt"]["shard"], "master": master}
+    state["opt"] = {**state["opt"], "shard": shard}
+    return state
+
+
+# --------------------------------------------------------------------------
+# the step
+# --------------------------------------------------------------------------
 def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(np.asarray(v), device=device).long()
             for k, v in batch.items()}
@@ -142,15 +324,16 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
     """Returns ``step(state, batch, lr) -> (state, metrics)``.  ``batch``
-    holds this rank's ``tokens`` and ``labels`` (numpy or tensors).  The
-    parameters and optimizer moments are updated in place."""
-    if accum != 1:
-        raise NotImplementedError("gradient accumulation is not ported yet")
+    holds this rank's ``tokens`` and ``labels`` (numpy or tensors); with
+    ``accum > 1`` its rows split into ``accum`` equal microbatches.  The
+    parameters and optimizer state are updated in place."""
+    if accum < 1:
+        raise ValueError(f"accum={accum}")
     model = setup.model
     aggregator = agg_mod.GradAggregator(setup.agg_cfg)
-    opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
     dp = setup.dp_axes
     p_dp = setup.p_dp
+    update_fn = make_update_fn(setup, setup.layout)
 
     def aggregate(grads, agg_states):
         if setup.agg_cfg.compressor == "none":
@@ -162,20 +345,54 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
             return list(grads), agg_states
         return aggregator.aggregate_bucketed(grads, agg_states, setup.layout)
 
-    def step(state: dict, batch: dict, lr: float):
-        batch = _to_device(batch, setup.device)
-        params = state["params"]
+    def one_micro(params, batch):
+        """(grads in the parameters' dtype, local loss sum, global token
+        count) of one microbatch."""
         loss_sum, ntok = model.loss(batch, xent_chunk)
         n_glob = cp.psum(ntok, dp)
         scaled = loss_sum * (p_dp / n_glob.float())
         grads = torch.autograd.grad(scaled, params)
+        return list(grads), loss_sum.detach(), n_glob
+
+    def step(state: dict, batch: dict, lr: float):
+        batch = _to_device(batch, setup.device)
+        params = state["params"]
+        if accum > 1:
+            rows = batch["tokens"].shape[0]
+            if rows % accum:
+                raise ValueError(f"{rows} rows do not split into "
+                                 f"{accum} microbatches")
+            mb = rows // accum
+            for i in range(accum):
+                g, l, n = one_micro(params, {k: v[i * mb:(i + 1) * mb]
+                                             for k, v in batch.items()})
+                if i == 0:       # the fp32 sum starts at zero: exact
+                    grads, loss_sum, n_glob = [x.float() for x in g], l, n
+                    continue
+                with torch.no_grad():
+                    for a, x in zip(grads, g):
+                        a.add_(x)
+                loss_sum, n_glob = loss_sum + l, n_glob + n
+                del g
+            with torch.no_grad():
+                for a in grads:
+                    a.div_(accum)
+        else:
+            grads, loss_sum, n_glob = one_micro(params, batch)
         with torch.no_grad():
-            grads, new_agg = aggregate(grads, state["agg"])
-            params, new_opt, om = opt.update(grads, state["opt"], params, lr)
-            loss_g = cp.psum(loss_sum.detach(), dp)
+            if setup.rtob:
+                # no gradient aggregation: the update's owner-aligned
+                # reduce-scatter is the only gradient collective
+                new_agg = state["agg"]
+            else:
+                grads, new_agg = aggregate(grads, state["agg"])
+            params, new_opt, gnorm = update_fn(params, grads, state["opt"],
+                                               lr)
+            del grads
+            loss_g = cp.psum(loss_sum, dp)
             metrics = {"loss": loss_g / torch.clamp(n_glob.float(), min=1.0),
                        "tokens": n_glob,
-                       "grad_norm": om["grad_norm"]}
+                       "grad_norm": gnorm}
         new_state = {"step": state["step"] + 1, "params": params,
                      "opt": new_opt, "agg": new_agg}
         return new_state, metrics

@@ -23,6 +23,7 @@ from repro_torch.train import train_step as ts
 class TrainerConfig:
     total_steps: int = 100
     log_every: int = 10
+    accum: int = 1              # microbatches per step (classic accumulation)
     schedule: sched_mod.ScheduleConfig = dataclasses.field(
         default_factory=sched_mod.ScheduleConfig)
 
@@ -42,7 +43,7 @@ class Trainer:
         if self.state is None:
             self.state = ts.init_state(self.setup, seed)
         if self.step_fn is None:
-            self.step_fn = ts.make_step(self.setup)
+            self.step_fn = ts.make_step(self.setup, accum=cfg.accum)
         cuda = self.setup.device.type == "cuda"
         it = iter(self.data)
         for step in range(self.state["step"], cfg.total_steps):

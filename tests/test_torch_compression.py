@@ -206,7 +206,8 @@ def test_payload_wire_spec_matches_jax():
 
 
 @pytest.mark.parametrize("kind", ["auto", "allreduce",
-                                  "reduce_scatter_allgather", "gather_all"])
+                                  "reduce_scatter_allgather", "gather_all",
+                                  "reduce_to_owner_broadcast"])
 def test_mean_reduce_is_identity_mean_on_one_rank(kind):
     t = torch.randn(37)
     out = tcp.mean_reduce(t, ("data",), tcp.CommPlan(kind))
@@ -223,7 +224,7 @@ def test_reduce_payload_gathers_with_a_peer_axis():
     assert torch.equal(red.tensors["x"][0], x) and red.local["x"] is x
 
 
-@pytest.mark.parametrize("kind", ["hierarchical", "reduce_to_owner_broadcast"])
+@pytest.mark.parametrize("kind", ["hierarchical"])
 def test_unported_comm_plans_raise(kind):
     with pytest.raises(NotImplementedError):
         tcp.mean_reduce(torch.ones(3), ("data",), tcp.CommPlan(kind))

@@ -48,7 +48,7 @@ def pair():
     (jloss, jntok), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
         params)
     tmodel = TModel(tcfgs.reduced(tcfgs.get("tinyllama-1.1b")),
-                    TShardCtx(compute_dtype=torch.float32))
+                    TShardCtx(compute_dtype=torch.float32), device="cpu")
     host = jax.device_get(params)
     convert.load_params(tmodel, host)
     tloss, tntok = tmodel.loss({k: torch.from_numpy(v).long()

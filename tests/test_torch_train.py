@@ -8,7 +8,8 @@ carried-over key, the uniform that the JAX step draws for it in each step,
 and hands them to the port's ``qsgd.uniform`` in the order the port asks
 for them (bucket by bucket, step by step).  Also: what ``build`` refuses,
 and that the entry points refuse to run without a GPU unless asked for the
-CPU.
+CPU.  ZeRO-1 (the arch's default) and accumulation are held to the JAX
+package in ``tests/test_torch_zero1.py``.
 
 Tolerances (bf16 compute on both sides, rounded at different places):
 loss ``rtol=1e-3``; grad norm ``rtol=1e-2``; parameters ``atol`` of
@@ -145,16 +146,14 @@ def test_two_steps_match_jax(comp, monkeypatch):
 
 # ------------------------------------------------------------ build rules
 @pytest.mark.parametrize("overrides", [
-    dict(),                                      # the arch's zero1=True
     dict(zero1=False, dp_mode="fsdp"),
     dict(zero1=False, overlap=True),
     dict(zero1=False, adaptive=True),
     dict(zero1=False, comm="hierarchical"),
-    dict(zero1=False, param_dtype="bfloat16"),
     dict(zero1=False, optimizer="adafactor"),
     dict(zero1=False, compress_axes="all"),
-], ids=["zero1", "fsdp", "overlap", "adaptive", "hierarchical",
-        "bf16-params", "adafactor", "compress-axes-all"])
+], ids=["fsdp", "overlap", "adaptive", "hierarchical", "adafactor",
+        "compress-axes-all"])
 def test_build_refuses_what_is_not_ported(overrides):
     cfg = tcfgs.reduced(tcfgs.get("tinyllama-1.1b"))
     with pytest.raises(NotImplementedError):
@@ -174,13 +173,6 @@ def test_init_state_gives_every_bucket_its_own_key():
     assert len({tuple(k.tolist()) for k in keys}) == 4
     again = [st.inner.key for st in tts.init_state(setup)["agg"]]
     assert all(torch.equal(a, b) for a, b in zip(keys, again))
-
-
-def test_make_step_refuses_accumulation():
-    setup = tts.build(tcfgs.reduced(tcfgs.get("tinyllama-1.1b")), "cpu",
-                      zero1=False)
-    with pytest.raises(NotImplementedError):
-        tts.make_step(setup, accum=2)
 
 
 # ------------------------------------------------------- no GPU, no run
