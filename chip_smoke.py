@@ -32,7 +32,11 @@ Phases, each fatal on failure:
      sync debug mode set to error (no host-device synchronisation); and
      the reduced model's ZeRO-1 step (``none``, PowerSGD, SignSGD,
      ``reduce_to_owner_broadcast``, ``accum=2``) on the card against the
-     CPU from the same start (``zero1_reference``);
+     CPU from the same start (``zero1_reference``); and the reduced
+     model's overlapped ZeRO-1 PowerSGD step on the card against the CPU,
+     ``serial`` against ``overlap`` bit for bit on the card, and one
+     overlapped step's flushes under the sync debug mode "error"
+     (``overlap_reference``);
   5. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -50,11 +54,30 @@ Phases, each fatal on failure:
      step records and launch counts; its device time is printed by layer,
      with the share of the last unprofiled step's wall time in which no
      kernel ran, and every compression kernel by name (launches, ms, us
-     per launch).
+     per launch).  Then the overlapped step (``train/overlap.py``,
+     ``overlap=True``: 46 leaf-aligned bf16 buckets flushed between
+     backward stages on a side stream): ZeRO-1 3 steps uncompressed, 3
+     PowerSGD, 3 PowerSGD ``serial``, 2 SignSGD and 2 QSGD (both run
+     ``serial``: ``gather_all``), one ``reduce_to_owner_broadcast`` (runs
+     ``raw``), one ``accum=2``; and 2 PowerSGD steps of the classic
+     ``zero1=False`` step (90 fp32 buckets).  Each also checks the
+     host-side flush order of every step (each bucket after the stage
+     that completes it under ``overlap``, all after the last stage under
+     ``serial``) and prints, from its profiled step, the device time of
+     each CUDA stream and how much of it ran while the compute stream was
+     busy, then takes one more step with the sync debug mode set to warn
+     and prints where the host waited for the card (both reported, not
+     checked);
+  6. schedules: ``overlap_bench`` at full width, ZeRO-1 uncompressed with
+     the aggregator on the data axis, ``overlap``, ``serial`` and
+     ``unfused`` round robin, 1 warm-up and 3 reps: the fastest step of
+     each and the peak memory.
 
-The kernels are timed at the ZeRO-1 step's shapes (the headline case of
-each record) and at the classic step's; the ``kernels`` line counts each
-kernel's launches in the ZeRO-1 run that drives it.
+The kernels are timed at the overlapped ZeRO-1 step's block and tail
+buckets (the block bucket is the headline case of each record), the
+classic ZeRO-1 step's and the classic fp32 step's; the ``kernels`` line
+counts each kernel's launches in the overlapped ZeRO-1 run that drives
+it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -191,8 +214,10 @@ def on_device(state, device):
 # ------------------------------------------------------------------ phases
 def kernel_phase(shapes, rank):
     """Each kernel against its plain version at the main path's shapes:
-    ``shapes`` lists (tag, PowerSGD rows, cols, bucket elements), the
-    ZeRO-1 step's full and last bucket first, then the classic step's.
+    ``shapes`` lists (tag, PowerSGD rows, cols, bucket elements): the
+    overlapped ZeRO-1 step's largest block bucket and its tail bucket
+    first, then the classic ZeRO-1 step's full and last bucket, then the
+    classic fp32 step's.
     Returns {kernel name: record}; each record's first case is the shape
     the headline numbers come from."""
     import torch
@@ -608,9 +633,10 @@ KERNEL_GROUPS = (
 def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
     """Device time of one profiled step by layer (ms), and the share of
     an unprofiled step's wall time ``step_s`` in which no kernel ran
-    (kernels do not overlap on the one stream the port uses); the
-    profiled step's own wall time, profiler cost included, is
-    ``profiled_s``."""
+    (busy time summed over the streams: exact where kernels do not
+    overlap, as on the classic step's one stream; ``stream_overlap``
+    gives the union for the overlapped step's two); the profiled step's
+    own wall time, profiler cost included, is ``profiled_s``."""
     groups: dict[str, float] = {}
     top, compression = [], []
     for ev in prof.key_averages():
@@ -637,6 +663,57 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
             "top": [{"ms": t, "kernel": k, "count": c} for t, k, c in top[:12]],
             "compression_kernels": sorted(compression,
                                           key=lambda c: -c["ms"])}
+
+
+def stream_overlap(prof) -> dict:
+    """From the profiled step's device events, per CUDA stream: events,
+    device ms, and the ms of it that ran while the compute stream (the
+    stream with the most device time) was busy; and the union of every
+    stream's busy intervals (ms), the device time that a one-stream sum
+    would count twice where streams overlap."""
+    per: dict = {}
+    for ev in prof.events():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        sid = getattr(ev, "device_resource_id", None)
+        if sid is None:
+            sid = ev.thread
+        per.setdefault(sid, []).append((ev.time_range.start,
+                                        ev.time_range.end))
+
+    def union(spans):
+        out = []
+        for lo, hi in sorted(spans):
+            if out and lo <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], hi)
+            else:
+                out.append([lo, hi])
+        return out
+    if not per:
+        return {"streams": {}}
+    busy = {sid: sum(hi - lo for lo, hi in union(sp)) for sid, sp in
+            per.items()}
+    main = max(busy, key=busy.get)
+    main_u = union(per[main])
+    out = {}
+    for sid, spans in per.items():
+        ov = 0.0
+        if sid != main:
+            j = 0
+            for lo, hi in union(spans):
+                while j < len(main_u) and main_u[j][1] <= lo:
+                    j += 1
+                k = j
+                while k < len(main_u) and main_u[k][0] < hi:
+                    ov += min(hi, main_u[k][1]) - max(lo, main_u[k][0])
+                    k += 1
+        out[str(sid)] = {"events": len(spans), "ms": busy[sid] / 1e3,
+                         "overlapped_ms": ov / 1e3,
+                         "compute": sid == main}
+    all_u = union([x for sp in per.values() for x in sp])
+    return {"streams": out, "side_overlapped_ms": sum(
+        v["overlapped_ms"] for v in out.values()),
+        "busy_union_ms": sum(hi - lo for lo, hi in all_u) / 1e3}
 
 
 def zero1_reference(steps: int = 2, lr: float = 1e-3) -> None:
@@ -702,22 +779,162 @@ def zero1_reference(steps: int = 2, lr: float = 1e-3) -> None:
             f"(losses {l_gpu})")
 
 
+def overlap_reference(steps: int = 2, lr: float = 1e-3) -> None:
+    """The overlapped step on the reduced ``tinyllama-1.1b`` with the
+    arch's ZeRO-1 defaults and PowerSGD, from the same bf16 parameters and
+    compressor state: ``steps`` steps on the CPU, ``overlap`` and
+    ``serial`` on the card.  The card's overlapped run agrees with the CPU
+    within ``zero1_reference``'s tolerances; on the card ``serial`` and
+    ``overlap`` give the same bits (parameters, shard, compressor states,
+    metrics).  Then one more overlapped step runs its flushes with the
+    sync debug mode set to error: no flush may synchronise the host."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.train import overlap
+    from repro_torch.train import train_step as ts
+
+    arch = cfgs.reduced(cfgs.get("tinyllama-1.1b"))
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=32, global_batch=4, seed=1)
+    start = agg0 = None
+    out = {}
+    for dev, schedule in (("cpu", "overlap"), ("cuda", "overlap"),
+                          ("cuda", "serial")):
+        setup = ts.build(arch, dev, bucket_mb=0.125, overlap=True,
+                         compression="powersgd")
+        setup.agg_cfg = dataclasses.replace(
+            setup.agg_cfg, compress_axes=("data",), raw_axes=())
+        setup.model.ctx = dataclasses.replace(setup.model.ctx,
+                                              compute_dtype=torch.float32)
+        state = ts.init_state(setup, seed=0)
+        if start is None:
+            start = [p.detach().clone() for p in setup.model.parameters()]
+            agg0 = tuple(on_device(st, "cpu") for st in state["agg"])
+        else:
+            with torch.no_grad():
+                for p, p0 in zip(setup.model.parameters(), start):
+                    p.copy_(p0)
+            state = ts._fill_zero1_master(setup, state)
+            state["agg"] = tuple(on_device(st, dev) for st in agg0)
+        step = overlap.make_step(setup, schedule)
+        metrics, orders = [], []
+        for s in range(steps):
+            state, m = step(state, batch_at(dcfg, s), lr)
+            metrics.append(m)
+            orders.append(list(step.flush_order))
+        torch.cuda.synchronize()
+        out[dev, schedule] = {
+            "loss": [m["loss"].item() for m in metrics],
+            "metrics": [v for m in metrics for v in m.values()],
+            "params": [p.detach().clone() for p in
+                       setup.model.parameters()],
+            "shard": [t.clone() for t in state["opt"]["shard"].values()],
+            "agg": [t.clone() for st in state["agg"]
+                    for t in flat_state(st)],
+            "order": orders, "n_buckets": setup.layout.n_buckets,
+            "ready": overlap.build_layout(setup).bucket_ready}
+        if (dev, schedule) == ("cuda", "overlap"):
+            guarded = []
+            plain_flush = overlap._Flush._flush
+
+            def flush_no_sync(self, b, stage):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    plain_flush(self, b, stage)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                guarded.append(b)
+            overlap._Flush._flush = flush_no_sync
+            try:
+                step(state, batch_at(dcfg, steps), lr)
+            finally:
+                overlap._Flush._flush = plain_flush
+            torch.cuda.synchronize()
+            if len(guarded) != setup.layout.n_buckets:
+                raise AssertionError(f"{len(guarded)} guarded flushes")
+            log(f"[reference] overlap powersgd: {len(guarded)} flushes of "
+                f"one step on the side stream without a host-device sync")
+        del setup, state, step
+    cpu, gpu, ser = (out[k] for k in (("cpu", "overlap"), ("cuda", "overlap"),
+                                      ("cuda", "serial")))
+    if not all(math.isclose(a, b, rel_tol=1e-4)
+               for a, b in zip(gpu["loss"], cpu["loss"])):
+        raise AssertionError(f"overlap powersgd: losses {gpu['loss']} on "
+                             f"the card, {cpu['loss']} on the CPU")
+    for a, b in zip(gpu["params"], cpu["params"]):
+        diff = (a.float().cpu() - b.float()).abs()
+        if not (diff.max().item() <= 2 * lr * steps + 1e-4
+                and (diff > lr / 2).float().mean().item() <= 0.02
+                and diff.median().item() <= lr / 50):
+            raise AssertionError(f"overlap powersgd: parameters differ by "
+                                 f"up to {diff.max().item()}")
+    for what in ("metrics", "params", "shard", "agg"):
+        if len(gpu[what]) != len(ser[what]) or not all(
+                same_bits(a, b) for a, b in zip(gpu[what], ser[what])):
+            raise AssertionError(f"overlap powersgd: serial and overlap "
+                                 f"{what} differ on the card")
+    for run, schedule in ((gpu, "overlap"), (ser, "serial")):
+        if not all(flush_order_ok(o, run["ready"], schedule)
+                   for o in run["order"]):
+            raise AssertionError(f"{schedule} flush order {run['order']}")
+    log(f"[reference] overlap powersgd: card == CPU over {steps} steps "
+        f"(losses {gpu['loss']}); serial == overlap bit for bit on the card "
+        f"({gpu['n_buckets']} buckets: parameters, shard, compressor "
+        f"states, metrics)")
+
+
+def host_syncs(fn) -> list[str]:
+    """Runs ``fn`` with PyTorch's sync debug mode set to warn; returns the
+    Python caller (file:line) of each host-device synchronisation it made,
+    in order."""
+    import warnings
+
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def flush_order_ok(order, ready, schedule: str) -> bool:
+    """The host-side flush order a schedule must give: each bucket after
+    the stage that completes it (``overlap``), every bucket after the
+    last stage (``serial``), none (``raw``)."""
+    want = {"overlap": list(enumerate(ready)),
+            "serial": [(b, max(ready)) for b in range(len(ready))],
+            "raw": []}[schedule]
+    return order == want
+
+
 def train_phase(label: str, steps: int, per_step: dict[str, int],
-                accum: int = 1, **overrides):
+                accum: int = 1, schedule: "str | None" = None,
+                **overrides):
     """Full-width training through the port's entry points, built from the
     arch's plan with ``overrides``; returns the per-step records and the
-    launch counts of the run."""
+    launch counts of the run.  With ``schedule`` the step is the overlapped
+    one (``overlap=True``) run under that schedule, and the host-side
+    flush order of every step is checked against the layout's
+    ``bucket_ready``."""
     import torch
 
     from repro_torch.configs import base as cfgs
     from repro_torch.data.synthetic import DataConfig, batch_at
     from repro_torch.kernels import build as kbuild
+    from repro_torch.train import overlap
     from repro_torch.train import train_step as ts
     from repro_torch.train.schedule import ScheduleConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     arch = cfgs.get("tinyllama-1.1b")
     torch.cuda.reset_peak_memory_stats()
+    if schedule:
+        overrides["overlap"] = True
     setup = ts.build(arch, "cuda", **overrides)
     # one rank: point the aggregator back at the size-1 data axis, as the
     # tests do, so every bucket still runs through the compressor
@@ -731,12 +948,24 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
                                                  total_steps=steps))
     trainer = Trainer(setup, tcfg, data)
     trainer.state = ts.init_state(setup, seed=0)
+    orders = []
+    if schedule:
+        effective = "serial" if schedule == "serial" and not setup.rtob \
+            else overlap.effective_schedule(setup)
+        step = overlap.make_step(setup, schedule, accum)
+
+        def logged(*args):
+            out = step(*args)
+            orders.append(list(step.flush_order))
+            return out
+        trainer.step_fn = logged
     log(f"[train] {label}: {sum(p.numel() for p in setup.model.parameters()):,}"
         f" params of {str(setup.layout.dtype).removeprefix('torch.')}, "
         f"zero1={setup.zero1} rtob={setup.rtob} accum={accum} "
         f"comp={setup.agg_cfg.compressor}, {setup.layout.n_buckets} buckets "
         f"of {setup.layout.bucket_elems:,} (last "
-        f"{setup.layout.last_elems:,}); after init "
+        f"{setup.layout.last_elems:,}); overlap={setup.overlap} "
+        f"schedule={schedule and effective}; after init "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if setup.zero1:
         shard = trainer.state["opt"]["shard"]
@@ -759,8 +988,33 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         trainer.run()
     torch.cuda.synchronize()
     profiled = trainer.history.pop()
-    log(f"[profile] {label} " + json.dumps(
-        device_breakdown(prof, profiled["step_s"], history[-1]["step_s"])))
+    breakdown = device_breakdown(prof, profiled["step_s"],
+                                 history[-1]["step_s"])
+    if schedule:
+        so = stream_overlap(prof)
+        if so.get("busy_union_ms"):
+            so["idle_share"] = 1 - so["busy_union_ms"] / (
+                history[-1]["step_s"] * 1e3)
+        breakdown["stream_overlap"] = so
+    log(f"[profile] {label} " + json.dumps(breakdown))
+    if schedule:
+        ready = overlap.build_layout(setup).bucket_ready
+        if not all(flush_order_ok(o, ready, effective) for o in orders):
+            raise AssertionError(f"{label}: flush order {orders[-1]} under "
+                                 f"{effective} (bucket_ready {ready})")
+        log(f"[train] {label}: flush order of {len(orders)} steps: each of "
+            f"{len(ready)} buckets issued after stage "
+            f"{[st for _, st in orders[-1]]} ({effective})")
+
+        # one more step, outside the records, to see where the host waits
+        def one_step():
+            trainer.state, _ = trainer.step_fn(
+                trainer.state, batch_at(dcfg, steps + 1), 3e-4)
+        syncs = host_syncs(one_step)
+        torch.cuda.synchronize()
+        log(f"[train] {label}: one more step under the sync debug mode "
+            f"\"warn\": {len(syncs)} host syncs, at " + json.dumps(
+                {at: syncs.count(at) for at in sorted(set(syncs))}))
     want = {k: v * steps for k, v in per_step.items()}
     for k in KERNELS:
         if counts.get(k, 0) != want.get(k, 0):
@@ -779,6 +1033,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         f"{max(r['peak_mem_gb'] for r in history):.2f} GiB "
         f"(torch.cuda.max_memory_allocated in a step)")
     del trainer, setup, data
+    if schedule:
+        del step, logged
     gc.collect()
     torch.cuda.empty_cache()
     return history, counts
@@ -798,6 +1054,7 @@ def main() -> int:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
+    from repro_torch.train import overlap, overlap_bench
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -814,18 +1071,31 @@ def main() -> int:
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
 
     # the main path's shapes, from the full-size layouts (no allocation):
-    # the arch's ZeRO-1 step (bf16 parameters) and the classic one (fp32)
+    # the overlapped ZeRO-1 step's leaf-aligned buckets (the largest block
+    # bucket and the tail's), the arch's classic ZeRO-1 step (bf16
+    # parameters) and the classic fp32 one
     arch = cfgs.get("tinyllama-1.1b")
+
+    def meta_model(dtype):
+        return Model(arch, ShardCtx(param_dtype=dtype), device="meta")
+    ovs = {name: overlap.layout_for_model(meta_model(dtype),
+                                          arch.plan.bucket_mb)
+           for name, dtype in (("zero1", torch.bfloat16),
+                               ("classic", torch.float32))}
+    ov = ovs["zero1"]
+    by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
+    shapes = [(f"overlap {which}", *matrix_shape(n), n) for which, n in (
+        ("block", max(n for n, r in by_stage if r < ov.n_stages)),
+        ("tail", max(n for n, r in by_stage if r == ov.n_stages)))]
     layouts = {
-        name: bucketing.layout_for(list(Model(
-            arch, ShardCtx(param_dtype=dtype), device="meta").parameters()),
-            arch.plan.bucket_mb)
+        name: bucketing.layout_for(list(meta_model(dtype).parameters()),
+                                   arch.plan.bucket_mb)
         for name, dtype in (("zero1", torch.bfloat16),
                             ("classic", torch.float32))}
-    shapes = [(f"{name} {which}", *matrix_shape(n), n)
-              for name, lay in layouts.items()
-              for which, n in (("full", lay.bucket_elems),
-                               ("last", lay.last_elems))]
+    shapes += [(f"{name} {which}", *matrix_shape(n), n)
+               for name, lay in layouts.items()
+               for which, n in (("full", lay.bucket_elems),
+                                ("last", lay.last_elems))]
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -836,7 +1106,9 @@ def main() -> int:
     try:
         reference_phase()
         zero1_reference()
+        overlap_reference()
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
+        ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
         runs = {  # name -> (steps, launches per step, accum, build overrides)
             "powersgd": (3, {"powersgd_encode": 2 * nb,
                              "powersgd_decode": nb}, 1,
@@ -862,10 +1134,53 @@ def main() -> int:
             "zero1 rtob": (1, {}, 1, dict(comm="reduce_to_owner_broadcast")),
             "zero1 accum2": (1, {}, 2, {}),
         }
+        # the overlapped step: leaf-aligned buckets flushed between
+        # backward stages on a side stream (schedule as requested)
+        ov_runs = {  # name -> (steps, launches per step, accum, schedule,
+            #                   build overrides)
+            "zero1 overlap none": (3, {}, 1, "overlap", {}),
+            "zero1 overlap powersgd": (3, {"powersgd_encode": 2 * oz,
+                                           "powersgd_decode": oz}, 1,
+                                       "overlap",
+                                       dict(compression="powersgd")),
+            "zero1 serial powersgd": (3, {"powersgd_encode": 2 * oz,
+                                          "powersgd_decode": oz}, 1,
+                                      "serial", dict(compression="powersgd")),
+            "zero1 overlap signsgd": (2, {"pack_signs": oz,
+                                          "popcount_votes": oz}, 1,
+                                      "overlap", dict(compression="signsgd")),
+            "zero1 overlap qsgd": (2, {"qsgd_quantize": oz}, 1, "overlap",
+                                   dict(compression="qsgd")),
+            "zero1 overlap rtob": (1, {}, 1, "overlap",
+                                   dict(comm="reduce_to_owner_broadcast")),
+            "zero1 overlap accum2": (1, {}, 2, "overlap", {}),
+            "classic overlap powersgd": (2, {"powersgd_encode": 2 * ob,
+                                             "powersgd_decode": ob}, 1,
+                                         "overlap",
+                                         dict(zero1=False,
+                                              compression="powersgd")),
+        }
         hist, counts = {}, {}
         for label, (steps, per_step, accum, overrides) in runs.items():
             hist[label], counts[label] = train_phase(
                 label, steps, per_step, accum, **overrides)
+        for label, (steps, per_step, accum, schedule, overrides) in \
+                ov_runs.items():
+            hist[label], counts[label] = train_phase(
+                label, steps, per_step, accum, schedule, **overrides)
+        # the three schedules round robin at full width (overlap_bench)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bench = overlap_bench.main([
+            "--full-size", "--zero1", "--method", "none", "--batch", "4",
+            "--seq", "512", "--keep-data-axis", "--warmup", "1", "--reps",
+            "3"])
+        log(f"[bench] three schedules, ZeRO-1 none, 1 warm-up and 3 reps "
+            f"in {time.perf_counter() - t0:.1f} s: step ms "
+            f"{bench['step_ms']}; peak {bench['peak_mem_gib']:.2f} GiB")
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     log("[train] " + json.dumps(hist))
@@ -874,17 +1189,19 @@ def main() -> int:
     sources = {
         "powersgd_encode": ("src/repro_torch/kernels/csrc/powersgd.cu",
                             "src/repro/kernels/powersgd.py:43",
-                            "zero1 powersgd"),
+                            "zero1 overlap powersgd"),
         "powersgd_decode": ("src/repro_torch/kernels/csrc/powersgd.cu",
                             "src/repro/kernels/powersgd.py:77",
-                            "zero1 powersgd"),
+                            "zero1 overlap powersgd"),
         "pack_signs": ("src/repro_torch/kernels/csrc/bitpack.cu",
-                       "src/repro/kernels/bitpack.py:35", "zero1 signsgd"),
+                       "src/repro/kernels/bitpack.py:35",
+                       "zero1 overlap signsgd"),
         "popcount_votes": ("src/repro_torch/kernels/csrc/bitpack.cu",
                            "src/repro/kernels/bitpack.py:72",
-                           "zero1 signsgd"),
+                           "zero1 overlap signsgd"),
         "qsgd_quantize": ("src/repro_torch/kernels/csrc/qsgd.cu",
-                          "src/repro/kernels/qsgd.py:31", "zero1 qsgd"),
+                          "src/repro/kernels/qsgd.py:31",
+                          "zero1 overlap qsgd"),
         # on no path, as in the JAX package: its launches over every run
         "threshold_mask": ("src/repro_torch/kernels/csrc/topk.cu",
                            "src/repro/kernels/topk.py:26", None),

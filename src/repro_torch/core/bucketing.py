@@ -1,21 +1,31 @@
 """Gradient bucketing — the PyTorch-DDP "25 MB bucket" mechanism (paper
-§2.2).  Counterpart of ``repro.core.bucketing``, byte-based layouts only
-(leaf-aligned layouts come with the overlapped schedule), and of its
-ZeRO-1 owner sharding (``OwnerPlan``, ``owner_plan``): each bucket has one
-owner rank, or, with fewer buckets than ranks, the largest buckets are
+§2.2).  Counterpart of ``repro.core.bucketing``: both layout families and
+the ZeRO-1 owner sharding (``OwnerPlan``, ``owner_plan``): each bucket has
+one owner rank, or, with fewer buckets than ranks, the largest buckets are
 split so every rank owns one contiguous sub-bucket.
 
-The gradient leaves are raveled, in the JAX package's leaf order, into one
-flat vector that is split into fixed-byte buckets.  PowerSGD is not
-invariant to element order, so the order is part of the contract: the
-port's model lists its parameters in exactly that order (see
-``repro_torch.models.model``).
+``layout_for(leaves, bucket_mb)``
+    Byte-based boundaries: the gradient leaves are raveled, in the JAX
+    package's leaf order, into one flat vector that is split into
+    fixed-byte buckets (the classic step).  PowerSGD is not invariant to
+    element order, so the order is part of the contract: the port's model
+    lists its parameters in exactly that order (see
+    ``repro_torch.models.model``).
+
+``layout_for(leaves, bucket_mb, leaf_aligned=True)``
+    PyTorch-DDP-style leaf-aligned boundaries: buckets are greedy runs of
+    whole leaves, closed when the byte target is reached, with a recorded
+    leaf -> bucket map (``leaf_bucket``).  No leaf straddles a boundary,
+    so a bucket is complete the moment its layers' gradients are: what the
+    overlapped step (``repro_torch.train.overlap``) needs to issue a
+    bucket while earlier layers' backward still runs.
+    ``leaves_to_buckets`` builds each bucket from its own leaves only.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -28,10 +38,28 @@ class BucketLayout:
     n_buckets: int
     dtype: Any
     sizes: tuple[int, ...]     # per-bucket element counts (last may be short)
+    # leaf-aligned layouts only (None => byte-based boundaries):
+    leaf_sizes: Optional[tuple[int, ...]] = None   # per-leaf element counts
+    leaf_bucket: Optional[tuple[int, ...]] = None  # leaf index -> bucket
 
     @property
     def last_elems(self) -> int:
         return self.sizes[-1]
+
+    @property
+    def leaf_aligned(self) -> bool:
+        return self.leaf_sizes is not None
+
+    def bucket_leaves(self, b: int) -> tuple[int, int]:
+        """Half-open leaf-index range [lo, hi) owned by bucket ``b``
+        (leaf-aligned layouts only; buckets own contiguous leaf runs)."""
+        if self.leaf_bucket is None:
+            raise ValueError("bucket_leaves needs a leaf-aligned layout")
+        lo = self.leaf_bucket.index(b)
+        hi = lo
+        while hi < len(self.leaf_bucket) and self.leaf_bucket[hi] == b:
+            hi += 1
+        return lo, hi
 
 
 def _majority_dtype(leaves: Sequence[torch.Tensor]):
@@ -43,27 +71,109 @@ def _majority_dtype(leaves: Sequence[torch.Tensor]):
     return max(by_dtype, key=by_dtype.get)
 
 
-def layout_for(leaves: Sequence[torch.Tensor],
-               bucket_mb: float) -> BucketLayout:
-    """Byte-based layout over ``leaves`` (any tensors with the gradients'
-    shapes and dtypes, in leaf order)."""
+def _bucket_elems(dtype, bucket_mb: float) -> int:
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return max(1, int(bucket_mb * 2**20) // itemsize)
+
+
+def leaf_aligned_sizes(leaf_sizes: Sequence[int], bucket_elems: int
+                       ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Greedy leaf -> bucket assignment: walk the leaves in order, close
+    the current bucket once it holds >= ``bucket_elems`` elements.  Every
+    bucket owns at least one whole leaf and no leaf straddles a boundary,
+    so a leaf bigger than the target joins the open bucket whole (which
+    then closes oversized).
+
+    Returns (per-bucket element counts, leaf index -> bucket index)."""
+    sizes: list[int] = []
+    leaf_bucket: list[int] = []
+    acc = 0
+    for s in leaf_sizes:
+        if acc >= bucket_elems and acc > 0:
+            sizes.append(acc)
+            acc = 0
+        leaf_bucket.append(len(sizes))
+        acc += int(s)
+    # close the open bucket whenever a leaf was assigned to it: even a
+    # zero-size trailing leaf must land in a bucket that exists
+    if (leaf_bucket and leaf_bucket[-1] == len(sizes)) or not sizes:
+        sizes.append(acc)
+    return tuple(sizes), tuple(leaf_bucket)
+
+
+def layout_from_leaf_sizes(leaf_sizes: Sequence[int], dtype,
+                           bucket_mb: float) -> BucketLayout:
+    """Leaf-aligned layout over an explicit ordered leaf-size list (the
+    overlapped step orders the leaves by backward completion, which is not
+    the parameter order, so it builds its layout from sizes)."""
+    bucket_elems = _bucket_elems(dtype, bucket_mb)
+    sizes, leaf_bucket = leaf_aligned_sizes(leaf_sizes, bucket_elems)
+    return BucketLayout(int(sum(leaf_sizes)), bucket_elems, len(sizes),
+                        dtype, sizes,
+                        leaf_sizes=tuple(int(s) for s in leaf_sizes),
+                        leaf_bucket=leaf_bucket)
+
+
+def layout_for(leaves: Sequence[torch.Tensor], bucket_mb: float,
+               leaf_aligned: bool = False) -> BucketLayout:
+    """Layout over ``leaves`` (any tensors with the gradients' shapes and
+    dtypes, in leaf order): byte-based boundaries, or leaf-aligned ones
+    with ``leaf_aligned=True``."""
     leaves = list(leaves)
     if not leaves:
         raise ValueError("empty gradient list")
     dtype = _majority_dtype(leaves)
+    if leaf_aligned:
+        return layout_from_leaf_sizes([t.numel() for t in leaves], dtype,
+                                      bucket_mb)
     n = sum(t.numel() for t in leaves)
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    bucket_elems = max(1, int(bucket_mb * 2**20) // itemsize)
+    bucket_elems = _bucket_elems(dtype, bucket_mb)
     n_buckets = -(-n // bucket_elems)
     sizes = [bucket_elems] * (n_buckets - 1)
     sizes.append(n - bucket_elems * (n_buckets - 1))
     return BucketLayout(n, bucket_elems, n_buckets, dtype, tuple(sizes))
 
 
+def leaves_to_buckets(leaves: Sequence[torch.Tensor],
+                      layout: BucketLayout) -> list[torch.Tensor]:
+    """Leaf-aligned assembly: each bucket is the concatenation of its own
+    leaves, cast to the bucket dtype; no whole-gradient flat vector."""
+    if layout.leaf_sizes is None or len(leaves) != len(layout.leaf_sizes):
+        raise ValueError(f"{len(leaves)} leaves for a layout of "
+                         f"{layout.leaf_sizes and len(layout.leaf_sizes)}")
+    per_bucket: list[list[torch.Tensor]] = [[] for _ in
+                                            range(layout.n_buckets)]
+    for t, b in zip(leaves, layout.leaf_bucket):
+        per_bucket[b].append(t.reshape(-1).to(layout.dtype))
+    return [parts[0] if len(parts) == 1 else torch.cat(parts)
+            for parts in per_bucket]
+
+
+def buckets_to_leaves(buckets: Sequence[torch.Tensor],
+                      leaves_like: Sequence[torch.Tensor],
+                      layout: BucketLayout) -> list[torch.Tensor]:
+    """Inverse of :func:`leaves_to_buckets`: split each bucket back into
+    its leaves (shapes and dtypes from ``leaves_like``, same order)."""
+    if layout.leaf_bucket is None:
+        raise ValueError("buckets_to_leaves needs a leaf-aligned layout")
+    out, off, cur = [], 0, 0
+    for like, b in zip(leaves_like, layout.leaf_bucket):
+        if b != cur:
+            cur, off = b, 0
+        n = like.numel()
+        out.append(buckets[b][off:off + n].reshape(like.shape)
+                   .to(like.dtype))
+        off += n
+    return out
+
+
 def to_buckets(leaves: Sequence[torch.Tensor],
                layout: BucketLayout) -> list[torch.Tensor]:
-    """Ravel the leaves into their list of 1-D buckets (views of one flat
-    concatenation, cast to the bucket dtype)."""
+    """Ravel the leaves into their list of 1-D buckets, cast to the bucket
+    dtype: per-leaf assembly for a leaf-aligned layout, views of one flat
+    concatenation for a byte-based one."""
+    if layout.leaf_aligned:
+        return leaves_to_buckets(leaves, layout)
     flat = torch.cat([t.reshape(-1).to(layout.dtype) for t in leaves])
     if flat.shape[0] != layout.n_elements:
         raise ValueError(f"{flat.shape[0]} elements for a layout of "
@@ -110,6 +220,8 @@ def from_buckets(buckets: Sequence[torch.Tensor],
                  layout: BucketLayout) -> list[torch.Tensor]:
     """Inverse of :func:`to_buckets` (shapes and dtypes from
     ``leaves_like``)."""
+    if layout.leaf_aligned:
+        return buckets_to_leaves(buckets, leaves_like, layout)
     flat = torch.cat([b.to(layout.dtype) for b in buckets])
     parts = flat.split([t.numel() for t in leaves_like])
     return [p.reshape(t.shape).to(t.dtype)

@@ -1,9 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
-Runs the port's classic DDP step (no overlap) as the arch configures it
-(``tinyllama-1.1b``: ZeRO-1 with bf16 working parameters) on the card, or
-on the CPU with ``--device cpu``; ``--accum`` splits each rank's batch
-into microbatches.  Under ``torchrun`` each process
+Runs the port's DDP step as the arch configures it (``tinyllama-1.1b``:
+ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
+``--device cpu``; ``--accum`` splits each rank's batch into microbatches,
+and ``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
+each bucket aggregated between backward stages).  Under ``torchrun`` each process
 joins the group from its environment and drives ``cuda:LOCAL_RANK``;
 without it the run is a group of one rank.  As in the JAX package, a
 reduction axis of size 1 is dropped, so a one-rank run aggregates nothing.
@@ -50,6 +51,10 @@ def main(argv=None):
                     help="auto|allreduce|reduce_scatter_allgather|"
                          "gather_all|reduce_to_owner_broadcast (the last "
                          "needs zero1 and --compression none)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="segmented backward with each bucket aggregated "
+                         "between backward stages (the paper's optimized "
+                         "syncSGD baseline); forces dp_mode=ddp")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -81,10 +86,17 @@ def main(argv=None):
         overrides["compression"] = args.compression
     if args.comm:
         overrides["comm"] = args.comm
+    if args.overlap:
+        if arch.plan.dp_mode != "ddp" and rank == 0:
+            print(f"[train] --overlap: dp_mode {arch.plan.dp_mode!r} -> "
+                  f"'ddp' (overlap interleaves DDP bucket collectives)",
+                  flush=True)
+        overrides.update(overlap=True, dp_mode="ddp")
     setup = ts.build(arch, dev, **overrides)
     if rank == 0:
         print(f"[train] arch={arch.name} device={dev} world={world} "
               f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
+              f"overlap={setup.overlap} "
               f"params={str(setup.layout.dtype).removeprefix('torch.')} "
               f"accum={args.accum} "
               f"agg={setup.agg_cfg.compressor}@{setup.agg_cfg.compress_axes}"

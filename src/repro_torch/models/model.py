@@ -13,7 +13,10 @@ the JAX tree's leaf order (sorted keys at every level):
 ``parameters()`` therefore yields the leaves in the order in which the JAX
 package ravels its gradient into buckets, which PowerSGD depends on.  The
 block loop takes layer ``l``'s slice of each stacked leaf; ``remat="full"``
-recomputes each block in the backward pass.
+recomputes each block in the backward pass.  ``loss`` is three stages
+(``stage_embed``, ``stage_block`` per layer, ``stage_loss``), which the
+overlapped step (``repro_torch.train.overlap``) runs one autograd graph at
+a time.
 """
 from __future__ import annotations
 
@@ -91,26 +94,57 @@ class Model(nn.Module):
                 else:
                     trunc_normal_(p, std, generator)
 
+    # ---- the three stages of the loss; the classic step runs them in one
+    # ---- autograd graph, the overlapped step one graph per stage ----------
+    def stage_embed(self, table: torch.Tensor, tokens: torch.Tensor
+                    ) -> torch.Tensor:
+        """tokens (B, S) -> the first block's input (B, S, d)."""
+        return embedding_lookup(table, tokens, self.ctx, self.cfg.vocab)
+
+    def stage_block(self, p_l: dict, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+        """One block on one layer's parameters (``p_l``: names under
+        ``blocks.`` -> that layer's slice), recomputed in the backward
+        pass when ``remat="full"``."""
+        if self.cfg.plan.remat == "full" and torch.is_grad_enabled():
+            return checkpoint(tf.dense_block_apply, p_l, x, positions,
+                              self.cfg, self.ctx, use_reentrant=False)
+        return tf.dense_block_apply(p_l, x, positions, self.cfg, self.ctx)
+
+    def stage_loss(self, final_scale: torch.Tensor, table: torch.Tensor,
+                   x: torch.Tensor, labels: torch.Tensor,
+                   xent_chunk: int = 1024
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The last block's output -> (local loss sum, local token count):
+        final norm, unembedding and the chunked cross-entropy."""
+        return tf.lm_loss(final_scale, table, x, labels, self.cfg, self.ctx,
+                          xent_chunk)
+
+    def block_params(self) -> list[tuple[str, torch.Tensor]]:
+        """(name under ``blocks.``, stacked ``(L, ...)`` parameter) in leaf
+        order."""
+        return [(name[len(BLOCK_PREFIX):], p)
+                for name, p in self.named_parameters()
+                if name.startswith(BLOCK_PREFIX)]
+
     def loss(self, batch: dict, xent_chunk: int = 1024
              ) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: ``tokens`` and ``labels`` (B, S) on the model's device.
         Returns (local loss sum, local token count)."""
-        cfg, ctx = self.cfg, self.ctx
         tokens, labels = batch["tokens"], batch["labels"]
-        b, s = tokens.shape
-        x = embedding_lookup(self.embed.table, tokens, ctx, cfg.vocab)
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        stacked = [(name[len(BLOCK_PREFIX):], p.unbind(0))
-                   for name, p in self.named_parameters()
-                   if name.startswith(BLOCK_PREFIX)]
-        remat = cfg.plan.remat == "full" and torch.is_grad_enabled()
-        for layer in range(cfg.n_layers):
-            p_l = {name: slices[layer] for name, slices in stacked}
-            if remat:
-                x = checkpoint(tf.dense_block_apply, p_l, x, positions, cfg,
-                               ctx, use_reentrant=False)
-            else:
-                x = tf.dense_block_apply(p_l, x, positions, cfg, ctx)
-        table = self.embed.table if cfg.tie_embeddings else self.unembed.table
-        return tf.lm_loss(self.final_norm.scale, table, x, labels, cfg, ctx,
-                          xent_chunk)
+        x = self.stage_embed(self.embed.table, tokens)
+        positions = positions_of(tokens)
+        stacked = [(name, p.unbind(0)) for name, p in self.block_params()]
+        for layer in range(self.cfg.n_layers):
+            x = self.stage_block({name: slices[layer]
+                                  for name, slices in stacked}, x, positions)
+        table = self.embed.table if self.cfg.tie_embeddings \
+            else self.unembed.table
+        return self.stage_loss(self.final_norm.scale, table, x, labels,
+                               xent_chunk)
+
+
+def positions_of(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) token positions 0..S-1 of every row."""
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device).expand(b, s)

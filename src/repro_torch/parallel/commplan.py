@@ -29,6 +29,17 @@ from repro_torch.launch import mesh as mesh_mod
 KINDS = ("allreduce", "reduce_scatter_allgather",
          "reduce_to_owner_broadcast", "gather_all", "hierarchical")
 
+#: kinds that mean-reduce and therefore require an associative payload.
+ASSOCIATIVE_ONLY = ("allreduce", "reduce_scatter_allgather",
+                    "reduce_to_owner_broadcast", "hierarchical")
+
+#: kinds whose per-bucket collective can pipeline into the backward pass
+#: (ring traffic with a complete result per bucket, paper Table 3):
+#: ``gather_all`` needs every peer before any decode, and
+#: ``reduce_to_owner_broadcast`` folds its exchange into the sharded
+#: update, so neither overlaps.
+OVERLAPPABLE = ("allreduce", "reduce_scatter_allgather", "hierarchical")
+
 
 class CommPlanError(ValueError):
     """An illegal (plan, payload) combination — e.g. ring-reducing a
@@ -60,9 +71,7 @@ class CommPlan:
 
     # ---- legality: associativity constrains plan choice -----------------
     def legal_for(self, associative: bool) -> bool:
-        if self.kind == "auto" or self.kind == "gather_all":
-            return True
-        return associative
+        return associative or self.kind not in ASSOCIATIVE_ONLY
 
     def validate(self, associative: bool) -> None:
         if not self.legal_for(associative):

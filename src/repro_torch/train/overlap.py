@@ -1,0 +1,539 @@
+"""The overlapped DDP step: bucketed gradient aggregation issued during the
+backward pass, the paper's *optimized* syncSGD baseline (§2.2, Fig 2).
+Counterpart of ``repro.train.overlap``.
+
+The classic step (``train_step.make_step``) runs the whole backward and
+only then aggregates every bucket.  This module runs the backward one
+stage at a time and aggregates each bucket as soon as its gradients are
+final:
+
+  1. The model's blocks are split into stages.  The forward runs each
+     block on a detached input and on detached per-layer slices of the
+     stacked weights, keeping one autograd graph per block (with
+     ``remat="full"`` each graph saves only its input); the backward calls
+     ``torch.autograd.grad`` on those graphs in reverse layer order.  Stage
+     ``s`` is block ``L - 1 - s``; stage ``L`` (the tail) is the loss head
+     and the embedding, whose gradients are final last.  Every stage runs
+     the code of the classic step (``Model.stage_embed``,
+     ``Model.stage_block``, ``Model.stage_loss``).
+  2. The gradients are bucketed with the leaf-aligned layout
+     (``bucketing.layout_from_leaf_sizes``) over the leaves in
+     backward-completion order: the last block's leaves first, block 0's
+     next to last, then the tail.  No leaf straddles a bucket boundary, so
+     a bucket is complete after the stage that writes its last leaf
+     (``OverlapLayout.bucket_ready``).
+  3. Under ``schedule="overlap"`` each completed bucket's encode -> reduce
+     -> decode (``GradAggregator.aggregate_one``) is issued right after
+     that stage, on a side CUDA stream, so the card runs it beside the
+     next stage's backward.  ``schedule="serial"`` issues the same flushes
+     on the same side stream after the whole backward.  The two differ
+     only in the order of issue and give the same bits.
+
+Where the JAX package needs ``jax.lax.optimization_barrier`` and XLA's
+latency-hiding-scheduler flags (``enable_overlap_flags``) to keep the
+collectives between the backward stages, the port needs neither: eager
+PyTorch issues work in program order, and the side stream lets the card
+run a flush beside the compute stream.  ``torch.distributed``'s collectives
+make the *current* stream wait for them; inside the flush that is the side
+stream, so the next stage's backward does not wait.  On the CPU (gloo)
+there are no streams and the schedule is only the order of issue.
+
+Which plans pipeline is decided by the resolved comm plan
+(``commplan.OVERLAPPABLE``): ``gather_all``, the forced resolution of the
+non-associative schemes, needs every peer before any decode, so it runs
+``serial``; ``reduce_to_owner_broadcast`` has no per-bucket collective at
+all (the exchange is folded into ZeRO-1's update), so the backward runs
+``raw``.  ``effective_schedule`` reports the resolution.
+
+Supported: the dense family (the only one the port has), ZeRO-1 through
+``train_step.zero1_apply`` on the ordered leaves, and ``accum > 1``
+(microbatches 0..N-2 run ``raw`` into an fp32 sum; each bucket is flushed
+once, during the final microbatch's backward).  ``OverlapLayout.stacks``
+is a tuple so that the enc-dec family's two stacks can plug in with its
+slice; FSDP is refused, as in the JAX package.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import aggregator as agg_mod
+from repro_torch.core import bucketing
+from repro_torch.models.model import BLOCK_PREFIX, positions_of
+from repro_torch.parallel import commplan as cp
+
+#: families whose training stack is a single block collection, and its
+#: parameter prefix (the JAX package's ``params`` key).
+_STACK_KEYS = {"dense": "blocks"}
+
+
+# --------------------------------------------------------------------------
+# support gating
+# --------------------------------------------------------------------------
+def supports(arch, plan) -> tuple[bool, str]:
+    """Can (arch, plan) run the segmented overlapped step?"""
+    if plan.dp_mode != "ddp":
+        return False, ("overlap interleaves DDP bucket collectives; FSDP's "
+                       "per-layer reduce-scatter already overlaps via the "
+                       "all_gather AD transpose")
+    if arch.family not in _STACK_KEYS:
+        return False, f"family {arch.family!r} is not ported yet"
+    return True, ""
+
+
+def check_supported(arch, plan) -> None:
+    """Raises ``NotImplementedError`` for a family the port does not have
+    yet and ``ValueError`` for a plan the segmented step cannot run."""
+    if arch.family not in _STACK_KEYS:
+        raise NotImplementedError(
+            f"plan.overlap for {arch.name}: the {arch.family!r} family is "
+            f"not ported yet (the port has the dense family only)")
+    ok, why = supports(arch, plan)
+    if not ok:
+        raise ValueError(f"plan.overlap unsupported for {arch.name}: {why}")
+
+
+def effective_schedule(setup) -> str:
+    """The schedule ``make_step(schedule="overlap")`` runs, resolved from
+    the comm plan: ``"overlap"`` for the ring plans of
+    ``commplan.OVERLAPPABLE``; ``"serial"`` for ``gather_all`` (every
+    peer's payload is needed before any decode); ``"raw"`` under
+    ``reduce_to_owner_broadcast``, which has no per-bucket collective."""
+    if setup.rtob:
+        return "raw"
+    if not setup.agg_cfg.compress_axes and not setup.agg_cfg.raw_axes:
+        return "overlap"      # no collectives at all; the schedule is moot
+    if setup.agg_cfg.compressor == "none":
+        assoc = True
+    else:
+        assoc = setup.agg_cfg.build().associative
+    resolved = setup.agg_cfg.comm.resolve(assoc)
+    return "overlap" if resolved.kind in cp.OVERLAPPABLE else "serial"
+
+
+# --------------------------------------------------------------------------
+# layout: leaves ordered by backward completion
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class StackSeg:
+    """One stacked block collection's slice of the ordered-leaf space."""
+    key: str                      # parameter prefix of the collection
+    n_layers: int                 # backward stages contributed
+    n_leaves: int                 # leaves per layer slice
+    stage0: int                   # first stage index of this stack
+    leaf0: int                    # first ordered-leaf index of this stack
+
+    @property
+    def leaf_end(self) -> int:
+        return self.leaf0 + self.n_layers * self.n_leaves
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapLayout:
+    """Leaf-aligned bucket layout over backward-completion-ordered leaves.
+
+    Leaf order: the stack's last block's leaves first, block 0's next to
+    last; then the tail (every parameter outside the stack: embedding,
+    final norm, unembedding).  Stage ``s`` is one block's backward; stage
+    ``n_stages`` is the tail, final only once the whole backward,
+    embedding included, has run.
+    """
+    layout: bucketing.BucketLayout
+    stacks: tuple[StackSeg, ...]
+    n_stages: int                  # total block stages (tail == n_stages)
+    bucket_ready: tuple[int, ...]  # bucket -> stage after which complete
+
+    def stage_leaf_range(self, s: int) -> tuple[int, int]:
+        """Half-open ordered-leaf range written by stage ``s``."""
+        for seg in self.stacks:
+            if s < seg.stage0 + seg.n_layers:
+                lo = seg.leaf0 + (s - seg.stage0) * seg.n_leaves
+                return lo, lo + seg.n_leaves
+        return self.stacks[-1].leaf_end, len(self.layout.leaf_sizes)
+
+    def buckets_ready_at(self, s: int) -> list[int]:
+        return [b for b, r in enumerate(self.bucket_ready) if r == s]
+
+
+def layout_for_model(model, bucket_mb: float) -> OverlapLayout:
+    """The overlap layout of a ``Model`` (any device, ``meta`` included:
+    only shapes and dtypes are read)."""
+    names = [name for name, _ in model.named_parameters()]
+    stacked = model.block_params()
+    if names[:len(stacked)] != [BLOCK_PREFIX + n for n, _ in stacked]:
+        raise ValueError("the block parameters must lead the leaf order")
+    rest = list(model.parameters())[len(stacked):]
+    n_layers = stacked[0][1].shape[0]
+    per_layer = [math.prod(p.shape[1:]) for _, p in stacked]
+    segs = (StackSeg(_STACK_KEYS[model.cfg.family], n_layers,
+                     len(per_layer), 0, 0),)
+    leaf_sizes = per_layer * n_layers + [p.numel() for p in rest]
+    dtype = bucketing._majority_dtype(list(model.parameters()))
+    layout = bucketing.layout_from_leaf_sizes(leaf_sizes, dtype, bucket_mb)
+
+    def stage_of(leaf_idx: int) -> int:
+        for seg in segs:
+            if leaf_idx < seg.leaf_end:
+                return seg.stage0 + (leaf_idx - seg.leaf0) // seg.n_leaves
+        return n_layers
+
+    ready = tuple(stage_of(layout.bucket_leaves(b)[1] - 1)
+                  for b in range(layout.n_buckets))
+    return OverlapLayout(layout, segs, n_layers, ready)
+
+
+def build_layout(setup) -> OverlapLayout:
+    """The overlap layout of a TrainSetup, memoized on the setup (keyed by
+    the bucket byte target, as in the JAX package): the compressor
+    states, the ZeRO-1 owner plan and the step all read it."""
+    cached = getattr(setup, "_overlap_layout_cache", None)
+    if cached is not None and cached[0] == setup.agg_cfg.bucket_mb:
+        return cached[1]
+    check_supported(setup.arch, setup.arch.plan)
+    ov = layout_for_model(setup.model, setup.agg_cfg.bucket_mb)
+    setup._overlap_layout_cache = (setup.agg_cfg.bucket_mb, ov)
+    return ov
+
+
+# --------------------------------------------------------------------------
+# the flush engine
+# --------------------------------------------------------------------------
+class _Flush:
+    """Ordered-leaf store and per-bucket flush of one segmented backward.
+
+    ``stage(s, leaves)`` stores stage ``s``'s leaf gradients (added to the
+    fp32 sum ``acc`` of the earlier microbatches and scaled by
+    ``inv_accum`` on a final microbatch) and, under ``overlap``, flushes
+    the buckets completed by stage ``s``.  ``tail(leaves)`` stores the
+    tail, flushes the remaining buckets (all of them under ``serial``),
+    joins the side stream and returns the aggregated ordered leaves.
+
+    On the card every flush runs on ``side`` after ``side`` waits for the
+    compute stream; the compute stream waits for ``side`` once, in
+    ``tail``.  The stored leaves are compute-stream tensors read on
+    ``side``: they are held until after that join, so the caching
+    allocator cannot hand their memory out early.  The buckets, the
+    aggregated buckets and the new compressor states are side-stream
+    tensors: the compute stream reads them only after the join, and every
+    later side-stream use first waits for the compute stream.
+    """
+
+    def __init__(self, ov: OverlapLayout, aggregator: agg_mod.GradAggregator,
+                 agg_states: tuple, schedule: str, do_agg: bool,
+                 side: Optional["torch.cuda.Stream"] = None,
+                 acc: Optional[list] = None, inv_accum: float = 1.0):
+        self.ov, self.aggregator, self.schedule = ov, aggregator, schedule
+        self.states = agg_states
+        self.do_agg = do_agg and schedule != "raw"
+        self.side = side
+        self.main = torch.cuda.current_stream(side.device) if side else None
+        self.acc, self.inv = acc, inv_accum
+        n_buckets = ov.layout.n_buckets
+        self.leaf_vals: list = [None] * len(ov.layout.leaf_sizes)
+        self.out_buckets: list = [None] * n_buckets
+        self.new_states: list = list(agg_states) if agg_states \
+            else [() for _ in range(n_buckets)]
+        #: (bucket, stage after which it was issued), in order of issue
+        self.order: list[tuple[int, int]] = []
+
+    def _store(self, s: int, leaves: Sequence[torch.Tensor]) -> None:
+        lo, hi = self.ov.stage_leaf_range(s)
+        if len(leaves) != hi - lo:
+            raise ValueError(f"stage {s}: {len(leaves)} leaves for "
+                             f"[{lo}, {hi})")
+        if self.acc is not None:
+            # (g + sum) * (1 / accum) in place in the fp32 sum: the bits
+            # of the JAX package's (g.astype(f32) + sum) * inv, without a
+            # second fp32 copy of the gradient
+            leaves = [self.acc[lo + i].add_(v).mul_(self.inv)
+                      for i, v in enumerate(leaves)]
+        self.leaf_vals[lo:hi] = leaves
+
+    def _on_side(self):
+        if self.side is None:
+            return contextlib.nullcontext()
+        self.side.wait_stream(self.main)
+        return torch.cuda.stream(self.side)
+
+    def _flush(self, b: int, s: int) -> None:
+        layout = self.ov.layout
+        lo, hi = layout.bucket_leaves(b)
+        with self._on_side():
+            parts = [v.reshape(-1).to(layout.dtype)
+                     for v in self.leaf_vals[lo:hi]]
+            bucket = parts[0] if len(parts) == 1 else torch.cat(parts)
+            st = self.states[b] if self.states else ()
+            self.out_buckets[b], self.new_states[b] = \
+                self.aggregator.aggregate_one(bucket, st)
+        self.order.append((b, s))
+
+    def stage(self, s: int, leaves: Sequence[torch.Tensor]) -> None:
+        self._store(s, leaves)
+        if self.do_agg and self.schedule == "overlap":
+            for b in self.ov.buckets_ready_at(s):
+                self._flush(b, s)
+
+    def tail(self, leaves: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        ov = self.ov
+        self._store(ov.n_stages, leaves)
+        if self.do_agg:
+            todo = ov.buckets_ready_at(ov.n_stages) \
+                if self.schedule == "overlap" else range(ov.layout.n_buckets)
+            for b in todo:
+                self._flush(b, ov.n_stages)
+            if self.side is not None:
+                self.main.wait_stream(self.side)
+            out = bucketing.buckets_to_leaves(self.out_buckets,
+                                              self.leaf_vals, ov.layout)
+        else:
+            out = self.leaf_vals
+        # past the join: the local gradients may go before the update
+        self.leaf_vals = self.out_buckets = self.acc = None
+        return out
+
+    def new_agg(self) -> tuple:
+        return tuple(self.new_states) if self.states else self.states
+
+
+# --------------------------------------------------------------------------
+# the segmented backward
+# --------------------------------------------------------------------------
+def _backward_seed(setup, loss_sum: torch.Tensor, ntok: torch.Tensor):
+    """(d(scaled loss)/d(loss sum), global token count): the classic
+    step's loss scale ``p_dp / n_global``, in the loss's dtype."""
+    n_glob = cp.psum(ntok, setup.dp_axes)
+    return (setup.p_dp / n_glob.float()).to(loss_sum.dtype), n_glob
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    """A detached view of ``t`` that autograd differentiates on its own."""
+    return t.detach().requires_grad_()
+
+
+def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
+                    xent_chunk: int):
+    """The dense family: the forward keeps one autograd graph per stage;
+    the backward takes them in reverse layer order, handing each stage's
+    leaf gradients to ``flush``.  Returns (ordered aggregated leaves, loss
+    sum, global token count)."""
+    model = setup.model
+    seg = ov.stacks[0]
+    stacked = [(name, p.detach()) for name, p in model.block_params()]
+    leaves = {name: _leaf(p) for name, p in model.named_parameters()
+              if not name.startswith(BLOCK_PREFIX)}   # the tail, in order
+    head = ("final_norm.scale", "embed.table" if model.cfg.tie_embeddings
+            else "unembed.table")
+    tokens, labels = batch["tokens"], batch["labels"]
+
+    # ---- forward: one graph per stage --------------------------------
+    with torch.enable_grad():
+        x0 = model.stage_embed(leaves["embed.table"], tokens)
+        positions = positions_of(tokens)
+        x = _leaf(x0)
+        stages = []
+        for layer in range(seg.n_layers):
+            p_l = {name: p[layer].requires_grad_() for name, p in stacked}
+            y = model.stage_block(p_l, x, positions)
+            stages.append((p_l, x, y))
+            x = _leaf(y)
+        loss_sum, ntok = model.stage_loss(*(leaves[n] for n in head), x,
+                                          labels, xent_chunk)
+    seed, n_glob = _backward_seed(setup, loss_sum, ntok)
+
+    # ---- backward: reverse layer order, flushing completed buckets ----
+    *d_head, d_x = torch.autograd.grad(
+        loss_sum, (*(leaves[n] for n in head), x), seed)
+    grads = dict(zip(head, d_head))
+    del x
+    for s in range(seg.n_layers):
+        p_l, x_in, y = stages[seg.n_layers - 1 - s]
+        stages[seg.n_layers - 1 - s] = None       # free the stage's graph
+        *d_p, d_x = torch.autograd.grad(y, (*p_l.values(), x_in), d_x)
+        del p_l, x_in, y
+        flush.stage(seg.stage0 + s, d_p)
+    d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
+    del d_x, x0
+    grads["embed.table"] = grads["embed.table"] + d_emb \
+        if "embed.table" in grads else d_emb
+    return flush.tail([grads[n] for n in leaves]), loss_sum.detach(), n_glob
+
+
+def _segmented_backward(setup, ov: OverlapLayout, batch: dict,
+                        flush: _Flush, xent_chunk: int):
+    """Forward (one graph per stage) and reverse-order backward with
+    per-bucket aggregation through ``flush``; returns (ordered leaves,
+    loss sum, global token count).  ``flush.schedule`` ``"overlap"``
+    flushes each completed bucket between backward stages; ``"serial"``
+    flushes every bucket after the whole backward (the same bits);
+    ``"raw"`` aggregates nothing and returns the local gradients."""
+    return _backward_stack(setup, ov, batch, flush, xent_chunk)
+
+
+# --------------------------------------------------------------------------
+# the step
+# --------------------------------------------------------------------------
+def make_step(setup, schedule: str = "overlap", accum: int = 1,
+              xent_chunk: int = 1024):
+    """The segmented-backward step: ``step(state, batch, lr) -> (state,
+    metrics)``, the contract of ``train_step.make_step``.
+
+    ``schedule="overlap"`` degrades to ``"serial"`` or ``"raw"`` where the
+    comm plan does not pipeline (``effective_schedule``).  ``accum > 1``
+    splits the batch into microbatches whose gradients are summed in fp32
+    in ordered-leaf form; each bucket is flushed once, on the final
+    microbatch, as ``(g + sum) * (1 / accum)``.  ``setup.zero1`` routes the
+    update through ``train_step.zero1_apply``.  After each call
+    ``step.flush_order`` lists (bucket, stage after which it was issued)
+    in order of issue."""
+    from repro_torch.train import train_step as ts
+
+    if schedule not in ("overlap", "serial"):
+        raise ValueError(f"schedule={schedule!r}")
+    if accum < 1:
+        raise ValueError(f"accum={accum}")
+    check_supported(setup.arch, setup.arch.plan)
+    ov = build_layout(setup)
+    if schedule == "overlap":
+        schedule = effective_schedule(setup)
+    if setup.rtob:
+        # no per-bucket gradient collective to schedule: the update's
+        # owner-aligned reduce-scatter is the only gradient exchange
+        schedule = "raw"
+    update_fn = ts.make_update_fn(setup, ov.layout, ov)
+    aggregator = agg_mod.GradAggregator(setup.agg_cfg)
+    do_agg = bool(setup.agg_cfg.compress_axes or setup.agg_cfg.raw_axes)
+    side = torch.cuda.Stream(setup.device) \
+        if setup.device.type == "cuda" else None
+
+    def backward(batch, agg_states):
+        if accum == 1:
+            flush = _Flush(ov, aggregator, agg_states, schedule, do_agg,
+                           side)
+            leaves, loss_sum, n_glob = _segmented_backward(
+                setup, ov, batch, flush, xent_chunk)
+            return leaves, flush, loss_sum, n_glob
+        rows = batch["tokens"].shape[0]
+        if rows % accum:
+            raise ValueError(f"{rows} rows do not split into {accum} "
+                             f"microbatches")
+        mb = rows // accum
+        micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                 for i in range(accum)]
+        acc = loss_sum = n_glob = None
+        for m in micro[:-1]:
+            raw = _Flush(ov, aggregator, (), "raw", False)
+            g, l_m, n_m = _segmented_backward(setup, ov, m, raw, xent_chunk)
+            with torch.no_grad():
+                if acc is None:       # the fp32 sum starts at zero: exact
+                    acc = [v.float() for v in g]
+                else:
+                    for a, v in zip(acc, g):
+                        a.add_(v)
+            del g, raw
+            loss_sum = l_m if loss_sum is None else loss_sum + l_m
+            n_glob = n_m if n_glob is None else n_glob + n_m
+        flush = _Flush(ov, aggregator, agg_states, schedule, do_agg, side,
+                       acc=acc, inv_accum=1.0 / accum)
+        del acc
+        leaves, l_m, n_m = _segmented_backward(setup, ov, micro[-1], flush,
+                                               xent_chunk)
+        return leaves, flush, loss_sum + l_m, n_glob + n_m
+
+    flush_order: list = []
+
+    def step(state: dict, batch: dict, lr: float):
+        batch = ts._to_device(batch, setup.device)
+        leaves, flush, loss_sum, n_glob = backward(batch, state["agg"])
+        with torch.no_grad():
+            params, new_opt, gnorm = update_fn(state["params"], leaves,
+                                               state["opt"], lr)
+            del leaves
+            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm)
+        flush_order[:] = flush.order
+        return {"step": state["step"] + 1, "params": params, "opt": new_opt,
+                "agg": flush.new_agg()}, metrics
+
+    # a list the step refills, not a reference to the step itself: a
+    # function that points at itself lives until the garbage collector
+    # runs, and with it the model it closes over
+    step.flush_order = flush_order
+    return step
+
+
+# --------------------------------------------------------------------------
+# the no-overlap strawman: the whole backward, then every bucket
+# --------------------------------------------------------------------------
+def make_unfused_step(setup, xent_chunk: int = 1024):
+    """The paper-Fig-2 strawman: a raw segmented backward materializes the
+    local gradients; then every bucket is aggregated on the compute
+    stream (``aggregate_bucket_list`` over the ordered leaves), then the
+    update.  Nothing overlaps.  Same contract as :func:`make_step`."""
+    from repro_torch.train import train_step as ts
+
+    check_supported(setup.arch, setup.arch.plan)
+    ov = build_layout(setup)
+    update_fn = ts.make_update_fn(setup, ov.layout, ov)
+    aggregator = agg_mod.GradAggregator(setup.agg_cfg)
+    do_agg = not setup.rtob and bool(setup.agg_cfg.compress_axes
+                                     or setup.agg_cfg.raw_axes)
+
+    def step(state: dict, batch: dict, lr: float):
+        batch = ts._to_device(batch, setup.device)
+        flush = _Flush(ov, aggregator, (), "raw", False)
+        leaves, loss_sum, n_glob = _segmented_backward(setup, ov, batch,
+                                                       flush, xent_chunk)
+        new_agg = state["agg"]
+        with torch.no_grad():
+            if do_agg:
+                buckets = bucketing.leaves_to_buckets(leaves, ov.layout)
+                outs, news = aggregator.aggregate_bucket_list(buckets,
+                                                              state["agg"])
+                del buckets
+                leaves = bucketing.buckets_to_leaves(outs, leaves, ov.layout)
+                del outs
+                if state["agg"]:
+                    new_agg = news
+            params, new_opt, gnorm = update_fn(state["params"], leaves,
+                                               state["opt"], lr)
+            del leaves
+            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm)
+        return {"step": state["step"] + 1, "params": params, "opt": new_opt,
+                "agg": new_agg}, metrics
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# leaf order
+# --------------------------------------------------------------------------
+def _ordered_leaves(ov: OverlapLayout, leaves: Sequence[torch.Tensor]
+                    ) -> list[torch.Tensor]:
+    """Leaves in parameter order (the stack's ``(L, ...)`` leaves first)
+    -> the backward-completion order :func:`build_layout` built the
+    bucket layout over: per-layer views ``t[l]``, last layer first, then
+    the tail."""
+    out = []
+    for seg in ov.stacks:
+        stack = leaves[:seg.n_leaves]
+        for s in range(seg.n_layers):
+            out.extend(t[seg.n_layers - 1 - s] for t in stack)
+    out.extend(leaves[sum(seg.n_leaves for seg in ov.stacks):])
+    return out
+
+
+def _unordered_tree(ov: OverlapLayout, ordered: Sequence[torch.Tensor]
+                    ) -> list[torch.Tensor]:
+    """Inverse of :func:`_ordered_leaves`: the per-layer leaves stacked
+    back into ``(L, ...)`` leaves, in parameter order."""
+    out = []
+    for seg in ov.stacks:
+        nb, L = seg.n_leaves, seg.n_layers
+        for i in range(nb):
+            out.append(torch.stack([ordered[seg.leaf0 + (L - 1 - l) * nb + i]
+                                    for l in range(L)]))
+    out.extend(ordered[ov.stacks[-1].leaf_end:])
+    return out

@@ -24,11 +24,16 @@ parameters with the replicated AdamW.
 ``accum`` microbatches whose gradients are summed in fp32 and divided by
 ``accum`` before the aggregation.
 
+``overlap=True`` (``plan.overlap``) swaps in the segmented backward of
+``repro_torch.train.overlap``: the buckets are leaf-aligned over the
+leaves in backward-completion order (``setup.layout`` is that layout, so
+the compressor states and the ZeRO-1 shards key off it) and each bucket
+is aggregated as soon as its layers' gradients are final.
+
 Every compressor of the JAX registry runs here, and ``ef:<name>`` for
 all but PowerSGD.  ``build`` raises ``NotImplementedError`` on what later
-slices port: FSDP, the overlapped schedule, the adaptive controller,
-other optimizers, the ``hierarchical`` comm plan, and ``compress_axes``
-other than ``"pod"``.
+slices port: FSDP, the adaptive controller, other optimizers, the
+``hierarchical`` comm plan, and ``compress_axes`` other than ``"pod"``.
 Like the JAX ``build``, it drops reduction axes of size 1 from the
 aggregation: on one rank the compressor is not run unless the caller
 points ``agg_cfg`` back at the ``data`` axis.  ZeRO-1's own collectives
@@ -51,6 +56,7 @@ from repro_torch.models.layers import ShardCtx
 from repro_torch.models.model import Model
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
+from repro_torch.train import overlap as overlap_mod
 
 #: offset of the compressor-state seed from the parameter seed.
 AGG_SEED_OFFSET = 7
@@ -65,8 +71,11 @@ class TrainSetup:
     dp_axes: tuple[str, ...]
     agg_cfg: agg_mod.AggregatorConfig
     opt_cfg: opt_mod.OptConfig
-    layout: bucketing.BucketLayout
+    layout: Optional[bucketing.BucketLayout]
     zero1: bool = False
+    # the segmented backward with each bucket aggregated between backward
+    # stages (repro_torch.train.overlap); implies the leaf-aligned layout
+    overlap: bool = False
 
     @property
     def comm(self) -> cp.CommPlan:
@@ -90,9 +99,8 @@ def _check_ported(plan) -> None:
     todo = []
     if plan.dp_mode != "ddp":
         todo.append(f"dp_mode={plan.dp_mode!r}")
-    for field in ("overlap", "adaptive"):
-        if getattr(plan, field):
-            todo.append(f"{field}=True")
+    if plan.adaptive:
+        todo.append("adaptive=True")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if plan.optimizer != "adamw":
@@ -103,8 +111,8 @@ def _check_ported(plan) -> None:
         todo.append(f"comm={plan.comm!r}")
     if todo:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(todo)} (this port runs the classic "
-            f"DDP step, with or without ZeRO-1)")
+            f"not ported yet: {', '.join(todo)} (this port runs the DDP "
+            f"step, classic or overlapped, with or without ZeRO-1)")
 
 
 def build(arch: ArchConfig, device: "str | torch.device | None" = None,
@@ -123,6 +131,8 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
             "comm='reduce_to_owner_broadcast' needs an owner-sharded "
             "update: dp_mode='ddp' with zero1=True")
     _check_ported(plan)
+    if plan.overlap:
+        overlap_mod.check_supported(arch, plan)
     dev = mesh_mod.resolve_device(device)
     mesh_mod.init_world(dev)
     sizes = mesh_mod.axis_sizes()
@@ -139,12 +149,34 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     # param_dtype="bfloat16" gives bf16 weights with fp32 optimizer stats
     bf16 = zero1 or plan.param_dtype == "bfloat16"
     ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32)
-    model = Model(arch, ctx, device=dev)
-    layout = bucketing.layout_for(list(model.parameters()), plan.bucket_mb)
-    return TrainSetup(arch=arch, model=model, device=dev,
-                      dp_axes=dp_axes, agg_cfg=agg_cfg,
-                      opt_cfg=opt_cfg or opt_mod.OptConfig(name=plan.optimizer),
-                      layout=layout, zero1=zero1)
+    setup = TrainSetup(arch=arch, model=Model(arch, ctx, device=dev),
+                       device=dev, dp_axes=dp_axes, agg_cfg=agg_cfg,
+                       opt_cfg=opt_cfg or opt_mod.OptConfig(
+                           name=plan.optimizer),
+                       layout=None, zero1=zero1, overlap=plan.overlap)
+    setup.layout = _bucket_layout(setup)
+    return setup
+
+
+def _bucket_layout(setup: TrainSetup) -> bucketing.BucketLayout:
+    """The layout the compressor states and the ZeRO-1 shards key off: the
+    overlapped step's leaf-aligned layout over the backward-completion
+    order, else the byte-based split of the parameter order."""
+    if setup.overlap:
+        return overlap_mod.build_layout(setup).layout
+    return bucketing.layout_for(list(setup.model.parameters()),
+                                setup.agg_cfg.bucket_mb)
+
+
+def _flat_order(setup: TrainSetup, leaves: Sequence[torch.Tensor]
+                ) -> list[torch.Tensor]:
+    """``leaves`` (parameter order) in the leaf order of ``setup.layout``'s
+    flat space: per-layer views in backward-completion order under
+    overlap."""
+    if setup.overlap:
+        return overlap_mod._ordered_leaves(overlap_mod.build_layout(setup),
+                                           leaves)
+    return list(leaves)
 
 
 def _compressed(setup: TrainSetup) -> bool:
@@ -283,23 +315,42 @@ def zero1_apply(setup: TrainSetup, layout: bucketing.BucketLayout,
     return params, {"t": t, "shard": {"master": master, **mv}}, gnorm
 
 
-def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout):
-    """The optimizer leg: ``update(params, grads, opt_state, lr) ->
-    (params, new_opt, grad_norm)`` — owner-sharded flat AdamW under
-    ZeRO-1, the configured optimizer otherwise."""
+def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout,
+                   ov: "Optional[overlap_mod.OverlapLayout]" = None):
+    """The optimizer leg shared by the classic, overlapped and unfused
+    steps: ``update(params, grads, opt_state, lr) -> (params, new_opt,
+    grad_norm)`` — owner-sharded flat AdamW under ZeRO-1, the configured
+    optimizer otherwise.  ``params`` are the model's parameters in
+    parameter order.  With ``ov`` (the overlapped steps) ``grads`` are the
+    ordered leaves of ``ov``: ZeRO-1 reads them as they are and writes
+    through the per-layer parameter views ``p[l]`` in the same order (in
+    place, so autograd keeps its leaves); the replicated optimizer gets
+    them stacked back."""
     if setup.zero1:
         plan = _zero1_plan(setup)
 
         def update(params, grads, opt_state, lr):
-            return zero1_apply(setup, layout, plan, params, grads,
-                               opt_state, lr)
+            views = overlap_mod._ordered_leaves(ov, params) if ov else params
+            _, new_opt, gnorm = zero1_apply(setup, layout, plan, views,
+                                            grads, opt_state, lr)
+            return params, new_opt, gnorm
     else:
         opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
 
         def update(params, grads, opt_state, lr):
+            if ov:
+                grads = overlap_mod._unordered_tree(ov, grads)
             params, new_opt, om = opt.update(grads, opt_state, params, lr)
             return params, new_opt, om["grad_norm"]
     return update
+
+
+def train_metrics(setup: TrainSetup, loss_sum: torch.Tensor,
+                  n_glob: torch.Tensor, gnorm: torch.Tensor) -> dict:
+    """The step's metrics (loss is the DP-global token mean)."""
+    loss_g = cp.psum(loss_sum, setup.dp_axes)
+    return {"loss": loss_g / torch.clamp(n_glob.float(), min=1.0),
+            "tokens": n_glob, "grad_norm": gnorm}
 
 
 @torch.no_grad()
@@ -308,7 +359,7 @@ def _fill_zero1_master(setup: TrainSetup, state: dict) -> dict:
     (which are bf16 under ZeRO-1, so the master holds their exact
     values)."""
     master = _zero1_own_slice(setup, setup.layout, _zero1_plan(setup),
-                              state["params"])
+                              _flat_order(setup, state["params"]))
     shard = {**state["opt"]["shard"], "master": master}
     state["opt"] = {**state["opt"], "shard": shard}
     return state
@@ -326,7 +377,10 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
     """Returns ``step(state, batch, lr) -> (state, metrics)``.  ``batch``
     holds this rank's ``tokens`` and ``labels`` (numpy or tensors); with
     ``accum > 1`` its rows split into ``accum`` equal microbatches.  The
-    parameters and optimizer state are updated in place."""
+    parameters and optimizer state are updated in place.  Under
+    ``setup.overlap`` this is ``overlap.make_step(setup, "overlap")``."""
+    if setup.overlap:
+        return overlap_mod.make_step(setup, "overlap", accum, xent_chunk)
     if accum < 1:
         raise ValueError(f"accum={accum}")
     model = setup.model
@@ -389,10 +443,7 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
             params, new_opt, gnorm = update_fn(params, grads, state["opt"],
                                                lr)
             del grads
-            loss_g = cp.psum(loss_sum, dp)
-            metrics = {"loss": loss_g / torch.clamp(n_glob.float(), min=1.0),
-                       "tokens": n_glob,
-                       "grad_norm": gnorm}
+            metrics = train_metrics(setup, loss_sum, n_glob, gnorm)
         new_state = {"step": state["step"] + 1, "params": params,
                      "opt": new_opt, "agg": new_agg}
         return new_state, metrics
