@@ -71,7 +71,23 @@ Phases, each fatal on failure:
   6. schedules: ``overlap_bench`` at full width, ZeRO-1 uncompressed with
      the aggregator on the data axis, ``overlap``, ``serial`` and
      ``unfused`` round robin, 1 warm-up and 3 reps: the fastest step of
-     each and the peak memory.
+     each and the peak memory;
+  7. pod: four ranks on the card as the two-tier ``pod 2 x data 2`` mesh
+     (``train/pod_worker.py`` under ``torchrun``; every collective is gloo,
+     since NCCL refuses two ranks on one card), ``tinyllama-1.1b`` at full
+     width cut to 4 blocks, ZeRO-1, 25 MB buckets, batch 8 x 512: four
+     groups (uncompressed under ``hierarchical:data`` and ``allreduce``;
+     PowerSGD over ``pod`` after a raw mean over ``data``; SignSGD over
+     both axes, p = 4), ``serial`` and ``overlap`` round robin, 1 warm-up
+     and 2 reps, then the one-rank compute offset.  Each must give finite
+     losses, the same parameter bits on all four ranks, ``serial`` ==
+     ``overlap`` bit for bit, ``hierarchical`` within fp32 tolerance of
+     ``allreduce`` on one gradient bucket, the kernels' launch counts per
+     compressed bucket and the backends the topology calls for; each
+     worker's JSON record is printed.  Then local SGD on two ranks
+     (``launch/train.py --mesh pod --sync-every 2``): the parameters must
+     agree across pods after steps 2 and 4.  The four ranks share the
+     card's SMs, so every pod time is of time-sliced compute.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
@@ -1040,6 +1056,123 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     return history, counts
 
 
+# ------------------------------------------------------------------ pod
+#: the pod phase: tinyllama-1.1b at full width, cut to POD_LAYERS blocks so
+#: that four ranks fit one card, as pod 2 x data 2; ZeRO-1 as the arch
+#: configures it, 25 MB leaf-aligned buckets, batch 8 x 512 global
+POD_LAYERS = 4
+POD_RANKS = 4
+POD_WORKER = ("--procs", "2", "--local-devices", "2", "--full-width",
+              "--layers", str(POD_LAYERS), "--zero1", "--batch", "8",
+              "--seq", "512", "--bucket-mb", "25", "--warmup", "1",
+              "--reps", "2", "--json")
+#: label -> (worker flags, compress axes, effective schedule, launches per
+#: compressed bucket and step)
+POD_GROUPS = {
+    "none hierarchical:data": (("--method", "none", "--comm",
+                                "hierarchical:data"), ["pod"], "overlap", {}),
+    "none allreduce": (("--method", "none", "--comm", "allreduce"), ["pod"],
+                       "overlap", {}),
+    "powersgd pod": (("--method", "powersgd"), ["pod"], "overlap",
+                     {"powersgd_encode": 2, "powersgd_decode": 1}),
+    "signsgd all": (("--method", "signsgd", "--plan", "compress_axes=all"),
+                    ["pod", "data"], "serial",
+                    {"pack_signs": 1, "popcount_votes": 1}),
+}
+POD_TIMEOUT_S = 300
+
+
+def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
+    """``torchrun`` of ``module`` on ``nproc`` ranks of this host, in a
+    session of its own that is killed whole if it outlives POD_TIMEOUT_S;
+    fails unless every rank exits 0.  Returns (stdout, wall s)."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m", module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=POD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n"
+                             f"{out[-2000:]}\n{err[-6000:]}")
+    return out, wall
+
+
+def pod_phase(kind: str) -> dict:
+    """Four ranks on one card as the two-tier ``pod 2 x data 2`` mesh,
+    through ``train/pod_worker.py``, one ``torchrun`` per group of
+    POD_GROUPS; then local SGD through the launcher.  Each group must give
+    finite losses, the same parameter bits on all four ranks, ``serial``
+    == ``overlap`` bit for bit, ``hierarchical`` and ``gather_all`` within
+    fp32 tolerance of ``allreduce`` on one gradient bucket, the kernels'
+    launches per compressed bucket and step, and the backends the
+    topology calls for.  Returns {group: the worker's record}."""
+    import torch
+    share = POD_RANKS > torch.cuda.device_count()
+    want_backends = {"pod": "gloo", "data": "gloo" if share else "nccl",
+                     "world": "gloo" if share else "cpu:gloo,cuda:nccl"}
+    recs = {}
+    for label, (flags, comp, sched, per_bucket) in POD_GROUPS.items():
+        out, wall = run_ranks(POD_RANKS, "repro_torch.train.pod_worker",
+                              POD_WORKER + flags, f"pod {label}")
+        lines = out.strip().splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"pod {label}: {len(lines)} stdout lines, "
+                                 f"want rank 0's record alone: {lines[:3]}")
+        rec = json.loads(lines[0])
+        rec["phase_wall_s"] = wall
+        log(f"[pod] {label}: " + json.dumps(rec))
+        bad = []
+        losses = [x for v in rec["losses"].values() for x in v]
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"losses {rec['losses']}")
+        if not rec["params_identical"]:
+            bad.append("parameters differ between ranks")
+        if not rec["serial_equals_overlap"]:
+            bad.append("serial and overlap differ")
+        pc = rec["plan_check"]
+        if not (pc["hierarchical_close"] and pc["gather_all_close"]):
+            bad.append(f"plan check {pc}")
+        if rec["backends"] != want_backends:
+            bad.append(f"backends {rec['backends']}, want {want_backends}")
+        if (rec["compress_axes"], rec["effective_schedule"], rec["device"],
+                rec["mesh_shape"]) != (comp, sched, kind, [2, 2]):
+            bad.append("compress axes, schedule, device or mesh")
+        want = {k: v * rec["n_buckets"] * rec["steps_timed"]
+                for k, v in per_bucket.items()}
+        if rec["launches"] != want:
+            bad.append(f"launches {rec['launches']}, want {want}")
+        if bad:
+            raise AssertionError(f"pod {label}: " + "; ".join(bad))
+        recs[label] = rec
+
+    # local SGD: 2 ranks as pod 2 x data 1, the parameters averaged over
+    # pod after steps 2 and 4 and checked equal there
+    out, wall = run_ranks(2, "repro_torch.launch.train", (
+        "--mesh", "pod", "--procs", "2", "--local-devices", "1",
+        "--sync-every", "2", "--steps", "4", "--log-every", "1"),
+        "local SGD")
+    log(f"[pod] local SGD, reduced arch, 2 ranks, {wall:.1f} s:\n"
+        + out.strip())
+    for step in (2, 4):
+        if f"step {step}: parameters averaged over pod; the same bits on " \
+                f"every pod: True" not in out:
+            raise AssertionError(f"local SGD: no agreement after step {step}")
+    if "done at step 4" not in out or "nan" in out:
+        raise AssertionError("local SGD: the run did not finish cleanly")
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1184,6 +1317,12 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     log("[train] " + json.dumps(hist))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pod = pod_phase(kind)
+    log(f"[pod] {len(pod)} groups and local SGD in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
@@ -1219,6 +1358,9 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": head["case"],
+            "pod_launches_per_step": {
+                label: rec["launches"].get(name, 0) / rec["steps_timed"]
+                for label, rec in pod.items()},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

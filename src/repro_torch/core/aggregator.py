@@ -4,8 +4,10 @@ for the DDP path (the FSDP ``aggregate_shard`` comes with its slice).
 ``aggregate_bucketed``: the gradient leaves -> 25 MB buckets, each bucket
 compressed-aggregated over the compress axes (the PyTorch-DDP comm-hook
 path the paper measures), after a raw mean over the raw axes if any.
-Which collective moves each payload is the config's ``CommPlan``.  The
-mesh has no ``pod`` axis yet, so ``from_plan`` knows one pod only.
+Which collective moves each payload is the config's ``CommPlan``.
+``from_plan`` is the JAX package's policy: ``compress_axes="pod"`` on a
+``pod x data`` mesh means a raw mean over ``data``, then the compressor
+over ``pod``; ``"all"`` compresses over both.
 """
 from __future__ import annotations
 
@@ -55,6 +57,12 @@ class GradAggregator:
         outs, news = self.aggregate_bucket_list(buckets, states)
         return bucketing.from_buckets(outs, grads, layout), news
 
+    def start_one(self, bucket: torch.Tensor) -> cp.PendingMean:
+        """``aggregate_one`` of the ``none`` compressor with its collectives
+        issued asynchronously (plans of ``commplan.ASYNC_KINDS``)."""
+        axes = tuple(self.cfg.raw_axes) + tuple(self.cfg.compress_axes)
+        return cp.mean_reduce_async(bucket, axes, self.cfg.comm)
+
     def aggregate_one(self, bucket: torch.Tensor, state: Any):
         """One bucket: encode -> reduce (``cfg.comm``) -> decode."""
         raw, comp = tuple(self.cfg.raw_axes), tuple(self.cfg.compress_axes)
@@ -84,17 +92,24 @@ def comm_from_plan(plan) -> cp.CommPlan:
     return comm
 
 
-def from_plan(plan) -> AggregatorConfig:
-    """Translate an ``ArchConfig.plan`` into the aggregation policy of a
-    single pod: the configured compressor over ``data``, or a raw mean
-    over it for ``none``.  ``plan.compress_axes`` is not read: the port
-    has no ``pod`` axis yet, and ``train_step.build`` refuses any value
-    but the default ``"pod"``."""
+def from_plan(plan, multi_pod: bool = False) -> AggregatorConfig:
+    """Translate an ``ArchConfig.plan`` into the aggregation policy (JAX
+    ``core/aggregator.py`` ``from_plan``).  ``compress_axes="all"``: the
+    compressor over ``("pod", "data")``, or ``("data",)`` on one pod.
+    ``"pod"``: on several pods a raw mean over ``data`` and the compressor
+    over ``pod``; on one pod a raw mean over ``data`` for ``none`` and the
+    compressor over ``data`` otherwise."""
     kw = cbase.plan_kwargs(plan)
-    compress_axes: tuple[str, ...] = ("data",)
-    raw_axes: tuple[str, ...] = ()
-    if plan.compression == "none":
+    if plan.compress_axes == "all":
+        compress_axes: tuple[str, ...] = (("pod", "data") if multi_pod
+                                          else ("data",))
+        raw_axes: tuple[str, ...] = ()
+    elif multi_pod:
+        compress_axes, raw_axes = ("pod",), ("data",)
+    elif plan.compression == "none":
         compress_axes, raw_axes = (), ("data",)
+    else:
+        compress_axes, raw_axes = ("data",), ()
     return AggregatorConfig(
         compressor=plan.compression,
         compress_axes=compress_axes,

@@ -6,6 +6,11 @@ library with a plain C interface under ``build/repro_torch/`` at the root
 of the checkout.  The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is loaded as it
 is.  Nothing here runs at import time: the CPU tests import every module.
+Several processes may reach first use at once (ranks started together):
+an exclusive ``fcntl`` lock on ``build.lock`` beside the library is held
+around the build and the load, so one process builds and the others wait
+and load what it built.  The kernel lets go of the lock when its holder
+exits, however it exits.
 
 ``LAUNCHES`` counts the launches of each kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
@@ -14,7 +19,9 @@ path went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -71,10 +78,27 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the exclusive lock on ``BUILD_DIR/build.lock``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
-    """Compile and link the library unless this source hash is built.
-    Returns its path; the compiler's register report is in ``build.log``
-    beside it."""
+    """Compile and link the library unless this source hash is built,
+    under the build lock.  Returns its path; the compiler's register
+    report is in ``build.log`` beside it."""
+    with _build_lock():
+        return _build()
+
+
+def _build() -> Path:
     srcs = _sources()
     out = BUILD_DIR / f"libreprotorch_{_digest(srcs)}.so"
     if out.exists():
@@ -112,7 +136,8 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+        with _build_lock():
+            handle = ctypes.CDLL(str(_build()))
         for name, args in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = list(args)

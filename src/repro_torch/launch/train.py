@@ -3,30 +3,35 @@
 Runs the port's DDP step as the arch configures it (``tinyllama-1.1b``:
 ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
 ``--device cpu``; ``--accum`` splits each rank's batch into microbatches,
-and ``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
-each bucket aggregated between backward stages).  Under ``torchrun`` each process
-joins the group from its environment and drives ``cuda:LOCAL_RANK``;
-without it the run is a group of one rank.  As in the JAX package, a
-reduction axis of size 1 is dropped, so a one-rank run aggregates nothing.
+``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
+each bucket aggregated between backward stages) and ``--sync-every N``
+averages the parameters over the ``pod`` axis every N steps (local SGD).
+As in the JAX package, a reduction axis of size 1 is dropped, so a
+one-rank run aggregates nothing.
 
-    python -m repro_torch.launch.train --arch tinyllama-1.1b --full-size \
+Meshes: ``--mesh local`` (default) puts every rank on one ``data`` axis;
+``--mesh pod`` builds the two-tier ``pod x data`` mesh
+(``launch.mesh.init_pod_mesh``) of ``--procs`` pods of
+``--local-devices`` ranks each.  One torch process drives one rank, so
+the JAX package's process of ``--local-devices`` devices is here
+``--local-devices`` processes, and the world has ``procs x
+local-devices`` ranks.  Under ``torchrun`` each process joins the group
+from its environment and drives ``cuda:(LOCAL_RANK % device_count)``, so
+several ranks may share a card (then every collective is gloo).  Without
+``torchrun``, ``--mesh pod`` starts each rank by hand on this host:
+``--proc-id`` is its rank and ``--coordinator`` the ``host:port`` that
+rank 0 binds (they become ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``)::
+
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --full-size \\
         --steps 3 --batch 4 --seq 512 --compression powersgd
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --mesh pod --procs 2 --local-devices 2 \\
+        --compress-axes pod --compression powersgd --steps 2 --batch 8
 """
 from __future__ import annotations
 
 import argparse
-import os
-
-
-def data_iter(cfg, rank: int, world: int):
-    """This rank's contiguous slice of each global batch."""
-    from repro_torch.data.synthetic import batch_at
-    per = cfg.global_batch // world
-    step = 0
-    while True:
-        b = batch_at(cfg, step)
-        yield {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
-        step += 1
 
 
 def main(argv=None):
@@ -36,6 +41,18 @@ def main(argv=None):
                     help="use the full config (default: reduced smoke size)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--mesh", default="local", choices=["local", "pod"],
+                    help="local: one data axis over every rank; pod: "
+                         "--procs pods x --local-devices ranks")
+    ap.add_argument("--procs", type=int, default=2,
+                    help="--mesh pod: the pod axis (the slow, gloo tier)")
+    ap.add_argument("--local-devices", type=int, default=2,
+                    help="--mesh pod: ranks per pod (the data axis)")
+    ap.add_argument("--proc-id", type=int, default=None,
+                    help="--mesh pod without torchrun: this process's rank")
+    ap.add_argument("--coordinator", default="127.0.0.1:12355",
+                    help="--mesh pod without torchrun: host:port that "
+                         "rank 0 binds")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -47,74 +64,107 @@ def main(argv=None):
                     help="none|powersgd|signsgd|qsgd|terngrad|randomk|"
                          "mstopk, or ef:<name> (error feedback; not "
                          "ef:powersgd)")
+    ap.add_argument("--compress-axes", default=None, choices=["pod", "all"],
+                    help="pod: raw mean over data, compressor over pod "
+                         "(on one pod: over data); all: compressor over "
+                         "every DP axis")
     ap.add_argument("--comm", default=None,
                     help="auto|allreduce|reduce_scatter_allgather|"
-                         "gather_all|reduce_to_owner_broadcast (the last "
-                         "needs zero1 and --compression none)")
+                         "gather_all|hierarchical[:intra+axes]|"
+                         "reduce_to_owner_broadcast (the last needs zero1 "
+                         "and --compression none)")
     ap.add_argument("--overlap", action="store_true",
                     help="segmented backward with each bucket aggregated "
                          "between backward stages (the paper's optimized "
                          "syncSGD baseline); forces dp_mode=ddp")
+    ap.add_argument("--sync-every", type=int, default=1,
+                    help="local SGD: average the parameters over the pod "
+                         "axis every N steps")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    import torch
     import torch.distributed as dist
 
     from repro_torch.configs import base as cfgs
+    from repro_torch.data.pipeline import Pipeline
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.train import train_step as ts
     from repro_torch.train.schedule import ScheduleConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    device = args.device
-    if device == "cuda" and "LOCAL_RANK" in os.environ:
-        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
-    dev = mesh_mod.resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    if args.mesh == "pod" and args.proc_id is not None:
+        mesh_mod.set_rank_env(args.proc_id, args.procs * args.local_devices,
+                              args.coordinator)
+    dev = mesh_mod.local_device(args.device)
     mesh_mod.init_world(dev)
-    rank, world = dist.get_rank(), dist.get_world_size()
-
-    arch = cfgs.get(args.arch)
-    if not args.full_size:
-        arch = cfgs.reduced(arch)
-    overrides = {}
-    if args.compression:
-        overrides["compression"] = args.compression
-    if args.comm:
-        overrides["comm"] = args.comm
-    if args.overlap:
-        if arch.plan.dp_mode != "ddp" and rank == 0:
-            print(f"[train] --overlap: dp_mode {arch.plan.dp_mode!r} -> "
-                  f"'ddp' (overlap interleaves DDP bucket collectives)",
-                  flush=True)
-        overrides.update(overlap=True, dp_mode="ddp")
-    setup = ts.build(arch, dev, **overrides)
-    if rank == 0:
-        print(f"[train] arch={arch.name} device={dev} world={world} "
-              f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
-              f"overlap={setup.overlap} "
-              f"params={str(setup.layout.dtype).removeprefix('torch.')} "
-              f"accum={args.accum} "
-              f"agg={setup.agg_cfg.compressor}@{setup.agg_cfg.compress_axes}"
-              f" comm={setup.comm.spec_str()} buckets="
-              f"{setup.layout.n_buckets}", flush=True)
-    data = data_iter(DataConfig(vocab=arch.vocab, seq_len=args.seq,
-                                global_batch=args.batch, seed=args.seed),
-                     rank, world)
-    tcfg = TrainerConfig(
-        total_steps=args.steps, log_every=args.log_every if rank == 0 else 0,
-        accum=args.accum,
-        schedule=ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
-                                total_steps=args.steps))
+    data = None
     try:
-        state = Trainer(setup, tcfg, data).run(args.seed)
+        if args.mesh == "pod":
+            mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        arch = cfgs.get(args.arch)
+        if not args.full_size:
+            arch = cfgs.reduced(arch)
+        overrides = {}
+        if args.compression:
+            overrides["compression"] = args.compression
+        if args.compress_axes:
+            overrides["compress_axes"] = args.compress_axes
+        if args.comm:
+            overrides["comm"] = args.comm
+        if args.overlap:
+            if arch.plan.dp_mode != "ddp" and rank == 0:
+                print(f"[train] --overlap: dp_mode {arch.plan.dp_mode!r} -> "
+                      f"'ddp' (overlap interleaves DDP bucket collectives)",
+                      flush=True)
+            overrides.update(overlap=True, dp_mode="ddp")
+        setup = ts.build(arch, dev, **overrides)
+        if rank == 0:
+            sched = ""
+            if setup.overlap:
+                from repro_torch.train import overlap as overlap_mod
+                sched = f" schedule={overlap_mod.effective_schedule(setup)}"
+            print(f"[train] arch={arch.name} device={dev} world={world} "
+                  f"mesh={mesh_mod.axis_sizes()} "
+                  f"backends={mesh_mod.backends()} "
+                  f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
+                  f"overlap={setup.overlap}{sched} "
+                  f"params={str(setup.layout.dtype).removeprefix('torch.')} "
+                  f"accum={args.accum} sync_every={args.sync_every} "
+                  f"agg={setup.agg_cfg.compressor}@"
+                  f"{setup.agg_cfg.compress_axes} raw@"
+                  f"{setup.agg_cfg.raw_axes} comm={setup.comm.spec_str()} "
+                  f"buckets={setup.layout.n_buckets}", flush=True)
+        data = Pipeline(DataConfig(vocab=arch.vocab, seq_len=args.seq,
+                                   global_batch=args.batch, seed=args.seed),
+                        host=rank, num_hosts=world)
+        tcfg = TrainerConfig(
+            total_steps=args.steps,
+            log_every=args.log_every if rank == 0 else 0,
+            accum=args.accum, sync_every=args.sync_every,
+            schedule=ScheduleConfig(peak_lr=args.lr,
+                                    warmup_steps=args.warmup,
+                                    total_steps=args.steps))
+        trainer = Trainer(setup, tcfg, data)
+        sync = ts.local_sgd_sync(setup) if args.sync_every > 1 else None
+        if sync is not None:
+            def checked_sync(state):
+                state = sync(state)
+                same = ts.params_agree(state["params"], ("pod",))
+                if rank == 0:
+                    print(f"[train] step {state['step']}: parameters "
+                          f"averaged over pod; the same bits on every pod: "
+                          f"{same}", flush=True)
+                return state
+            trainer.sync_fn = checked_sync
+        state = trainer.run(args.seed)
         if rank == 0:
             print(f"[train] done at step {state['step']}", flush=True)
     finally:
+        if data is not None:
+            data.close()
         dist.destroy_process_group()
 
 

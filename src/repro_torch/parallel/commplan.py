@@ -5,15 +5,19 @@ class, its parsing, legality checks and byte formulas are copied as they
 are; see that module and docs/comm_api.md for the taxonomy.  The
 executable reductions run over ``torch.distributed`` process groups, which
 ``repro_torch.launch.mesh`` maps from the mesh axis names (the public
-vocabulary: ``data``).  On a group of one rank every collective returns
-its input's value.
+vocabulary: ``pod``, ``data``).  On a group of one rank every collective
+returns its input's value.
 
-Ported kinds: ``allreduce``, ``reduce_scatter_allgather``,
-``gather_all`` and ``reduce_to_owner_broadcast`` (ZeRO-1's plan: in the
+Every kind is ported: ``allreduce``, ``reduce_scatter_allgather``,
+``gather_all``, ``hierarchical`` (the mean over the ``intra`` axes, then
+over the rest) and ``reduce_to_owner_broadcast`` (ZeRO-1's plan: in the
 step its gradient leg is ``owner_reduce_scatter`` and its broadcast leg
 ``gather_tensor``; as a plain mean it is the two-shot ring).
-``hierarchical`` parses and validates but raises ``NotImplementedError``
-when executed.
+
+:func:`mean_reduce_async` issues the same means with ``async_op=True``, one
+collective at a time: a gloo collective issued synchronously blocks the
+host until it ends, which would hold back the issue of the next backward
+stage in the overlapped step.
 """
 from __future__ import annotations
 
@@ -255,13 +259,108 @@ def mean_reduce(t: torch.Tensor, axes: Sequence[str], plan: CommPlan,
         # without a sharded consumer, reduce-to-owner + broadcast of the
         # reduced bucket IS the two-shot ring
         return _rs_ag_mean(t, axes)
+    if kind == "hierarchical":
+        return _hier_mean(t, axes, plan.intra)
     if kind == "gather_all":
         g = gather_tensor(t, axes)
         return (g.sum(dim=0) / axes_p(axes)).to(t.dtype)
-    if kind == "hierarchical":
-        raise NotImplementedError(
-            f"comm plan {kind!r} is not ported yet")
     raise CommPlanError(kind)
+
+
+def _hier_split(axes: tuple[str, ...], intra: Sequence[str]
+                ) -> list[tuple[str, ...]]:
+    """The stages of a hierarchical mean: the intra axes present, then the
+    rest; a degenerate split is one stage."""
+    inner = tuple(a for a in axes if a in intra)
+    outer = tuple(a for a in axes if a not in intra)
+    return [s for s in (inner, outer) if s]
+
+
+def _hier_mean(t: torch.Tensor, axes: tuple[str, ...],
+               intra: Sequence[str]) -> torch.Tensor:
+    """Mean over the intra axes (the fast tier) then over the rest (the
+    slow tier).  Equal group sizes make the mean of means the global
+    mean, in another summation order than one all-reduce."""
+    for stage in _hier_split(axes, intra):
+        t = psum(t, stage) / axes_p(stage)
+    return t
+
+
+class PendingMean:
+    """A mean in flight (:func:`mean_reduce_async`): a chain of
+    collectives, each issued with ``async_op=True`` once the one before it
+    has finished.  :meth:`poll` moves the chain on without blocking the
+    host; :meth:`wait` finishes it.  Both make the caller's current stream
+    wait for what finished, so call them on the stream that issued the
+    chain."""
+
+    def __init__(self, t: torch.Tensor, stages):
+        self._t = t
+        self._stages = list(stages)
+        self._work = None
+        self._finish = None
+        self._start()
+
+    def _start(self) -> None:
+        self._work = None
+        if self._stages:
+            self._work, self._finish = self._stages.pop(0)(self._t)
+
+    def _advance(self) -> None:
+        self._work.wait()
+        self._t = self._finish()
+        self._start()
+
+    def poll(self) -> bool:
+        """Issue every stage whose predecessor has finished; True when the
+        mean is complete."""
+        while self._work is not None and self._work.is_completed():
+            self._advance()
+        return self._work is None
+
+    def wait(self) -> torch.Tensor:
+        while self._work is not None:
+            self._advance()
+        return self._t
+
+
+def _mean_stage(axes: tuple[str, ...]):
+    """One stage of an asynchronous mean: the sum over ``axes`` (one
+    all-reduce of a copy), divided by their size once it has arrived; the
+    operations of :func:`psum` ``/`` :func:`axes_p`."""
+    def start(t: torch.Tensor):
+        out = t.clone()
+        p = axes_p(axes)
+        work = dist.all_reduce(out, group=mesh_mod.group(axes),
+                               async_op=True)
+        return work, lambda: out / p
+    return start
+
+
+#: plans whose mean :func:`mean_reduce_async` issues: chains of all-reduces
+#: in which no group is used twice, so a chain moved on whenever its
+#: collective happens to finish still issues each group's collectives in
+#: the same order on every rank (``reduce_scatter_allgather`` runs both of
+#: its collectives on one group, and stays synchronous).
+ASYNC_KINDS = ("allreduce", "hierarchical")
+
+
+def mean_reduce_async(t: torch.Tensor, axes: Sequence[str], plan: CommPlan,
+                      ) -> PendingMean:
+    """:func:`mean_reduce` for the plans of :data:`ASYNC_KINDS`, issued
+    asynchronously: the same collectives on the same values, hence the
+    same bits."""
+    axes = tuple(axes)
+    if not axes:
+        return PendingMean(t, [])
+    plan.validate_axes(axes)
+    kind = plan.resolve(associative=True).kind
+    if kind == "allreduce":
+        return PendingMean(t, [_mean_stage(axes)])
+    if kind == "hierarchical":
+        return PendingMean(t, [_mean_stage(s)
+                               for s in _hier_split(axes, plan.intra)])
+    raise CommPlanError(f"comm plan {kind!r} has no asynchronous mean")
 
 
 def owner_reduce_scatter(flat_tiles: torch.Tensor, axes: Sequence[str],

@@ -220,6 +220,16 @@ class _Flush:
     aggregated buckets and the new compressor states are side-stream
     tensors: the compute stream reads them only after the join, and every
     later side-stream use first waits for the compute stream.
+
+    Uncompressed buckets under a plan of ``commplan.ASYNC_KINDS`` issue
+    their collectives with ``async_op=True`` (``GradAggregator.start_one``):
+    a gloo collective issued synchronously blocks the host until it ends,
+    and would hold back the next stage's backward.  Each stage moves the
+    means in flight on, oldest first, without blocking (a hierarchical
+    mean's ``pod`` leg is issued once its ``data`` leg has arrived), and
+    ``tail`` waits for the rest before the join.  A compressed bucket's
+    collectives stay synchronous: PowerSGD's second round needs the
+    first's result, and the decode needs both.
     """
 
     def __init__(self, ov: OverlapLayout, aggregator: agg_mod.GradAggregator,
@@ -239,6 +249,12 @@ class _Flush:
             else [() for _ in range(n_buckets)]
         #: (bucket, stage after which it was issued), in order of issue
         self.order: list[tuple[int, int]] = []
+        #: the asynchronous means in flight: (bucket, PendingMean), oldest
+        #: first
+        self.pending: list = []
+        self.async_mean = self.do_agg \
+            and aggregator.cfg.compressor == "none" \
+            and aggregator.cfg.comm.resolve(True).kind in cp.ASYNC_KINDS
 
     def _store(self, s: int, leaves: Sequence[torch.Tensor]) -> None:
         lo, hi = self.ov.stage_leaf_range(s)
@@ -253,11 +269,15 @@ class _Flush:
                       for i, v in enumerate(leaves)]
         self.leaf_vals[lo:hi] = leaves
 
-    def _on_side(self):
+    def _side_stream(self):
         if self.side is None:
             return contextlib.nullcontext()
-        self.side.wait_stream(self.main)
         return torch.cuda.stream(self.side)
+
+    def _on_side(self):
+        if self.side is not None:
+            self.side.wait_stream(self.main)
+        return self._side_stream()
 
     def _flush(self, b: int, s: int) -> None:
         layout = self.ov.layout
@@ -266,16 +286,31 @@ class _Flush:
             parts = [v.reshape(-1).to(layout.dtype)
                      for v in self.leaf_vals[lo:hi]]
             bucket = parts[0] if len(parts) == 1 else torch.cat(parts)
-            st = self.states[b] if self.states else ()
-            self.out_buckets[b], self.new_states[b] = \
-                self.aggregator.aggregate_one(bucket, st)
+            if self.async_mean:
+                self.pending.append((b, self.aggregator.start_one(bucket)))
+            else:
+                st = self.states[b] if self.states else ()
+                self.out_buckets[b], self.new_states[b] = \
+                    self.aggregator.aggregate_one(bucket, st)
         self.order.append((b, s))
+
+    def _poll(self) -> None:
+        """Move the means in flight on, oldest first, stopping at the first
+        unfinished one, so every rank issues each group's collectives in
+        bucket order."""
+        if not self.pending:
+            return
+        with self._side_stream():
+            while self.pending and self.pending[0][1].poll():
+                b, mean = self.pending.pop(0)
+                self.out_buckets[b] = mean.wait()
 
     def stage(self, s: int, leaves: Sequence[torch.Tensor]) -> None:
         self._store(s, leaves)
         if self.do_agg and self.schedule == "overlap":
             for b in self.ov.buckets_ready_at(s):
                 self._flush(b, s)
+        self._poll()
 
     def tail(self, leaves: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         ov = self.ov
@@ -285,6 +320,10 @@ class _Flush:
                 if self.schedule == "overlap" else range(ov.layout.n_buckets)
             for b in todo:
                 self._flush(b, ov.n_stages)
+            with self._side_stream():
+                for b, mean in self.pending:
+                    self.out_buckets[b] = mean.wait()
+            self.pending = []
             if self.side is not None:
                 self.main.wait_stream(self.side)
             out = bucketing.buckets_to_leaves(self.out_buckets,

@@ -31,33 +31,39 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 import time
 
 
 def timed_interleaved(setups: dict, steps: dict, batch: dict, reps: int,
-                      warmup: int, lr: float = 1e-3) -> dict:
+                      warmup: int, lr: float = 1e-3,
+                      out: "dict | None" = None) -> dict:
     """Min-of-reps step time (s) per schedule, measured round robin;
     ``setups`` and ``steps`` map each schedule to its own setup and step
-    function.  Each schedule threads its own state."""
+    function.  Each schedule threads its own state.  With ``out``, each
+    schedule's last state and its losses (read after the timed region)
+    go to ``out[schedule] = {"state": ..., "losses": [...]}``."""
     import torch
 
     from repro_torch.train import train_step as ts
-    runs = {k: [ts.init_state(setups[k], seed=0), steps[k], []]
+    runs = {k: [ts.init_state(setups[k], seed=0), steps[k], [], []]
             for k in steps}
     for i in range(warmup + reps):
         for k, run in runs.items():
-            state, step, times = run
+            state, step, times, losses = run
             cuda = setups[k].device.type == "cuda"
             if cuda:
                 torch.cuda.synchronize(setups[k].device)
             t0 = time.perf_counter()
-            run[0], _ = step(state, batch, lr)
+            run[0], metrics = step(state, batch, lr)
             if cuda:
                 torch.cuda.synchronize(setups[k].device)
             if i >= warmup:
                 times.append(time.perf_counter() - t0)
-            del state
+            losses.append(metrics["loss"].item())
+            del state, metrics
+    if out is not None:
+        out.update({k: {"state": run[0], "losses": run[3]}
+                    for k, run in runs.items()})
     return {k: min(run[2]) for k, run in runs.items()}
 
 
@@ -98,12 +104,7 @@ def main(argv=None) -> dict:
     from repro_torch.train import overlap
     from repro_torch.train import train_step as ts
 
-    device = args.device
-    if device == "cuda" and "LOCAL_RANK" in os.environ:
-        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
-    dev = mesh_mod.resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)
+    dev = mesh_mod.local_device(args.device)
     joined = not dist.is_initialized()      # leave a caller's group alone
     mesh_mod.init_world(dev)
     rank, world = dist.get_rank(), dist.get_world_size()

@@ -1,0 +1,295 @@
+"""One rank of a measured two-tier pod.  Counterpart of
+``repro.train.pod_worker``.
+
+Run under ``torchrun`` with ``--procs x --local-devices`` processes (one
+torch process per rank: the JAX package's process of ``--local-devices``
+devices is here ``--local-devices`` processes).  The ranks join the
+``pod x data`` mesh of ``launch.mesh.init_pod_mesh``: ``pod`` spans the
+pods over gloo, the measured slow tier; ``data`` spans each pod's ranks
+(NCCL when each rank has a card of its own, else gloo).  The unchanged
+train/overlap/CommPlan machinery then runs on that mesh, so
+``--comm hierarchical:data`` is a real two-stage reduction.
+
+Measured per cell (round robin, min of reps: ``overlap_bench``'s
+protocol, ``timed_interleaved``):
+
+  * ``t_serial_us`` / ``t_overlap_us``: the serial and overlapped DDP
+    schedules on the pod mesh, each with its own setup;
+  * ``t_compute_us``: the same per-rank workload (this rank's rows) on a
+    one-rank setup with ``compression="none"``, ``zero1=False`` and no
+    collective, run after the pod setups are freed: the compute offset a
+    calibration subtracts.  Every rank runs it at once, as in the pod
+    phase, so ranks that share a card share it here too.
+
+Checked and recorded: every loss; a digest of the parameters on every
+rank (all equal: ``params_identical``); ``serial`` against ``overlap``
+bit for bit on every rank (parameters, optimizer state, compressor
+state, losses: ``serial_equals_overlap``); the mean of one
+bucket of this rank's fp32 gradient under each comm plan over
+``("pod", "data")`` against ``allreduce`` (``plan_check``); the kernel
+launches of the timed steps; each axis's collective backend; the peak
+device memory of every rank.
+
+Every rank runs the same program; rank 0's last stdout line is the JSON
+record, the other ranks keep stdout silent (logs go to stderr).  The
+default arch is the reduced one, as in the JAX package;
+``--full-width --layers N`` gives the arch's widths at depth N::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.train.pod_worker \\
+        --procs 2 --local-devices 2 --json
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import sys
+import time
+
+#: one bucket's prefix that ``plan_check`` reduces under every plan
+PLAN_CHECK_ELEMS = 1 << 21
+PLAN_CHECK_KINDS = ("allreduce", "reduce_scatter_allgather", "gather_all",
+                    "hierarchical")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--procs", type=int, required=True,
+                    help="pods (the 'pod' axis)")
+    ap.add_argument("--proc-id", type=int, default=None,
+                    help="without torchrun: this process's rank")
+    ap.add_argument("--coordinator", default="127.0.0.1:12355",
+                    help="without torchrun: host:port that rank 0 binds")
+    ap.add_argument("--local-devices", type=int, default=2,
+                    help="ranks per pod (the 'data' axis)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--full-width", action="store_true",
+                    help="the arch's widths (default: the reduced config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the config's)")
+    ap.add_argument("--method", default="none")
+    ap.add_argument("--plan", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="extra ParallelPlan override (repeatable)")
+    ap.add_argument("--zero1", action="store_true")
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--comm", default="auto",
+                    help="CommPlan kind; 'hierarchical:data' = the ring "
+                         "inside each pod, then across pods: the two-tier "
+                         "schedule this mesh exists to measure")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="GLOBAL batch (split over procs x local devices)")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--bucket-mb", type=float, default=1)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--json", action="store_true",
+                    help="rank 0 prints the JSON record as its last stdout "
+                         "line")
+    args = ap.parse_args(argv)
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.experiments.backend import coerce_kv
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import overlap
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.overlap_bench import timed_interleaved
+
+    t_start = time.perf_counter()
+    world = args.procs * args.local_devices
+    if args.proc_id is not None:
+        mesh_mod.set_rank_env(args.proc_id, world, args.coordinator)
+    dev = mesh_mod.local_device(args.device)
+    cuda = dev.type == "cuda"
+    mesh_mod.init_world(dev)
+    try:
+        mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev)
+        rank = dist.get_rank()
+
+        def log(msg: str) -> None:
+            print(f"[pod_worker {rank}] {msg}", file=sys.stderr, flush=True)
+
+        plan_overrides = {}
+        for kv in args.plan:
+            k, _, v = kv.partition("=")
+            plan_overrides[k] = coerce_kv(v)
+        cfg = base.get(args.arch)
+        if not args.full_width:
+            cfg = base.reduced(cfg)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        plan_fields = dict(dp_mode="ddp", zero1=args.zero1, overlap=True,
+                           compression=args.method, bucket_mb=args.bucket_mb,
+                           comm=args.comm)
+        plan_fields.update(plan_overrides)
+        cfg = dataclasses.replace(cfg, plan=dataclasses.replace(
+            cfg.plan, **plan_fields))
+        backends = mesh_mod.backends()
+        log(f"mesh {mesh_mod.axis_sizes()} (p_dp={world}) on {dev}, "
+            f"backends {backends}")
+
+        names = ("serial", "overlap")
+        setups = {k: ts.build(cfg, dev) for k in names}
+        setup = setups["overlap"]
+        ov = overlap.build_layout(setup)
+        grad_bytes = ov.layout.n_elements \
+            * torch.empty((), dtype=ov.layout.dtype).element_size()
+        batch = next(Pipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                         global_batch=args.batch),
+                              host=rank, num_hosts=world, prefetch=0))
+        steps = {k: overlap.make_step(setups[k], k, accum=args.accum)
+                 for k in names}
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kbuild.reset_launches()
+        runs: dict = {}
+        t = timed_interleaved(setups, steps, batch, args.reps, args.warmup,
+                              out=runs)
+        launches = dict(kbuild.LAUNCHES)
+        t_serial, t_overlap = t["serial"], t["overlap"]
+        log(f"pod: serial={t_serial * 1e6:.1f}us "
+            f"overlap={t_overlap * 1e6:.1f}us")
+
+        same = _same_bits([runs[k]["state"] for k in names]) \
+            and runs["serial"]["losses"] == runs["overlap"]["losses"]
+        params = ts.state_digest(list(setup.model.parameters()))
+        plan_check = _plan_check(setups["serial"], ov, batch)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+        everyone = [None] * world
+        dist.all_gather_object(everyone, dict(params=params, same=same,
+                                              peak=peak))
+        losses = {k: runs[k]["losses"] for k in names}
+        shape = dict(
+            n_buckets=ov.layout.n_buckets,
+            effective_schedule=overlap.effective_schedule(setup),
+            compress_axes=list(setup.agg_cfg.compress_axes),
+            raw_axes=list(setup.agg_cfg.raw_axes))
+        del setups, steps, runs, setup
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ---- the compute offset: this rank's workload on one rank, no
+        # ---- collective (no DP axis, nothing aggregated)
+        cfg_local = dataclasses.replace(cfg, plan=dataclasses.replace(
+            cfg.plan, compression="none", comm="auto", zero1=False))
+        local = ts.build(cfg_local, dev)
+        local.dp_axes = ()
+        local.agg_cfg = dataclasses.replace(local.agg_cfg, compress_axes=(),
+                                            raw_axes=())
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_compute = timed_interleaved(
+            {"serial": local}, {"serial": overlap.make_step(local, "serial")},
+            batch, args.reps, args.warmup)["serial"]
+        peak_compute = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if cuda else None
+        log(f"local compute (1 rank, batch {batch['tokens'].shape[0]}): "
+            f"{t_compute * 1e6:.1f}us")
+        del local
+        gc.collect()
+
+        n_steps = len(names) * (args.warmup + args.reps)
+        rec = dict(
+            arch=cfg.name, n_layers=cfg.n_layers, method=args.method,
+            workers=world, procs=args.procs,
+            local_devices=args.local_devices, zero1=args.zero1,
+            accum=args.accum, comm=args.comm,
+            plan_overrides=plan_overrides or None, **shape,
+            mesh_axes=list(mesh_mod.AXES),
+            mesh_shape=[args.procs, args.local_devices],
+            grad_bytes=grad_bytes, batch=args.batch, seq=args.seq,
+            reps=args.reps, warmup=args.warmup,
+            t_serial_us=t_serial * 1e6, t_overlap_us=t_overlap * 1e6,
+            t_compute_us=t_compute * 1e6,
+            overlap_vs_serial=t_overlap / t_serial,
+            fig2_saving_pct=(1 - t_overlap / t_serial) * 100,
+            backends=backends,
+            device=torch.cuda.get_device_name(dev) if cuda else "cpu",
+            peak_mem_gb=[e["peak"] for e in everyone],
+            peak_mem_gb_compute=peak_compute,
+            losses=losses,
+            params_identical=all(e["params"] == everyone[0]["params"]
+                                 for e in everyone),
+            serial_equals_overlap=all(e["same"] for e in everyone),
+            plan_check=plan_check,
+            steps_timed=n_steps, launches=launches,
+            wall_s=time.perf_counter() - t_start)
+        log(f"OK: params identical {rec['params_identical']}, serial == "
+            f"overlap {rec['serial_equals_overlap']}, launches {launches}")
+        if args.json and rank == 0:
+            print(json.dumps(rec), flush=True)
+        return rec
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_bits(states) -> bool:
+    """Do two states (dicts, lists and tuples of tensors and scalars) hold
+    the same bits?  Tensors are compared on their device, as bytes."""
+    import torch
+    a, b = states
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and a.shape == b.shape and bool(torch.equal(
+                a.detach().reshape(-1).view(torch.uint8),
+                b.detach().reshape(-1).view(torch.uint8)))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() \
+            and all(_same_bits((a[k], b[k])) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) \
+            and all(_same_bits(pair) for pair in zip(a, b))
+    return a == b
+
+
+def _plan_check(setup, ov, batch: dict) -> dict:
+    """The mean over ``("pod", "data")`` of the first ``PLAN_CHECK_ELEMS``
+    elements of this rank's fp32 gradient bucket 0 under every comm plan
+    of ``PLAN_CHECK_KINDS`` (``hierarchical`` with ``intra=("data",)``),
+    against ``allreduce``: each plan's largest difference, whether the
+    two-shot ring gives its bits, and whether ``hierarchical`` and
+    ``gather_all`` are within ``rtol=1e-6, atol=1e-7`` (the JAX package's
+    contract: fp-close, another summation order)."""
+    import torch
+
+    from repro_torch.parallel import commplan as cp
+    from repro_torch.train import overlap
+    from repro_torch.train import train_step as ts
+
+    flush = overlap._Flush(ov, None, (), "raw", False)
+    leaves, _, _ = overlap._segmented_backward(
+        setup, ov, ts._to_device(batch, setup.device), flush, 1024)
+    lo, hi = ov.layout.bucket_leaves(0)
+    g = torch.cat([v.reshape(-1).float() for v in leaves[lo:hi]])
+    g = g[:PLAN_CHECK_ELEMS].contiguous()
+    del leaves
+    axes = ("pod", "data")
+    means = {k: cp.mean_reduce(g, axes, cp.CommPlan(k, intra=("data",)))
+             for k in PLAN_CHECK_KINDS}
+    ref = means["allreduce"]
+
+    def close(x):
+        return bool(torch.allclose(x, ref, rtol=1e-6, atol=1e-7))
+    return dict(
+        n=g.numel(), max_abs=ref.abs().max().item(),
+        max_abs_diff={k: (v - ref).abs().max().item()
+                      for k, v in means.items()},
+        rs_ag_bitwise=bool(torch.equal(
+            means["reduce_scatter_allgather"].view(torch.int32),
+            ref.view(torch.int32))),
+        hierarchical_close=close(means["hierarchical"]),
+        gather_all_close=close(means["gather_all"]))
+
+
+if __name__ == "__main__":
+    main()

@@ -31,21 +31,28 @@ the compressor states and the ZeRO-1 shards key off it) and each bucket
 is aggregated as soon as its layers' gradients are final.
 
 Every compressor of the JAX registry runs here, and ``ef:<name>`` for
-all but PowerSGD.  ``build`` raises ``NotImplementedError`` on what later
-slices port: FSDP, the adaptive controller, other optimizers, the
-``hierarchical`` comm plan, and ``compress_axes`` other than ``"pod"``.
-Like the JAX ``build``, it drops reduction axes of size 1 from the
-aggregation: on one rank the compressor is not run unless the caller
-points ``agg_cfg`` back at the ``data`` axis.  ZeRO-1's own collectives
-run over the DP axes whatever their size.
+all but PowerSGD, on the default mesh (one ``data`` axis) or on the
+two-tier ``pod x data`` mesh of ``launch.mesh.init_pod_mesh``, where the
+DP axes are ``("pod", "data")`` (ZeRO-1's owner plan and rtob's
+reduce-scatter run over both, pod-major) and ``plan.compress_axes`` picks
+the compressed axes as in the JAX package (``core.aggregator.from_plan``).
+``build`` raises ``NotImplementedError`` on what later slices port: FSDP,
+the adaptive controller and other optimizers.  Like the JAX ``build``, it
+drops reduction axes of size 1 from the aggregation (on one rank the
+compressor is not run unless the caller points ``agg_cfg`` back at the
+``data`` axis) and checks a ``hierarchical`` plan against the remaining
+axes.  ZeRO-1's own collectives run over the DP axes whatever their size.
+``local_sgd_sync`` is the pod-axis parameter mean of local SGD.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import aggregator as agg_mod
@@ -105,10 +112,6 @@ def _check_ported(plan) -> None:
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if plan.optimizer != "adamw":
         todo.append(f"optimizer={plan.optimizer!r}")
-    if plan.compress_axes != "pod":         # the port has no pod axis yet
-        todo.append(f"compress_axes={plan.compress_axes!r}")
-    if cp.CommPlan.parse(plan.comm).kind == "hierarchical":
-        todo.append(f"comm={plan.comm!r}")
     if todo:
         raise NotImplementedError(
             f"not ported yet: {', '.join(todo)} (this port runs the DDP "
@@ -136,13 +139,15 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     dev = mesh_mod.resolve_device(device)
     mesh_mod.init_world(dev)
     sizes = mesh_mod.axis_sizes()
-    dp_axes = ("data",)
-    agg_cfg = agg_mod.from_plan(plan)
+    dp_axes = mesh_mod.present_axes()
+    agg_cfg = agg_mod.from_plan(plan, multi_pod=sizes["pod"] > 1)
     agg_cfg = dataclasses.replace(
         agg_cfg,
         compress_axes=tuple(a for a in agg_cfg.compress_axes
                             if sizes.get(a, 1) > 1),
         raw_axes=tuple(a for a in agg_cfg.raw_axes if sizes.get(a, 1) > 1))
+    # fail at build time, not mid-step, when a hierarchical plan's intra
+    # stage would be empty over the actual reduction axes
     agg_cfg.comm.validate_axes(agg_cfg.raw_axes + agg_cfg.compress_axes)
     # ZeRO-1: the replicated parameters are bf16 working copies and the
     # fp32 master lives in the owner-sharded optimizer state;
@@ -449,3 +454,61 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
         return new_state, metrics
 
     return step
+
+
+# --------------------------------------------------------------------------
+# local SGD
+# --------------------------------------------------------------------------
+def local_sgd_sync(setup: TrainSetup):
+    """The pod-axis parameter mean of the ``--sync-every`` local-SGD mode
+    (JAX ``train_step.local_sgd_sync``): ``sync(state) -> state`` with
+    ``state["params"]`` replaced in place by their mean over ``pod``, or
+    None when the pod axis is absent or of size 1.  As in the JAX package
+    only the parameters are averaged, not ZeRO-1's fp32 master shard."""
+    axes = tuple(a for a in ("pod",) if a in setup.dp_axes
+                 and mesh_mod.axis_sizes()[a] > 1)
+    if not axes:
+        return None
+
+    @torch.no_grad()
+    def sync(state: dict) -> dict:
+        for p in state["params"]:
+            p.copy_(cp.mean_reduce(p, axes, cp.CommPlan("allreduce")))
+        return state
+    return sync
+
+
+def state_digest(obj) -> str:
+    """SHA-256 of every tensor's bytes (and dtype, shape) and every scalar
+    in a state: dicts in key order, lists and tuples in order.  Equal
+    digests mean the same bits."""
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            t = x.detach().contiguous().reshape(-1)
+            h.update(f"{t.dtype}{tuple(x.shape)}".encode())
+            h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                h.update(repr(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            h.update(b"[")
+            for v in x:
+                walk(v)
+            h.update(b"]")
+        else:
+            h.update(repr(x).encode())
+    walk(obj)
+    return h.hexdigest()
+
+
+def params_agree(params: Sequence[torch.Tensor], axes: Sequence[str]
+                 ) -> bool:
+    """Do the parameters hold the same bits on every rank along ``axes``?
+    (their digests, gathered over the axes' group)"""
+    mine = state_digest(list(params))
+    got = [None] * mesh_mod.size(axes)
+    dist.all_gather_object(got, mine, group=mesh_mod.group(axes))
+    return all(d == mine for d in got)

@@ -1,6 +1,12 @@
 """The training loop and its per-step metrics.  Counterpart of
-``repro.train.trainer`` without checkpointing, preemption handling or
-local SGD (later slices).
+``repro.train.trainer`` without checkpointing or preemption handling
+(later slices).
+
+Local SGD: with ``sync_every > 1`` the parameters are averaged over the
+``pod`` axis after every ``sync_every``-th step
+(``train_step.local_sgd_sync``; nothing to do without a pod axis), as in
+the JAX trainer.  The mean is part of that step's timed region and its
+record says ``synced``.
 
 Each step is timed on the host clock and ends with the device synchronised
 (reading the metrics waits for the step), so ``step_s`` and ``tok_per_s``
@@ -24,6 +30,7 @@ class TrainerConfig:
     total_steps: int = 100
     log_every: int = 10
     accum: int = 1              # microbatches per step (classic accumulation)
+    sync_every: int = 1         # local-SGD pod-sync period
     schedule: sched_mod.ScheduleConfig = dataclasses.field(
         default_factory=sched_mod.ScheduleConfig)
 
@@ -36,6 +43,7 @@ class Trainer:
         self.data = data
         self.state = state
         self.step_fn = None
+        self.sync_fn = None
         self.history: list[dict] = []
 
     def run(self, seed: int = 0) -> dict:
@@ -44,6 +52,8 @@ class Trainer:
             self.state = ts.init_state(self.setup, seed)
         if self.step_fn is None:
             self.step_fn = ts.make_step(self.setup, accum=cfg.accum)
+        if cfg.sync_every > 1 and self.sync_fn is None:
+            self.sync_fn = ts.local_sgd_sync(self.setup)
         cuda = self.setup.device.type == "cuda"
         it = iter(self.data)
         for step in range(self.state["step"], cfg.total_steps):
@@ -54,12 +64,16 @@ class Trainer:
                 torch.cuda.reset_peak_memory_stats(self.setup.device)
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, batch, lr)
+            synced = self.sync_fn is not None \
+                and (step + 1) % cfg.sync_every == 0
+            if synced:
+                self.state = self.sync_fn(self.state)
             rec = {k: v.item() for k, v in metrics.items()}
             if cuda:
                 torch.cuda.synchronize(self.setup.device)
             dt = time.perf_counter() - t0
             rec.update(step=step + 1, lr=lr, step_s=dt,
-                       tok_per_s=rec["tokens"] / dt)
+                       tok_per_s=rec["tokens"] / dt, synced=synced)
             if cuda:
                 rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(
                     self.setup.device) / 2**30

@@ -226,8 +226,13 @@ def test_reduce_payload_gathers_with_a_peer_axis():
 
 @pytest.mark.parametrize("kind", ["hierarchical"])
 def test_unported_comm_plans_raise(kind):
-    with pytest.raises(NotImplementedError):
-        tcp.mean_reduce(torch.ones(3), ("data",), tcp.CommPlan(kind))
+    """``hierarchical`` is ported (tests/test_torch_pod.py): it raises only
+    where the JAX package does, for an ``intra`` that names no axis of the
+    reduction; on one rank it is the identity mean."""
+    t = torch.randn(3)
+    with pytest.raises(tcp.CommPlanError):
+        tcp.mean_reduce(t, ("data",), tcp.CommPlan(kind, intra=("pod",)))
+    assert torch.equal(tcp.mean_reduce(t, ("data",), tcp.CommPlan(kind)), t)
 
 
 @pytest.mark.parametrize("spec", ["auto", "allreduce", "gather_all",

@@ -724,12 +724,19 @@ def test_accum_flushes_each_bucket_once(world, monkeypatch, accum):
     setup.agg_cfg = dataclasses.replace(setup.agg_cfg, raw_axes=("data",))
     calls = []
     orig = agg_mod.GradAggregator.aggregate_one
+    orig_start = agg_mod.GradAggregator.start_one
 
     def counting(self, bucket, st):
         calls.append(bucket.numel())
         return orig(self, bucket, st)
 
+    def counting_start(self, bucket):
+        # the uncompressed flush issues its mean asynchronously
+        calls.append(bucket.numel())
+        return orig_start(self, bucket)
+
     monkeypatch.setattr(agg_mod.GradAggregator, "aggregate_one", counting)
+    monkeypatch.setattr(agg_mod.GradAggregator, "start_one", counting_start)
     state = tts.init_state(setup)
     step = tts.make_step(setup, accum=accum)
     batch = {k: np.ones((6, 16), np.int64) for k in ("tokens", "labels")}

@@ -145,21 +145,28 @@ def test_two_steps_match_jax(comp, monkeypatch):
 
 
 # ------------------------------------------------------------ build rules
-@pytest.mark.parametrize("overrides", [
-    dict(zero1=False, dp_mode="fsdp"),
+@pytest.mark.parametrize("overrides,refused", [
+    (dict(zero1=False, dp_mode="fsdp"), True),
     # the overlapped DDP step is ported (tests/test_torch_overlap.py); an
     # overlapped FSDP step is not, in either package
-    dict(zero1=False, overlap=True, dp_mode="fsdp"),
-    dict(zero1=False, adaptive=True),
-    dict(zero1=False, comm="hierarchical"),
-    dict(zero1=False, optimizer="adafactor"),
-    dict(zero1=False, compress_axes="all"),
+    (dict(zero1=False, overlap=True, dp_mode="fsdp"), True),
+    (dict(zero1=False, adaptive=True), True),
+    # ported with the pod axis (tests/test_torch_pod.py): on one rank, as in
+    # the JAX package, the size-1 data axis goes and nothing is aggregated
+    (dict(zero1=False, comm="hierarchical"), False),
+    (dict(zero1=False, optimizer="adafactor"), True),
+    (dict(zero1=False, compress_axes="all"), False),
 ], ids=["fsdp", "overlap", "adaptive", "hierarchical", "adafactor",
         "compress-axes-all"])
-def test_build_refuses_what_is_not_ported(overrides):
+def test_build_refuses_what_is_not_ported(overrides, refused):
     cfg = tcfgs.reduced(tcfgs.get("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError):
-        tts.build(cfg, "cpu", **overrides)
+    if refused:
+        with pytest.raises(NotImplementedError):
+            tts.build(cfg, "cpu", **overrides)
+        return
+    setup = tts.build(cfg, "cpu", **overrides)
+    assert setup.dp_axes == ("data",)
+    assert (setup.agg_cfg.compress_axes, setup.agg_cfg.raw_axes) == ((), ())
 
 
 def test_init_state_gives_every_bucket_its_own_key():
