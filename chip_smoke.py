@@ -25,7 +25,18 @@ Phases, each fatal on failure:
      random, all-ones, all-zeros and pad-bits-set words, each launched
      twice (the same bits required).  The SM and memory clocks and
      the temperature are printed before and after the phase;
-  4. reference: on a small input, every compressor's aggregation on the
+  4. experiments: the paper's 216-setup matrix and the 36-setup adaptive
+     matrix through ``Runner(AnalyticBackend())``: 15/216 wins, all
+     ``bert-base/powersgd-*`` on ``allreduce``, 0 errors, adaptive 9/36
+     wins and 36/36 ties or better, every ``headline_verdicts`` row
+     passing (the JAX package's numbers); then one live cell per scheme
+     (PowerSGD, SignSGD, QSGD, ``ef:qsgd``, TernGrad, RandomK, MSTop-K)
+     through ``Runner(MeasuredBackend(device="cuda"))`` at the full ZeRO-1
+     bucket (13,107,200 elements): encode, decode and aggregate times, each
+     kernel's launches equal to its count per call times the backend's
+     calls, and the wire bytes, rounds and ratio that
+     ``CompressionSpec.for_compressor`` derives;
+  5. reference: on a small input, every compressor's aggregation on the
      card (kernels) against the same code on the CPU (plain versions),
      with the CPU's draws moved to the card through each scheme's draw
      function; one QSGD bucket aggregated on the card with PyTorch's
@@ -37,7 +48,7 @@ Phases, each fatal on failure:
      ``serial`` against ``overlap`` bit for bit on the card, and one
      overlapped step's flushes under the sync debug mode "error"
      (``overlap_reference``);
-  5. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
+  6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
      step (``zero1=False``, fp32 parameters, 168 buckets): 3 PowerSGD
@@ -68,32 +79,38 @@ Phases, each fatal on failure:
      busy, then takes one more step with the sync debug mode set to warn
      and prints where the host waited for the card (both reported, not
      checked);
-  6. schedules: ``overlap_bench`` at full width, ZeRO-1 uncompressed with
-     the aggregator on the data axis, ``overlap``, ``serial`` and
-     ``unfused`` round robin, 1 warm-up and 3 reps: the fastest step of
-     each and the peak memory;
-  7. pod: four ranks on the card as the two-tier ``pod 2 x data 2`` mesh
-     (``train/pod_worker.py`` under ``torchrun``; every collective is gloo,
-     since NCCL refuses two ranks on one card), ``tinyllama-1.1b`` at full
+  7. schedules: ``overlap_bench`` at full width as one ``kind="train"``
+     cell through ``MeasuredBackend`` (a process of its own), ZeRO-1
+     uncompressed with the aggregator on the data axis, ``overlap``,
+     ``serial`` and ``unfused`` round robin, 1 warm-up and 3 reps: the
+     fastest step of each and the peak memory;
+  8. pod: ``kind="train"`` cells through ``MultiProcessBackend``, one
+     ``train/pod_worker.py`` process per rank, every collective gloo
+     (NCCL refuses two ranks on one card), ``tinyllama-1.1b`` at full
      width cut to 4 blocks, ZeRO-1, 25 MB buckets, batch 8 x 512: four
-     groups (uncompressed under ``hierarchical:data`` and ``allreduce``;
-     PowerSGD over ``pod`` after a raw mean over ``data``; SignSGD over
-     both axes, p = 4), ``serial`` and ``overlap`` round robin, 1 warm-up
-     and 2 reps, then the one-rank compute offset.  Each must give finite
-     losses, the same parameter bits on all four ranks, ``serial`` ==
+     cells of pod 2 x data 2 (uncompressed under ``hierarchical:data`` and
+     ``allreduce``; PowerSGD over ``pod`` after a raw mean over ``data``;
+     SignSGD over both axes, p = 4) and ``pod-ring-p2`` (pod 2 x data 1,
+     uncompressed), ``serial`` and ``overlap`` round robin, 1 warm-up and
+     2 reps, then the one-rank compute offset.  Each must give finite
+     losses, the same parameter bits on every rank, ``serial`` ==
      ``overlap`` bit for bit, ``hierarchical`` within fp32 tolerance of
      ``allreduce`` on one gradient bucket, the kernels' launch counts per
      compressed bucket and the backends the topology calls for; each
-     worker's JSON record is printed.  Then local SGD on two ranks
-     (``launch/train.py --mesh pod --sync-every 2``): the parameters must
-     agree across pods after steps 2 and 4.  The four ranks share the
-     card's SMs, so every pod time is of time-sliced compute.
+     worker's JSON record is printed.  Then the α–β fit
+     (``calibrate_from_results``, from the H100 preset) over the three
+     uncompressed cells and each cell's model-vs-measured error, printed
+     and not checked (both tiers are gloo over loopback on one card).
+     Then local SGD on two ranks (``launch/train.py --mesh pod
+     --sync-every 2``): the parameters must agree across pods after steps
+     2 and 4.  The ranks share the card's SMs, so every pod time is of
+     time-sliced compute.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
 classic ZeRO-1 step's and the classic fp32 step's; the ``kernels`` line
 counts each kernel's launches in the overlapped ZeRO-1 run that drives
-it.
+it, in the live cells (``experiment_launches``) and per pod step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -1056,30 +1073,153 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     return history, counts
 
 
-# ------------------------------------------------------------------ pod
+# ------------------------------------------------------------- experiments
+#: the analytic headline of the paper's 216-setup matrix and the adaptive
+#: matrix, as the JAX package's analytic backend gives it (PERF.md)
+ANALYTIC_WANT = {"setups": 216, "wins": 15, "errors": 0,
+                 "adaptive": {"setups": 36, "wins": 9, "errors": 0,
+                              "ties_or_beats_static": "36/36"}}
+#: live cells: method -> (launches per ``encode_and_reduce`` call, per
+#: ``decode`` call); ``aggregate`` makes one of each.  MSTop-K runs the
+#: exact top-k (``kernels/ops.py``), as the JAX package does:
+#: ``threshold_mask`` 0.
+LIVE_CELLS = {
+    "live:powersgd": ({"powersgd_encode": 2}, {"powersgd_decode": 1}),
+    "live:signsgd": ({"pack_signs": 1}, {"popcount_votes": 1}),
+    "live:qsgd": ({"qsgd_quantize": 1}, {}),
+    "live:ef:qsgd": ({"qsgd_quantize": 1}, {}),
+    "live:terngrad": ({}, {}),
+    "live:randomk": ({}, {}),
+    "live:mstopk": ({}, {}),
+}
+
+
+def analytic_phase() -> None:
+    """The paper matrix and the adaptive matrix through
+    ``Runner(AnalyticBackend())``: the headline must be ANALYTIC_WANT,
+    every winner ``bert-base/powersgd-*`` on ``allreduce``, and every
+    ``headline_verdicts`` row must pass."""
+    from repro_torch.experiments import (AnalyticBackend, Grid, Runner,
+                                         headline, headline_verdicts)
+    t0 = time.perf_counter()
+    results = Runner(AnalyticBackend()).run(
+        list(Grid.paper_matrix()) + list(Grid.adaptive_matrix()))
+    h = headline(results)
+    log(f"[analytic] {len(results)} cells in "
+        f"{time.perf_counter() - t0:.1f} s: {h['wins']}/{h['setups']} wins "
+        f"({h['by_method']}), {h['errors']} errors; adaptive {h['adaptive']}")
+    log(f"[analytic] winners: {h['winners']}")
+    bad = [k for k, v in ANALYTIC_WANT.items()
+           if ({k2: h[k][k2] for k2 in v} if isinstance(v, dict) else h[k])
+           != v]
+    if not all(w["setup"].startswith("bert-base/powersgd-")
+               and w["comm"] == "allreduce" for w in h["winners"]):
+        bad.append("winners")
+    for claim, got, want, ok in headline_verdicts(h):
+        log(f"[analytic] {'PASS' if ok else 'FAIL'} {claim}: {got} "
+            f"(want {want})")
+        if not ok:
+            bad.append(claim)
+    if bad:
+        raise AssertionError(f"analytic headline: {bad}")
+
+
+def live_phase(n: int) -> dict:
+    """One ``kind="measured"`` cell per LIVE_CELLS method at ``n``
+    elements through ``Runner(MeasuredBackend(device="cuda"))``; each
+    kernel's launches must be its count per call times the calls the
+    backend made, and ``wire_bytes``, ``rounds`` and ``ratio`` what
+    ``CompressionSpec.for_compressor`` derives.  Returns {method: the
+    cell's launches}."""
+    from repro_torch.core.perfmodel.model import CompressionSpec
+    from repro_torch.experiments import (ExperimentSpec, MeasuredBackend,
+                                         Runner, make_live_compressor)
+    from repro_torch.kernels import build as kbuild
+    backend = MeasuredBackend(device="cuda")
+    timed = backend.warmup + backend.reps
+    calls_enc, calls_dec = 1 + 2 * timed, 2 * timed
+    launches = {}
+    for method, (per_enc, per_dec) in LIVE_CELLS.items():
+        spec = ExperimentSpec(workload="tinyllama-1.1b zero1 bucket",
+                              method=method, hardware="h100",
+                              kind="measured", n_elements=n)
+        kbuild.reset_launches()
+        (r,) = Runner(backend).run([spec])
+        got = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+        if not r.ok:
+            raise AssertionError(f"live {method}: {r.error}")
+        log(f"[live] {method}: " + json.dumps(r.metrics)
+            + f"; launches {got}")
+        want = {k: v * calls_enc for k, v in per_enc.items()}
+        want.update({k: v * calls_dec for k, v in per_dec.items()})
+        cs = CompressionSpec.for_compressor(make_live_compressor(method), n,
+                                            0.0)
+        m = r.metrics
+        if got != want:
+            raise AssertionError(f"live {method}: launches {got}, want "
+                                 f"{want}")
+        if (m["wire_bytes"], m["rounds"], m["ratio"]) != (
+                int(cs.total_payload), len(cs.payload_bytes),
+                round(cs.compression_ratio(4 * n), 1)):
+            raise AssertionError(f"live {method}: wire accounting {m}")
+        launches[method] = got
+    return launches
+
+
+def train_cell() -> dict:
+    """``overlap_bench`` at full width through ``MeasuredBackend``: one
+    ``kind="train"`` cell, one worker, ZeRO-1 uncompressed, the aggregator
+    on the data axis; returns the record."""
+    from repro_torch.experiments import (ExperimentSpec, MeasuredBackend,
+                                         Runner)
+    backend = MeasuredBackend(device="cuda", worker_args=(
+        "--full-size", "--keep-data-axis", "--seq", "512", "--warmup", "1",
+        "--reps", "3"))
+    spec = ExperimentSpec(workload="tinyllama-1.1b", method="none",
+                          hardware="h100", kind="train", procs=0, workers=1,
+                          batch=4, zero1=True)
+    (r,) = Runner(backend).run([spec])
+    if not r.ok:
+        raise AssertionError(f"train cell: {r.error}")
+    return r.metrics
+
+
 #: the pod phase: tinyllama-1.1b at full width, cut to POD_LAYERS blocks so
 #: that four ranks fit one card, as pod 2 x data 2; ZeRO-1 as the arch
-#: configures it, 25 MB leaf-aligned buckets, batch 8 x 512 global
+#: configures it, 25 MB leaf-aligned buckets, batch 8 x 512 global.  The
+#: worker flags that ``MultiProcessBackend`` does not set from the spec:
 POD_LAYERS = 4
-POD_RANKS = 4
-POD_WORKER = ("--procs", "2", "--local-devices", "2", "--full-width",
-              "--layers", str(POD_LAYERS), "--zero1", "--batch", "8",
-              "--seq", "512", "--bucket-mb", "25", "--warmup", "1",
-              "--reps", "2", "--json")
-#: label -> (worker flags, compress axes, effective schedule, launches per
-#: compressed bucket and step)
-POD_GROUPS = {
-    "none hierarchical:data": (("--method", "none", "--comm",
-                                "hierarchical:data"), ["pod"], "overlap", {}),
-    "none allreduce": (("--method", "none", "--comm", "allreduce"), ["pod"],
-                       "overlap", {}),
-    "powersgd pod": (("--method", "powersgd"), ["pod"], "overlap",
-                     {"powersgd_encode": 2, "powersgd_decode": 1}),
-    "signsgd all": (("--method", "signsgd", "--plan", "compress_axes=all"),
-                    ["pod", "data"], "serial",
-                    {"pack_signs": 1, "popcount_votes": 1}),
-}
+POD_WORKER_ARGS = ("--full-width", "--layers", str(POD_LAYERS), "--seq",
+                   "512", "--bucket-mb", "25")
 POD_TIMEOUT_S = 300
+
+
+def pod_specs() -> dict:
+    """label -> (spec, compress axes, effective schedule, launches per
+    compressed bucket and step): the four groups of pod 2 x data 2, then
+    ``pod-ring-p2`` (pod 2 x data 1), which makes ``alpha``, ``net_bw``
+    and ``dcn_bw`` identifiable together."""
+    from repro_torch.experiments import ExperimentSpec
+    base = ExperimentSpec(workload="tinyllama-1.1b", method="none",
+                          workers=4, procs=2, batch=8, hardware="h100",
+                          kind="train", overlap=True, zero1=True)
+    rep = dataclasses.replace
+    return {
+        "none hierarchical:data": (
+            rep(base, comm="hierarchical:data", variant="pod-hier"),
+            ["pod"], "overlap", {}),
+        "none allreduce": (rep(base, comm="allreduce", variant="pod-ring"),
+                           ["pod"], "overlap", {}),
+        "powersgd pod": (rep(base, method="live:powersgd"), ["pod"],
+                         "overlap",
+                         {"powersgd_encode": 2, "powersgd_decode": 1}),
+        "signsgd all": (rep(base, method="live:signsgd",
+                            overrides=(("compress_axes", "all"),)),
+                        ["pod", "data"], "serial",
+                        {"pack_signs": 1, "popcount_votes": 1}),
+        "pod-ring-p2": (rep(base, workers=2, comm="allreduce",
+                            variant="pod-ring-p2"), ["pod"], "overlap", {}),
+    }
 
 
 def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
@@ -1109,29 +1249,41 @@ def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
 
 
 def pod_phase(kind: str) -> dict:
-    """Four ranks on one card as the two-tier ``pod 2 x data 2`` mesh,
-    through ``train/pod_worker.py``, one ``torchrun`` per group of
-    POD_GROUPS; then local SGD through the launcher.  Each group must give
-    finite losses, the same parameter bits on all four ranks, ``serial``
-    == ``overlap`` bit for bit, ``hierarchical`` and ``gather_all`` within
-    fp32 tolerance of ``allreduce`` on one gradient bucket, the kernels'
-    launches per compressed bucket and step, and the backends the
-    topology calls for.  Returns {group: the worker's record}."""
+    """The pod cells of ``pod_specs`` on one card through
+    ``Runner(MultiProcessBackend(...))``: one ``train/pod_worker.py``
+    process per rank.  Each must give finite losses, the same parameter
+    bits on every rank, ``serial`` == ``overlap`` bit for bit,
+    ``hierarchical`` and ``gather_all`` within fp32 tolerance of
+    ``allreduce`` on one gradient bucket, the kernels' launches per
+    compressed bucket and step, and the backends the topology calls for;
+    each worker's JSON record is printed.  Then the α–β fit
+    (``calibrate_from_results`` from the H100 preset) over the
+    uncompressed cells, whose wire bytes are the gradient's (a compressed
+    cell's are not), and the model-vs-measured error of each: reported,
+    not checked.  Then local SGD through the launcher.  Returns {label:
+    the worker's record}."""
     import torch
-    share = POD_RANKS > torch.cuda.device_count()
-    want_backends = {"pod": "gloo", "data": "gloo" if share else "nccl",
-                     "world": "gloo" if share else "cpu:gloo,cuda:nccl"}
-    recs = {}
-    for label, (flags, comp, sched, per_bucket) in POD_GROUPS.items():
-        out, wall = run_ranks(POD_RANKS, "repro_torch.train.pod_worker",
-                              POD_WORKER + flags, f"pod {label}")
-        lines = out.strip().splitlines()
-        if len(lines) != 1:
-            raise AssertionError(f"pod {label}: {len(lines)} stdout lines, "
-                                 f"want rank 0's record alone: {lines[:3]}")
-        rec = json.loads(lines[0])
-        rec["phase_wall_s"] = wall
+
+    from repro_torch.core.perfmodel import calibration as cal
+    from repro_torch.core.perfmodel.hardware import H100
+    from repro_torch.experiments import (MultiProcessBackend, Runner,
+                                         headline)
+    cells = pod_specs()
+    backend = MultiProcessBackend(reps=2, warmup=1, device="cuda",
+                                  pod_timeout=POD_TIMEOUT_S,
+                                  worker_args=POD_WORKER_ARGS)
+    recs, results = {}, []
+    for label, (spec, comp, sched, per_bucket) in cells.items():
+        t0 = time.perf_counter()
+        (r,) = Runner(backend).run([spec])
+        if not r.ok:
+            raise AssertionError(f"pod {label}: {r.error}")
+        rec = dict(r.metrics, phase_wall_s=time.perf_counter() - t0)
         log(f"[pod] {label}: " + json.dumps(rec))
+        share = spec.workers > torch.cuda.device_count()
+        want_backends = {"pod": "gloo", "data": "gloo" if share else "nccl",
+                         "world": "gloo" if share
+                         else "cpu:gloo,cuda:nccl"}
         bad = []
         losses = [x for v in rec["losses"].values() for x in v]
         if not all(math.isfinite(x) for x in losses):
@@ -1146,7 +1298,9 @@ def pod_phase(kind: str) -> dict:
         if rec["backends"] != want_backends:
             bad.append(f"backends {rec['backends']}, want {want_backends}")
         if (rec["compress_axes"], rec["effective_schedule"], rec["device"],
-                rec["mesh_shape"]) != (comp, sched, kind, [2, 2]):
+                rec["mesh_shape"]) != (comp, sched, kind,
+                                       [spec.procs,
+                                        spec.workers // spec.procs]):
             bad.append("compress axes, schedule, device or mesh")
         want = {k: v * rec["n_buckets"] * rec["steps_timed"]
                 for k, v in per_bucket.items()}
@@ -1155,6 +1309,24 @@ def pod_phase(kind: str) -> dict:
         if bad:
             raise AssertionError(f"pod {label}: " + "; ".join(bad))
         recs[label] = rec
+        results.append(r)
+
+    fit = cal.calibrate_from_results(
+        [r for r in results if r.spec.is_baseline], base_hw=H100)
+    hw = fit.hardware
+    log(f"[fit] {fit.n_obs} uncompressed pod cells, gloo over loopback on "
+        f"one {kind}: alpha={hw.alpha!r} s net_bw={hw.net_bw!r} B/s "
+        f"dcn_bw={hw.dcn_bw!r} B/s")
+    for row in fit.rows:
+        log(f"[fit] {row['label']}: comm={row['comm']} p={row['p']} "
+            f"p_intra={row['p_intra']} measured={row['t_measured_s']!r} s "
+            f"model={row['t_model_s']!r} s "
+            f"rel_err={row['model_rel_err']!r}")
+    log(f"[fit] dcn_bw < net_bw: {hw.dcn_bw < hw.net_bw} (not checked: on "
+        f"one card both tiers are gloo over loopback, so the two-tier "
+        f"premise cannot show here)")
+    h = headline(cal.attach_model_error(results, fit))
+    log("[fit] headline measured block: " + json.dumps(h["measured"]))
 
     # local SGD: 2 ranks as pod 2 x data 1, the parameters averaged over
     # pod after steps 2 and 4 and checked equal there
@@ -1187,7 +1359,7 @@ def main() -> int:
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
-    from repro_torch.train import overlap, overlap_bench
+    from repro_torch.train import overlap
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -1237,6 +1409,13 @@ def main() -> int:
     torch.cuda.set_device(0)
     mesh_mod.init_world(torch.device("cuda", 0))
     try:
+        # the live cells time on this one-rank group (the backend leaves
+        # a caller's group alone)
+        t0 = time.perf_counter()
+        analytic_phase()
+        live = live_phase(layouts["zero1"].bucket_elems)
+        log(f"[experiments] analytic and {len(live)} live cells in "
+            f"{time.perf_counter() - t0:.1f} s")
         reference_phase()
         zero1_reference()
         overlap_reference()
@@ -1301,27 +1480,25 @@ def main() -> int:
                 ov_runs.items():
             hist[label], counts[label] = train_phase(
                 label, steps, per_step, accum, schedule, **overrides)
-        # the three schedules round robin at full width (overlap_bench)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        bench = overlap_bench.main([
-            "--full-size", "--zero1", "--method", "none", "--batch", "4",
-            "--seq", "512", "--keep-data-axis", "--warmup", "1", "--reps",
-            "3"])
-        log(f"[bench] three schedules, ZeRO-1 none, 1 warm-up and 3 reps "
-            f"in {time.perf_counter() - t0:.1f} s: step ms "
-            f"{bench['step_ms']}; peak {bench['peak_mem_gib']:.2f} GiB")
-        gc.collect()
-        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    # the three schedules round robin at full width (overlap_bench), as
+    # one train cell of the experiment layer, in a process of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = train_cell()
+    log(f"[bench] three schedules, ZeRO-1 none, 1 warm-up and 3 reps "
+        f"in {time.perf_counter() - t0:.1f} s: step ms "
+        f"{bench['step_ms']}; t_serial_us {bench['t_serial_us']!r}, "
+        f"t_overlap_us {bench['t_overlap_us']!r}, t_unfused_us "
+        f"{bench['t_unfused_us']!r}; peak {bench['peak_mem_gib']:.2f} GiB")
     log("[train] " + json.dumps(hist))
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     pod = pod_phase(kind)
-    log(f"[pod] {len(pod)} groups and local SGD in "
+    log(f"[pod] {len(pod)} cells, the fit and local SGD in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
@@ -1361,6 +1538,8 @@ def main() -> int:
             "pod_launches_per_step": {
                 label: rec["launches"].get(name, 0) / rec["steps_timed"]
                 for label, rec in pod.items()},
+            "experiment_launches": sum(c.get(name, 0)
+                                       for c in live.values()),
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -50,6 +50,7 @@ class ErrorFeedback(Compressor):
         self.inner = inner
         self.associative = inner.associative
         self.name = f"ef:{inner.name}"
+        self.registry_name = f"ef:{inner.registry_name}"
 
     def init_state(self, n: int, generator: Optional[torch.Generator] = None,
                    device: "str | torch.device" = "cpu") -> EFState:
@@ -92,6 +93,10 @@ class ErrorFeedback(Compressor):
     def wire_rounds(self, bucket: torch.Tensor,
                     state: EFState) -> list[Payload]:
         return self.inner.wire_rounds(self._carry(bucket, state), state.inner)
+
+    def encode_decode_flops(self, n: int) -> float:
+        # + the residual's add and subtract
+        return self.inner.encode_decode_flops(n) + 2.0 * n
 
 
 def wrap_error_feedback(inner: Compressor) -> ErrorFeedback:

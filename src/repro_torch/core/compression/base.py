@@ -17,7 +17,8 @@ Counterpart of ``repro.core.compression.base``; the contract is the same:
 ``aggregate`` composes the three and is what the train step calls.  Wire
 bytes are derived from the payloads: ``wire_round_bytes`` runs the encode
 path on the ``meta`` device, so it allocates nothing and launches no
-kernel.
+kernel.  ``compressed_bytes``, ``compression_ratio`` and
+``encode_decode_flops`` are what the performance model reads.
 
 Ported compressors: every name of the JAX registry (``none``,
 ``powersgd``, ``signsgd``, ``qsgd``, ``terngrad``, ``randomk``,
@@ -159,6 +160,11 @@ class Compressor:
     #: the ``ef:`` wrapper rejects these instead of compensating twice.
     builtin_error_feedback: bool = False
 
+    @property
+    def all_reduce_compatible(self) -> bool:
+        """Alias of ``associative`` (the paper's Table 3 wording)."""
+        return self.associative
+
     def init_state(self, n: int, generator: Optional[torch.Generator] = None,
                    device: "str | torch.device" = "cpu") -> Any:
         """Per-bucket persistent state (error feedback, warm start)."""
@@ -205,6 +211,18 @@ class Compressor:
             cache[(n, itemsize)] = tuple(
                 p.nbytes for p in self.wire_rounds(bucket, state))
         return cache[(n, itemsize)]
+
+    def compressed_bytes(self, n: int, itemsize: int = 4) -> float:
+        """Wire payload per aggregation (one direction, per peer): the sum
+        of every round's bytes."""
+        return float(sum(self.wire_round_bytes(n, itemsize)))
+
+    def compression_ratio(self, n: int, itemsize: int = 4) -> float:
+        return (n * itemsize) / max(self.compressed_bytes(n, itemsize), 1e-9)
+
+    # ---- analytical flops (the paper's T_encode-decode, up to a constant) -
+    def encode_decode_flops(self, n: int) -> float:
+        return 0.0
 
 
 # --------------------------------------------------------------------------

@@ -10,6 +10,7 @@ is a separate op that no compressor calls.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -66,3 +67,7 @@ class MSTopK(Compressor):
         else:
             new_err = state.err
         return out.to(bucket.dtype), TopKState(err=new_err)
+
+    def encode_decode_flops(self, n):
+        k = self.k_for(n)
+        return n * max(1.0, math.log2(max(k, 2)))  # selection ~ n log k

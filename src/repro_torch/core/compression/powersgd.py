@@ -126,3 +126,9 @@ class PowerSGD(Compressor):
             {"q": kops.powersgd_encode(m.T, round1.tensors["p"])},
             associative=True)
         return [round1, round2]
+
+    def encode_decode_flops(self, n):
+        rows, cols = matrix_shape(n, self.min_cols)
+        matmuls = 3 * 2 * rows * cols * self.rank      # encode x2 + decode
+        gs = 2 * rows * self.rank * self.rank          # Gram-Schmidt
+        return matmuls + gs

@@ -79,3 +79,6 @@ class QSGD(Compressor):
         else:
             new_err = state.err
         return out.to(bucket.dtype), QSGDState(key=key, err=new_err)
+
+    def encode_decode_flops(self, n):
+        return 6.0 * n

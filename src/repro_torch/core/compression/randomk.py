@@ -86,3 +86,6 @@ class RandomK(Compressor):
         else:
             new_err = state.err
         return out.to(bucket.dtype), RandomKState(key=key, err=new_err)
+
+    def encode_decode_flops(self, n):
+        return 4.0 * n  # permutation + gather/scatter ~ O(n)

@@ -57,3 +57,7 @@ class SignSGDMajorityVote(Compressor):
         else:
             new_err = state.err
         return out.to(bucket.dtype), SignSGDState(err=new_err)
+
+    def encode_decode_flops(self, n):
+        # pack, then unpack and count: about 8 operations per element
+        return 8.0 * n

@@ -21,7 +21,9 @@ kept.  A step is timed on the host clock between two
 and, as in the JAX package, is dropped from the aggregation;
 ``--keep-data-axis`` points the aggregator back at it (the collectives are
 then copies, and the compressors and the side stream still run).  The last
-line of standard output is the JSON record:
+line of standard output is the JSON record, with the JAX bench's keys
+(``t_serial_us``, ``t_overlap_us``, ``t_unfused_us``) beside ``step_ms``;
+``MeasuredBackend`` reads it for a ``kind="train"`` cell:
 
     python -m repro_torch.train.overlap_bench --full-size --zero1 \\
         --batch 4 --seq 512 --keep-data-axis
@@ -76,6 +78,10 @@ def main(argv=None) -> dict:
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--method", default="none",
                     help="plan.compression for the aggregated buckets")
+    ap.add_argument("--plan", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="extra ParallelPlan override (repeatable; wins over "
+                         "the flags)")
     ap.add_argument("--zero1", action="store_true",
                     help="owner-shard the optimizer state (plan.zero1)")
     ap.add_argument("--accum", type=int, default=1,
@@ -93,6 +99,9 @@ def main(argv=None) -> dict:
                     help="aggregate over the data axis even on one rank")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--json", action="store_true",
+                    help="the JAX bench's flag; the record is always the "
+                         "last stdout line")
     args = ap.parse_args(argv)
 
     import torch
@@ -100,6 +109,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.configs import base as cfgs
     from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.experiments.backend import coerce_kv
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.train import overlap
     from repro_torch.train import train_step as ts
@@ -116,6 +126,11 @@ def main(argv=None) -> dict:
                          compression=args.method, comm=args.comm)
         if args.bucket_mb is not None:
             overrides["bucket_mb"] = args.bucket_mb
+        plan_overrides = {}
+        for kv in args.plan:
+            k, _, v = kv.partition("=")
+            plan_overrides[k] = coerce_kv(v)
+        overrides.update(plan_overrides)        # explicit --plan wins
 
         def setup_of():
             setup = ts.build(arch, dev, **overrides)
@@ -141,15 +156,19 @@ def main(argv=None) -> dict:
             arch=arch.name, device=torch.cuda.get_device_name(dev)
             if dev.type == "cuda" else "cpu", workers=world,
             method=args.method, zero1=args.zero1, accum=args.accum,
-            comm=args.comm, batch=args.batch, seq=args.seq,
+            comm=args.comm, plan_overrides=plan_overrides or None,
+            batch=args.batch, seq=args.seq,
             n_buckets=setup.layout.n_buckets,
             effective_schedule=overlap.effective_schedule(setup),
             reps=args.reps, warmup=args.warmup,
             step_ms={k: v * 1e3 for k, v in t.items()},
+            t_serial_us=t["serial"] * 1e6, t_overlap_us=t["overlap"] * 1e6,
             overlap_vs_serial=t["overlap"] / t["serial"],
             fig2_saving_pct=(1 - t["overlap"] / t["serial"]) * 100,
             peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30
             if dev.type == "cuda" else None)
+        if "unfused" in t:
+            rec["t_unfused_us"] = t["unfused"] * 1e6
         if rank == 0:
             print(f"[overlap_bench] {rec['arch']} on {rec['device']} "
                   f"method={rec['method']} p={world} zero1={rec['zero1']} "
