@@ -78,13 +78,30 @@ Phases, each fatal on failure:
      each CUDA stream and how much of it ran while the compute stream was
      busy, then takes one more step with the sync debug mode set to warn
      and prints where the host waited for the card (both reported, not
-     checked);
-  7. schedules: ``overlap_bench`` at full width as one ``kind="train"``
+     checked).  Then the adaptive controller: ``resolve_plan`` for the
+     full-size arch at n_dev = 2, batch 4 x 512, on the paper's V100
+     preset (fatal unless PowerSGD on overlapped ZeRO-1, the JAX
+     package's decision), 3 steps of that plan through the same checks
+     (encode 2 and decode 1 launch per bucket), and a ``BucketController``
+     over its 46 buckets fed the measured step times (syncSGD from
+     ``zero1 overlap none``, PowerSGD from this run): whether the
+     feedback flips buckets to syncSGD is printed, not checked;
+  7. checkpoint: the arch as configured (ZeRO-1, bf16 parameters, the
+     classic step, PowerSGD on the data axis; a 19.8 GB checkpoint) in a
+     temporary directory: 3 uninterrupted steps (A); a ``Trainer`` whose
+     data iterator sends SIGTERM to its own process at the second batch
+     and must save step 2 and return (B); a fresh ``Trainer`` that
+     restores step 2, seeks the data cursor and takes step 3 (C).  Fatal
+     unless C's loss and ``state_digest`` equal A's bit for bit; prints
+     the bytes, the save and restore seconds and the peak memory;
+  8. schedules: ``overlap_bench`` at full width as one ``kind="train"``
      cell through ``MeasuredBackend`` (a process of its own), ZeRO-1
      uncompressed with the aggregator on the data axis, ``overlap``,
      ``serial`` and ``unfused`` round robin, 1 warm-up and 3 reps: the
-     fastest step of each and the peak memory;
-  8. pod: ``kind="train"`` cells through ``MultiProcessBackend``, one
+     fastest step of each and the peak memory; then an adaptive
+     ``kind="train"`` cell at one worker, fatal unless the controller
+     keeps syncSGD (``adaptive_choice``);
+  9. pod: ``kind="train"`` cells through ``MultiProcessBackend``, one
      ``train/pod_worker.py`` process per rank, every collective gloo
      (NCCL refuses two ranks on one card), ``tinyllama-1.1b`` at full
      width cut to 4 blocks, ZeRO-1, 25 MB buckets, batch 8 x 512: four
@@ -110,7 +127,8 @@ The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
 classic ZeRO-1 step's and the classic fp32 step's; the ``kernels`` line
 counts each kernel's launches in the overlapped ZeRO-1 run that drives
-it, in the live cells (``experiment_launches``) and per pod step.
+it, in the live cells (``experiment_launches``), in the adaptive run
+(``adaptive_launches``) and per pod step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -1166,15 +1184,18 @@ def live_phase(n: int) -> dict:
     return launches
 
 
+#: ``overlap_bench``'s own flags for the full-width train cells
+TRAIN_CELL_ARGS = ("--full-size", "--keep-data-axis", "--seq", "512",
+                   "--warmup", "1", "--reps", "3")
+
+
 def train_cell() -> dict:
     """``overlap_bench`` at full width through ``MeasuredBackend``: one
     ``kind="train"`` cell, one worker, ZeRO-1 uncompressed, the aggregator
     on the data axis; returns the record."""
     from repro_torch.experiments import (ExperimentSpec, MeasuredBackend,
                                          Runner)
-    backend = MeasuredBackend(device="cuda", worker_args=(
-        "--full-size", "--keep-data-axis", "--seq", "512", "--warmup", "1",
-        "--reps", "3"))
+    backend = MeasuredBackend(device="cuda", worker_args=TRAIN_CELL_ARGS)
     spec = ExperimentSpec(workload="tinyllama-1.1b", method="none",
                           hardware="h100", kind="train", procs=0, workers=1,
                           batch=4, zero1=True)
@@ -1182,6 +1203,244 @@ def train_cell() -> dict:
     if not r.ok:
         raise AssertionError(f"train cell: {r.error}")
     return r.metrics
+
+
+#: the adaptive phase: ``resolve_plan`` for full-size tinyllama-1.1b on the
+#: paper's hardware preset, and the decision JAX's controller gives there
+#: (tests/test_torch_adaptive.py holds this constant to it)
+ADAPTIVE_WANT = {"n_dev": 2, "batch": 4, "seq": 512, "scheme": "powersgd",
+                 "comm": "auto"}
+
+
+def adaptive_phase(hist: dict, layout) -> tuple[list, dict]:
+    """``resolve_plan`` at ``ADAPTIVE_WANT`` (fatal unless PowerSGD on
+    overlapped ZeRO-1), 3 steps of the resolved plan through
+    ``train_phase`` (launches checked), then a ``BucketController`` over
+    ``layout``'s bucket bytes (p = 2, the paper's preset) fed the measured
+    step times, after each run's first, of ``zero1 overlap none`` (as
+    syncSGD) and of this run (as PowerSGD): its ``step()`` and
+    ``summary()`` are printed, not checked.
+    Returns the run's records and launch counts."""
+    from repro_torch.adaptive import controller as actl
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core.perfmodel import calibration as cal
+    arch = cfgs.get("tinyllama-1.1b")
+    want = ADAPTIVE_WANT
+    plan, d = actl.resolve_plan(arch.plan, arch, want["n_dev"],
+                                batch=want["batch"], seq=want["seq"])
+    log(f"[adaptive] resolve_plan(n_dev={want['n_dev']}, batch "
+        f"{want['batch']} x {want['seq']}, the paper's V100 preset): "
+        f"scheme={d.scheme} comm={d.comm} predicted {d.t_pred * 1e3:.3f} "
+        f"ms/step vs overlapped syncSGD {d.t_base * 1e3:.3f} ms/step; plan "
+        f"compression={plan.compression} overlap={plan.overlap} "
+        f"zero1={plan.zero1}")
+    if (d.scheme, d.comm, plan.compression, plan.overlap, plan.zero1) != (
+            want["scheme"], want["comm"], want["scheme"], True, True):
+        raise AssertionError(f"adaptive: {d} / {plan}, expected {want} on "
+                             f"overlapped ZeRO-1")
+    overrides = {f.name: getattr(plan, f.name)
+                 for f in dataclasses.fields(plan)
+                 if getattr(plan, f.name) != getattr(arch.plan, f.name)}
+    n = layout.n_buckets
+    history, counts = train_phase(
+        "adaptive powersgd", 3, {"powersgd_encode": 2 * n,
+                                 "powersgd_decode": n}, 1, "overlap",
+        **overrides)
+    ctl = actl.BucketController(
+        actl.workload_for_arch(arch, want["batch"], want["seq"],
+                               cal.PAPER_HW), want["n_dev"], cal.PAPER_HW,
+        [layout.dtype.itemsize * k for k in layout.sizes],
+        actl._live_candidates(plan, cal.PAPER_HW))
+    before = ctl.summary()["schemes"]
+    # the steps after each run's first, which carries its one-time
+    # allocations and library warm-up (9 s on a fresh process)
+    for r in hist["zero1 overlap none"][1:]:
+        ctl.observe("syncsgd", r["step_s"])
+    for r in history[1:]:
+        ctl.observe("powersgd", r["step_s"])
+    changed = ctl.step()
+    summary = ctl.summary()
+    flipped = sum(b["scheme"] == "syncsgd" for b in summary["buckets"])
+    log(f"[adaptive] controller over {n} buckets (p={want['n_dev']}): "
+        f"{before} before feedback; after the measured step times step() "
+        f"-> {changed}, {flipped} of {n} buckets on syncSGD (flipped: "
+        f"{flipped > 0}); summary " + json.dumps(summary))
+    return history, counts
+
+
+def adaptive_cell() -> dict:
+    """One adaptive ``kind="train"`` cell through ``MeasuredBackend`` at one
+    worker, with ``train_cell``'s worker flags; fatal unless the
+    controller keeps syncSGD (one worker has no communication to save)."""
+    from repro_torch.experiments import (ExperimentSpec, MeasuredBackend,
+                                         Runner)
+    backend = MeasuredBackend(device="cuda", worker_args=TRAIN_CELL_ARGS)
+    spec = ExperimentSpec(workload="tinyllama-1.1b", method="adaptive",
+                          scheme="adaptive", hardware="h100", kind="train",
+                          procs=0, workers=1, batch=4, zero1=True)
+    (r,) = Runner(backend).run([spec])
+    if not r.ok:
+        raise AssertionError(f"adaptive cell: {r.error}")
+    if r.metrics.get("adaptive_choice") != "syncsgd":
+        raise AssertionError(f"adaptive cell chose "
+                             f"{r.metrics.get('adaptive_choice')!r} at one "
+                             f"worker, expected 'syncsgd'")
+    return r.metrics
+
+
+# ------------------------------------------------------------- checkpoint
+#: the checkpoint phase: steps of each run, and the batch (from 1) while
+#: whose fetch run B sends itself SIGTERM
+CKPT_STEPS = 3
+CKPT_KILL_AT = 2
+
+
+class SigtermAt:
+    """The batches of ``pipeline``; sends SIGTERM to this process while it
+    yields its ``at``-th batch (from 1).  Keeps the pipeline's cursor."""
+
+    def __init__(self, pipeline, at: int):
+        self.p, self.at, self.served = pipeline, at, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        import signal
+        self.served += 1
+        if self.served == self.at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return next(self.p)
+
+    def cursor(self) -> int:
+        return self.p.cursor()
+
+    def seek(self, step: int) -> None:
+        self.p.seek(step)
+
+
+def checkpoint_phase(n_buckets: int) -> dict:
+    """Full-size tinyllama-1.1b as the arch configures it (ZeRO-1, bf16
+    parameters, the classic step) with PowerSGD on the size-1 data axis,
+    in a temporary directory: run A takes ``CKPT_STEPS`` steps; run B, a
+    ``Trainer`` with a checkpoint directory, gets SIGTERM from its own data
+    iterator at batch ``CKPT_KILL_AT`` and must save that step and return;
+    run C, a fresh ``Trainer`` on the directory, restores it and takes the
+    remaining steps.  Fatal unless C's losses and final ``state_digest``
+    equal A's bit for bit.  Returns the sizes and times."""
+    import resource
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = cfgs.get("tinyllama-1.1b")
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
+
+    def trainer(ckpt_dir=None, kill_at=None):
+        setup = ts.build(arch, "cuda", compression="powersgd")
+        setup.agg_cfg = dataclasses.replace(
+            setup.agg_cfg, compress_axes=("data",), raw_axes=())
+        data = Pipeline(dcfg, prefetch=0)
+        return Trainer(setup, TrainerConfig(
+            total_steps=CKPT_STEPS, log_every=1, ckpt_dir=ckpt_dir,
+            schedule=ScheduleConfig(peak_lr=3e-4, warmup_steps=1,
+                                    total_steps=CKPT_STEPS)),
+            SigtermAt(data, kill_at) if kill_at else data)
+
+    def timed(obj, name, into):
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        setattr(obj, name, wrapper)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    a = trainer()
+    kbuild.reset_launches()
+    a.run()
+    counts = dict(kbuild.LAUNCHES)
+    want = {"powersgd_encode": 2 * n_buckets * CKPT_STEPS,
+            "powersgd_decode": n_buckets * CKPT_STEPS}
+    if {k: counts.get(k, 0) for k in KERNELS} != {
+            k: want.get(k, 0) for k in KERNELS}:
+        raise AssertionError(f"checkpoint run A: launches {counts}, "
+                             f"expected {want}")
+    a_loss = [r["loss"] for r in a.history]
+    t0 = time.perf_counter()
+    a_digest = ts.state_digest(a.state)
+    digest_s = time.perf_counter() - t0
+    del a
+    free()
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        disk = shutil.disk_usage(d)
+        log(f"[ckpt] directory {d}: {disk.free / 1e9:.1f} GB free of "
+            f"{disk.total / 1e9:.1f} GB")
+        b = trainer(d, kill_at=CKPT_KILL_AT)
+        saves, restores = [], []
+        timed(b._manager, "save", saves)
+        b.run()
+        b_steps = [r["step"] for r in b.history]
+        if not b.stop_requested or b_steps != list(range(1, CKPT_KILL_AT + 1)) \
+                or ckpt.list_steps(d) != [CKPT_KILL_AT]:
+            raise AssertionError(f"checkpoint run B: steps {b_steps}, saved "
+                                 f"{ckpt.list_steps(d)}, stop "
+                                 f"{b.stop_requested}")
+        step_dir = os.path.join(d, f"step_{CKPT_KILL_AT:09d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                     for f in os.listdir(step_dir))
+        b_loss = [r["loss"] for r in b.history]
+        del b
+        free()
+        c = trainer(d)
+        timed(c._manager, "restore_latest", restores)
+        timed(c._manager, "save", saves)
+        c.run()
+        c_steps = [r["step"] for r in c.history]
+        c_loss = [r["loss"] for r in c.history]
+        same = ts.state_digest(c.state) == a_digest
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del c
+        free()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"bytes": nbytes, "save_s": saves, "restore_s": restores,
+           "digest_s": digest_s, "peak_gib": peak,
+           "host_peak_gib": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 2**20,
+           "a_loss": a_loss, "b_loss": b_loss, "c_loss": c_loss,
+           "c_steps": c_steps, "same_state": same}
+    log("[ckpt] " + json.dumps(rec))
+    if c_steps != list(range(CKPT_KILL_AT + 1, CKPT_STEPS + 1)) \
+            or c_loss != a_loss[CKPT_KILL_AT:] \
+            or b_loss != a_loss[:CKPT_KILL_AT] or not same:
+        raise AssertionError("checkpoint: the resumed run is not the "
+                             "uninterrupted one bit for bit")
+    log(f"[ckpt] SIGTERM at batch {CKPT_KILL_AT}: saved step "
+        f"{CKPT_KILL_AT} ({nbytes / 1e9:.2f} GB, {saves[0]:.1f} s), "
+        f"restored in {restores[0]:.1f} s; step {CKPT_STEPS} loss and "
+        f"state equal the uninterrupted run's bit for bit; peak "
+        f"{peak:.2f} GiB on the card")
+    return rec
 
 
 #: the pod phase: tinyllama-1.1b at full width, cut to POD_LAYERS blocks so
@@ -1480,6 +1739,13 @@ def main() -> int:
                 ov_runs.items():
             hist[label], counts[label] = train_phase(
                 label, steps, per_step, accum, schedule, **overrides)
+        t0 = time.perf_counter()
+        hist["adaptive powersgd"], counts["adaptive powersgd"] = \
+            adaptive_phase(hist, ovs["zero1"].layout)
+        log(f"[adaptive] phase in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        checkpoint_phase(nz)
+        log(f"[ckpt] phase in {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     # the three schedules round robin at full width (overlap_bench), as
@@ -1493,6 +1759,14 @@ def main() -> int:
         f"{bench['step_ms']}; t_serial_us {bench['t_serial_us']!r}, "
         f"t_overlap_us {bench['t_overlap_us']!r}, t_unfused_us "
         f"{bench['t_unfused_us']!r}; peak {bench['peak_mem_gib']:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cell = adaptive_cell()
+    log(f"[adaptive] train cell (method=adaptive, one worker) in "
+        f"{time.perf_counter() - t0:.1f} s: adaptive_choice "
+        f"{cell['adaptive_choice']}, method {cell['method']}, step ms "
+        f"{cell['step_ms']}")
     log("[train] " + json.dumps(hist))
     gc.collect()
     torch.cuda.empty_cache()
@@ -1540,6 +1814,7 @@ def main() -> int:
                 for label, rec in pod.items()},
             "experiment_launches": sum(c.get(name, 0)
                                        for c in live.values()),
+            "adaptive_launches": counts["adaptive powersgd"].get(name, 0),
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

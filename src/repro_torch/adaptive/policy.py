@@ -11,8 +11,8 @@ adaptive choice wins-or-ties the best static scheme *and* the baseline in
 every setup: that is the constructive restatement of the paper's headline
 ("compression rarely wins — so only compress where it does").
 
-The runtime half (the JAX package's ``repro.adaptive.controller``: measured
-feedback, hysteresis) is not ported yet; the experiment matrix consumes
+The runtime half (measured feedback, hysteresis, launch-time plan
+resolution) is ``adaptive.controller``; the experiment matrix consumes
 :func:`decide` through the analytic backend's ``method="adaptive"``
 cells.
 """

@@ -279,12 +279,17 @@ def make(name: str, **kw) -> Compressor:
     return _spec(name).cls(**kw)
 
 
-def plan_kwargs(plan) -> dict:
-    """Constructor kwargs for ``plan.compression``, read off the registered
-    spec's ``ParallelPlan`` field mapping (the inner scheme's for an
-    ``ef:`` name)."""
+def plan_kwargs_for(name: str, plan) -> dict:
+    """Constructor kwargs for compressor ``name`` read off the registered
+    spec's ``ParallelPlan`` field mapping; an ``ef:`` prefix delegates to
+    the inner scheme's mapping."""
     return {kwarg: getattr(plan, field)
-            for kwarg, field in _spec(plan.compression).plan_fields}
+            for kwarg, field in _spec(name).plan_fields}
+
+
+def plan_kwargs(plan) -> dict:
+    """Constructor kwargs for ``plan.compression``."""
+    return plan_kwargs_for(plan.compression, plan)
 
 
 def from_plan(plan) -> Compressor:

@@ -16,10 +16,11 @@ Two implementations of the same ``run(spec) -> Result`` contract:
     ``cpu``): the Payload API's phases on a one-rank group
     (``kind="measured"``), and the serial, overlapped and unfused DDP
     step schedules of ``repro_torch.train.overlap_bench`` in a subprocess
-    (``kind="train"``).  ``kind="dryrun"`` (the JAX package's HLO
-    roofline) and adaptive train cells (its runtime controller) have no
-    counterpart here yet: they come back as ``status="error"`` naming
-    what is missing.
+    (``kind="train"``); an adaptive train cell measures the plan that
+    ``adaptive.controller.resolve_plan`` picks for it and records the
+    pick as ``adaptive_choice``.  ``kind="dryrun"`` (the JAX package's
+    HLO roofline) has no counterpart here yet: it comes back as
+    ``status="error"`` naming what is missing.
 
 Both return the same ``Result`` shape so the ``Runner``/``ResultStore``
 and the headline report are backend-agnostic.
@@ -439,7 +440,8 @@ class MeasuredBackend:
     ``kind="train"``: one ``repro_torch.train.overlap_bench --json`` run
     in a subprocess (under ``torch.distributed.run --nproc-per-node
     workers`` when ``workers > 1``): the serial, overlapped and unfused
-    step times of the spec's (arch × method × workers).
+    step times of the spec's (arch × method × workers).  An adaptive
+    cell is resolved first, as the JAX package's ``_train`` does it.
 
     ``worker_args`` are appended to every subprocess argv (the bench's
     and the pod worker's own flags, e.g. ``--full-size``); they are not
@@ -475,18 +477,22 @@ class MeasuredBackend:
                           error=f"{type(e).__name__}: {e}")
 
     # ---- measured train-step schedules (serial vs overlapped) -----------
-    def _bench_args(self, spec: ExperimentSpec) -> tuple[str, list]:
+    def _bench_args(self, spec: ExperimentSpec,
+                    method: Optional[str] = None) -> tuple[str, list]:
         """(compressor name, plan flags) of a train or pod cell: live
         kwargs and ``overrides`` as ``--plan``, and the spec's ``zero1``,
-        ``accum`` and ``comm``.  Raises ``ValueError`` for an adaptive
-        cell (the runtime controller is not ported) and for a live kwarg
-        with no ParallelPlan field."""
-        if spec.is_adaptive:
+        ``accum`` and ``comm``.  ``method`` replaces the spec's (an
+        adaptive cell's resolved scheme).  Raises ``ValueError`` for a
+        live kwarg with no ParallelPlan field, and for an adaptive cell
+        left unresolved: only ``_train`` resolves one."""
+        if method is None and spec.is_adaptive:
             raise ValueError(
-                "adaptive train cells need the runtime controller (the JAX "
-                "package's repro.adaptive.controller), which is not ported "
-                "yet")
-        method, args = spec.method, []
+                "an adaptive pod cell is not resolved: only the measured "
+                "train cell asks the adaptive controller for a plan, and "
+                "the JAX package's MultiProcessBackend passes "
+                "method='adaptive' to its pod worker, which has no such "
+                "compressor")
+        method, args = method or spec.method, []
         if spec.is_baseline:
             method = "none"
         elif method.startswith("live:"):
@@ -502,11 +508,23 @@ class MeasuredBackend:
         return method, args
 
     def _train(self, spec: ExperimentSpec) -> Result:
+        workers = spec.workers or 4
+        adaptive_choice = None
+        method = None
+        if spec.is_adaptive:
+            # the controller's pick for this arch/workers cell, then the
+            # measured run of that plan (JAX backend._train)
+            from repro_torch.adaptive import controller as actl
+            from repro_torch.configs import base as cfg_base
+            arch_cfg = cfg_base.get(spec.workload)
+            _, decision = actl.resolve_plan(arch_cfg.plan, arch_cfg, workers,
+                                            batch=spec.batch)
+            adaptive_choice = decision.scheme
+            method = "none" if decision.is_baseline else decision.scheme
         try:
-            method, plan_args = self._bench_args(spec)
+            method, plan_args = self._bench_args(spec, method)
         except ValueError as e:
             return Result(spec, self.name, status="error", error=str(e))
-        workers = spec.workers or 4
         launch = [sys.executable, "-m"]
         if workers > 1:
             launch += ["torch.distributed.run", "--standalone",
@@ -521,6 +539,8 @@ class MeasuredBackend:
         if err is not None:
             return Result(spec, self.name, status="error",
                           error=f"overlap_bench {err}")
+        if adaptive_choice is not None:
+            rec["adaptive_choice"] = adaptive_choice
         return Result(spec, self.name, metrics=rec)
 
     # ---- live per-phase timing ------------------------------------------

@@ -6,6 +6,12 @@ ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
 ``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
 each bucket aggregated between backward stages) and ``--sync-every N``
 averages the parameters over the ``pod`` axis every N steps (local SGD).
+``--adaptive`` lets the perf model pick the compression and comm plan for
+this world size and batch before the step is built
+(``adaptive.controller.resolve_plan``; overlapped syncSGD when nothing is
+predicted to win).  ``--ckpt-dir`` resumes from the newest checkpoint
+there and saves every ``--ckpt-every`` steps and at the end; SIGTERM or
+SIGINT ends the run after the step under way, with a checkpoint.
 As in the JAX package, a reduction axis of size 1 is dropped, so a
 one-rank run aggregates nothing.
 
@@ -77,9 +83,18 @@ def main(argv=None):
                     help="segmented backward with each bucket aggregated "
                          "between backward stages (the paper's optimized "
                          "syncSGD baseline); forces dp_mode=ddp")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="let the perf model pick compression/comm at "
+                         "launch (falls back to overlapped syncSGD when no "
+                         "win is predicted); forces dp_mode=ddp")
     ap.add_argument("--sync-every", type=int, default=1,
                     help="local SGD: average the parameters over the pod "
                          "axis every N steps")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from the newest checkpoint here and save "
+                         "to it")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save every N steps (0: only at the end)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -120,6 +135,25 @@ def main(argv=None):
                       f"'ddp' (overlap interleaves DDP bucket collectives)",
                       flush=True)
             overrides.update(overlap=True, dp_mode="ddp")
+        if args.adaptive:
+            import dataclasses
+
+            from repro_torch.adaptive import controller as actl
+            plan = dataclasses.replace(arch.plan, **overrides)
+            if plan.dp_mode != "ddp" and rank == 0:
+                print(f"[train] --adaptive forces dp_mode='ddp' (arch plan "
+                      f"had dp_mode={plan.dp_mode!r})", flush=True)
+            plan, decision = actl.resolve_plan(plan, arch, n_dev=world,
+                                               batch=args.batch,
+                                               seq=args.seq)
+            if rank == 0:
+                print(f"[train] adaptive: scheme={decision.scheme} "
+                      f"comm={decision.comm} predicted "
+                      f"{decision.t_pred * 1e3:.3f} ms/step vs overlapped "
+                      f"syncSGD {decision.t_base * 1e3:.3f} ms/step",
+                      flush=True)
+            arch = dataclasses.replace(arch, plan=plan)
+            overrides = {}
         setup = ts.build(arch, dev, **overrides)
         if rank == 0:
             sched = ""
@@ -130,6 +164,7 @@ def main(argv=None):
                   f"mesh={mesh_mod.axis_sizes()} "
                   f"backends={mesh_mod.backends()} "
                   f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
+                  f"optimizer={setup.opt_cfg.name} "
                   f"overlap={setup.overlap}{sched} "
                   f"params={str(setup.layout.dtype).removeprefix('torch.')} "
                   f"accum={args.accum} sync_every={args.sync_every} "
@@ -144,6 +179,7 @@ def main(argv=None):
             total_steps=args.steps,
             log_every=args.log_every if rank == 0 else 0,
             accum=args.accum, sync_every=args.sync_every,
+            ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
             schedule=ScheduleConfig(peak_lr=args.lr,
                                     warmup_steps=args.warmup,
                                     total_steps=args.steps))

@@ -1,7 +1,13 @@
-"""AdamW with global-norm clipping.  Counterpart of the replicated-parameter
-parts of ``repro.train.optimizer`` (``OptConfig``, ``global_norm``,
-``clip_by_global_norm``, ``AdamW``) and of its flat-space AdamW for the
-ZeRO-1 shards (``flat_adamw_init``, ``flat_adamw_update``).
+"""AdamW, SGD with momentum and Adafactor, with global-norm clipping.
+Counterpart of the replicated-parameter parts of ``repro.train.optimizer``
+(``OptConfig``, ``global_norm``, ``clip_by_global_norm``, ``AdamW``,
+``SGDM``, ``Adafactor``, ``make``) and of its flat-space AdamW for the
+ZeRO-1 shards (``flat_adamw_init``, ``flat_adamw_update``).  The state
+trees are the JAX package's, with the parameter tree as a list in
+parameter order: AdamW ``{"m", "v", "t"}``, SGDM ``{"m", "t"}`` and
+Adafactor ``{"s", "t"}``, whose ``s`` holds per leaf the factored row and
+column statistics ``{"r", "c"}`` over the trailing two dims (leaves with
+two dims or more) or a full second moment ``{"v"}``.
 
 Parameters are replicated over the data axis (fp32, or bf16 working
 copies), so the global norm needs no collective.  Both updates run one
@@ -14,6 +20,7 @@ tensor; ``AdamW.update`` returns the same tensors.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -122,7 +129,93 @@ def flat_adamw_update(p: torch.Tensor, g: torch.Tensor, st: dict, t: int,
     return p, st
 
 
-def make(name: str, cfg: OptConfig) -> AdamW:
-    if name != "adamw":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet")
-    return AdamW(cfg)
+def _clipped(grads: Sequence[torch.Tensor], c: OptConfig):
+    if c.grad_clip:
+        return clip_by_global_norm(grads, c.grad_clip)
+    return list(grads), global_norm(grads)
+
+
+class SGDM:
+    def __init__(self, cfg: OptConfig):
+        self.cfg = cfg
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
+                "t": 0}
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor], lr: float):
+        c = self.cfg
+        grads, gnorm = _clipped(grads, c)
+        for p, g, m in zip(params, grads, state["m"]):
+            m.mul_(c.momentum).add_(g.float())
+            p32 = p.float()
+            p.copy_(p32 - lr * (m + c.weight_decay * p32))
+        return params, {"m": state["m"], "t": state["t"] + 1}, \
+            {"grad_norm": gnorm}
+
+
+class Adafactor:
+    """Factored second moment over the trailing two dims (leaves with
+    ndim >= 2); 1-D leaves keep a full second moment.  No momentum.  The
+    update's RMS clip is per matrix: per layer of a stacked ``(L, ...)``
+    leaf of three dims or more (the JAX package maps those over their
+    layer dim), over the whole leaf otherwise."""
+
+    def __init__(self, cfg: OptConfig):
+        self.cfg = cfg
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        def st(p):
+            if p.ndim >= 2:
+                return {"r": torch.zeros(p.shape[:-1], dtype=torch.float32,
+                                         device=p.device),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                         dtype=torch.float32,
+                                         device=p.device)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
+        return {"s": [st(p) for p in params], "t": 0}
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor], lr: float):
+        c = self.cfg
+        grads, gnorm = _clipped(grads, c)
+        t = state["t"] + 1
+        beta2 = 1.0 - torch.tensor(t, dtype=torch.float32) ** -0.8
+        new_s = []
+        for p, gl, sl in zip(params, grads, state["s"]):
+            beta2 = beta2.to(p.device)
+            g = gl.float()
+            g2 = g * g + c.adafactor_eps1
+            if p.ndim >= 2:
+                r = beta2 * sl["r"] + (1 - beta2) * (
+                    g2.sum(-1) / float(p.shape[-1]))
+                cc = beta2 * sl["c"] + (1 - beta2) * (
+                    g2.sum(-2) / float(p.shape[-2]))
+                # v̂ = r ⊗ c / mean(r)
+                r_mean = r.sum(-1) / float(p.shape[-2])
+                denom = torch.sqrt(r[..., :, None] * cc[..., None, :]
+                                   / torch.clamp(r_mean[..., None, None],
+                                                 min=c.adafactor_eps1))
+                u = g / torch.clamp(denom, min=1e-30)
+                new_s.append({"r": r, "c": cc})
+            else:
+                v = beta2 * sl["v"] + (1 - beta2) * g2
+                u = g / torch.sqrt(v + c.adafactor_eps1)
+                new_s.append({"v": v})
+            # per-matrix RMS clip (mean of u² over one layer's matrix)
+            lead = 1 if p.ndim >= 3 and p.shape[0] > 1 else 0
+            dims = tuple(range(lead, p.ndim))
+            n = float(math.prod(p.shape[lead:]))
+            rms = torch.sqrt((u * u).sum(dims, keepdim=True) / n)
+            u = u / torch.clamp(rms / c.adafactor_clip, min=1.0)
+            p32 = p.float()
+            p.copy_(p32 - lr * (u + c.weight_decay * p32))
+        return params, {"s": new_s, "t": t}, {"grad_norm": gnorm}
+
+
+def make(name: str, cfg: OptConfig) -> "AdamW | SGDM | Adafactor":
+    table = {"adamw": AdamW, "adafactor": Adafactor, "sgdm": SGDM}
+    return table[name](cfg)

@@ -36,8 +36,14 @@ two-tier ``pod x data`` mesh of ``launch.mesh.init_pod_mesh``, where the
 DP axes are ``("pod", "data")`` (ZeRO-1's owner plan and rtob's
 reduce-scatter run over both, pod-major) and ``plan.compress_axes`` picks
 the compressed axes as in the JAX package (``core.aggregator.from_plan``).
-``build`` raises ``NotImplementedError`` on what later slices port: FSDP,
-the adaptive controller and other optimizers.  Like the JAX ``build``, it
+The replicated step runs ``plan.optimizer`` (AdamW, SGDM or Adafactor);
+ZeRO-1 shards flat AdamW state only, so ``build`` refuses another
+optimizer there, where the JAX step fails its assertion at the first
+call.  As in JAX, ``build`` reads the plan's static fields only:
+``plan.adaptive`` is resolved before it, by
+``adaptive.controller.resolve_plan``.  ``build`` raises
+``NotImplementedError`` on what later slices port (FSDP).  Like the JAX
+``build``, it
 drops reduction axes of size 1 from the aggregation (on one rank the
 compressor is not run unless the caller points ``agg_cfg`` back at the
 ``data`` axis) and checks a ``hierarchical`` plan against the remaining
@@ -106,12 +112,8 @@ def _check_ported(plan) -> None:
     todo = []
     if plan.dp_mode != "ddp":
         todo.append(f"dp_mode={plan.dp_mode!r}")
-    if plan.adaptive:
-        todo.append("adaptive=True")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
-    if plan.optimizer != "adamw":
-        todo.append(f"optimizer={plan.optimizer!r}")
     if todo:
         raise NotImplementedError(
             f"not ported yet: {', '.join(todo)} (this port runs the DDP "
@@ -134,6 +136,11 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
             "comm='reduce_to_owner_broadcast' needs an owner-sharded "
             "update: dp_mode='ddp' with zero1=True")
     _check_ported(plan)
+    ocfg = opt_cfg or opt_mod.OptConfig(name=plan.optimizer)
+    if zero1 and ocfg.name != "adamw":
+        raise ValueError(f"zero1 shards flat AdamW state; optimizer="
+                         f"{ocfg.name!r} runs on the replicated step "
+                         f"(zero1=False)")
     if plan.overlap:
         overlap_mod.check_supported(arch, plan)
     dev = mesh_mod.resolve_device(device)
@@ -156,8 +163,7 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32)
     setup = TrainSetup(arch=arch, model=Model(arch, ctx, device=dev),
                        device=dev, dp_axes=dp_axes, agg_cfg=agg_cfg,
-                       opt_cfg=opt_cfg or opt_mod.OptConfig(
-                           name=plan.optimizer),
+                       opt_cfg=ocfg,
                        layout=None, zero1=zero1, overlap=plan.overlap)
     setup.layout = _bucket_layout(setup)
     return setup
@@ -200,7 +206,7 @@ def init_state(setup: TrainSetup, seed: int = 0) -> dict:
     dev = setup.device
     setup.model.init_params(torch.Generator(device=dev).manual_seed(seed))
     params = list(setup.model.parameters())
-    state = {"step": 0, "params": params, "agg": ()}
+    state = {"step": 0, "params": params}
     if setup.zero1:
         cap = _zero1_plan(setup).cap
         state["opt"] = {"t": 0, "shard": opt_mod.flat_adamw_init(cap, dev)}
@@ -208,12 +214,21 @@ def init_state(setup: TrainSetup, seed: int = 0) -> dict:
     else:
         opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
         state["opt"] = opt.init(params)
-    if _compressed(setup):
-        gen = torch.Generator(device=dev).manual_seed(seed + AGG_SEED_OFFSET)
-        comp = setup.agg_cfg.build()
-        state["agg"] = tuple(comp.init_state(n, gen, dev)
-                             for n in setup.layout.sizes)
+    state["agg"] = fresh_agg_state(setup, seed + AGG_SEED_OFFSET)
     return state
+
+
+def fresh_agg_state(setup: TrainSetup, seed: int) -> tuple:
+    """This rank's per-bucket compressor state as ``init_state`` builds
+    it, drawn bucket by bucket from one generator seeded with ``seed``
+    (``()`` when nothing is compressed); also what an elastic restore
+    puts in place of saved state the new world cannot use."""
+    if not _compressed(setup):
+        return ()
+    dev = setup.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    comp = setup.agg_cfg.build()
+    return tuple(comp.init_state(n, gen, dev) for n in setup.layout.sizes)
 
 
 # --------------------------------------------------------------------------

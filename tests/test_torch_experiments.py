@@ -324,14 +324,22 @@ def test_measured_backend_refuses_a_missing_gpu(monkeypatch):
     assert MeasuredBackend(device="cpu").device.type == "cpu"
 
 
-def test_measured_backend_error_results_name_what_is_missing():
+def test_measured_backend_error_results_name_what_is_missing(monkeypatch):
     b = MeasuredBackend(device="cpu")
     r = b.run(ExperimentSpec(workload="tinyllama-1.1b", kind="dryrun",
                              shape="train_4k", mesh="multi", method="plan"))
     assert r.status == "error" and "launch/dryrun" in r.error
+    # an adaptive train cell is no longer missing anything: the controller
+    # resolves it (tests/test_torch_adaptive.py holds it against JAX)
+    seen = []
+    monkeypatch.setattr(tbackend, "run_subprocess_json",
+                        lambda cmd, env=None, timeout=0: (
+                            seen.append(cmd) or ({}, None)))
     r = b.run(ExperimentSpec(workload="tinyllama-1.1b", kind="train",
-                             method="adaptive", scheme="adaptive"))
-    assert r.status == "error" and "controller" in r.error
+                             method="adaptive", scheme="adaptive",
+                             workers=4))
+    assert r.ok and r.metrics == {"adaptive_choice": "powersgd"}
+    assert seen[0][seen[0].index("--method") + 1] == "powersgd"
     r = b.run(ExperimentSpec(workload="tinyllama-1.1b", kind="train",
                              method="live:powersgd:bogus=1"))
     assert r.status == "error" and "no ParallelPlan field" in r.error

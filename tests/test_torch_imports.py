@@ -1,6 +1,7 @@
 """The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
-read from the sources and checked in a fresh interpreter."""
+``chip_smoke.py`` imports JAX, anything of the JAX package ``repro``, or
+``ml_dtypes`` (bf16 travels as raw bytes), read from the sources and
+checked in a fresh interpreter."""
 import ast
 import os
 import pathlib
@@ -12,7 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported(path):
