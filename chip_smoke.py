@@ -47,7 +47,11 @@ Phases, each fatal on failure:
      model's overlapped ZeRO-1 PowerSGD step on the card against the CPU,
      ``serial`` against ``overlap`` bit for bit on the card, and one
      overlapped step's flushes under the sync debug mode "error"
-     (``overlap_reference``);
+     (``overlap_reference``); the reduced ``qwen2-moe-a2.7b``'s ZeRO-1
+     PowerSGD step on the card against the CPU and its overlapped step
+     ``serial`` against ``overlap`` bit for bit (``moe_reference``); one
+     full-width MoE block's forward and backward under the sync debug
+     mode "error" (``moe_block_syncs``);
   6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -78,7 +82,18 @@ Phases, each fatal on failure:
      each CUDA stream and how much of it ran while the compute stream was
      busy, then takes one more step with the sync debug mode set to warn
      and prints where the host waited for the card (both reported, not
-     checked).  Then the adaptive controller: ``resolve_plan`` for the
+     checked).  Then the MoE slice: ``qwen2-moe-a2.7b`` at full width (60
+     routed experts top-4 of d_ff 1408, 4 shared behind a sigmoid gate,
+     vocab 151,936) cut to 2 of 24 blocks (1,763,440,640 parameters), on
+     ``dp_mode="ddp"``: the classic fp32 step 2 steps uncompressed and 2
+     PowerSGD (270 buckets); ZeRO-1 (bf16, the fp32 router and shared
+     gate riding the bf16 buckets; 135 buckets) 2 PowerSGD, 1 SignSGD,
+     1 QSGD; the overlapped ZeRO-1 step (12 leaf-aligned buckets, up to
+     322,701,312 elements) 2 PowerSGD under ``overlap`` and 2 under
+     ``serial``, whose final states and metrics must agree bit for bit;
+     the same checks as above, with finite ``moe_aux``, and the MoE
+     routing, dispatch and combine as a layer of their own in the
+     profile.  Then the adaptive controller: ``resolve_plan`` for the
      full-size arch at n_dev = 2, batch 4 x 512, on the paper's V100
      preset (fatal unless PowerSGD on overlapped ZeRO-1, the JAX
      package's decision), 3 steps of that plan through the same checks
@@ -125,10 +140,12 @@ Phases, each fatal on failure:
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
-classic ZeRO-1 step's and the classic fp32 step's; the ``kernels`` line
-counts each kernel's launches in the overlapped ZeRO-1 run that drives
-it, in the live cells (``experiment_launches``), in the adaptive run
-(``adaptive_launches``) and per pod step.
+classic ZeRO-1 step's and the classic fp32 step's, and the MoE slice's
+overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
+elements); the ``kernels`` line counts each kernel's launches in the
+overlapped ZeRO-1 run that drives it, in the live cells
+(``experiment_launches``), in the adaptive run (``adaptive_launches``),
+in each MoE run (``moe_launches``) and per pod step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -245,11 +262,12 @@ def level_err(out, ref, step: float, what: str) -> float:
 
 
 def same_bits(a, b) -> bool:
-    """Bit-for-bit equality: fp32 compared as its bits, so ``-0.0`` and
-    ``0.0`` differ and equal NaNs agree."""
+    """Bit-for-bit equality: fp32 and bf16 compared as their bits, so
+    ``-0.0`` and ``0.0`` differ and equal NaNs agree."""
     import torch
-    if a.dtype == b.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype == b.dtype and a.dtype in bits:
+        a, b = a.view(bits[a.dtype]), b.view(bits[b.dtype])
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -371,8 +389,10 @@ def kernel_phase(shapes, rank):
                  lambda: kq.quantize(g, norm, levels, u),
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
-        if tag.startswith("classic"):         # on no path: classic only
-            t = torch.quantile(g.abs(), 0.99)         # MSTop-K's 1%
+        if tag.startswith(("classic", "moe")):  # on no path: not overlap
+            # MSTop-K's 1%, from every k-th element (torch.quantile
+            # takes at most 2**24)
+            t = torch.quantile(g.abs()[::-(-n // 2**24)], 0.99)
             g[:5] = torch.tensor([-0.0, float("nan"), 0.0, float("-inf"),
                                   float("inf")])
             case("threshold_mask", f"{tag} n={n} t=p99",
@@ -660,6 +680,19 @@ def flat_state(state) -> list:
     return out
 
 
+def state_tensors(obj) -> list:
+    """Every tensor of a train state (dicts in key order, lists, tuples
+    and NamedTuples in order)."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in state_tensors(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in state_tensors(v)]
+    return []
+
+
 def live_state(state, n: int, gen):
     """``state`` with a live error-feedback residual in every (n,) fp32
     field, as a step after the first has."""
@@ -681,25 +714,82 @@ KERNEL_GROUPS = (
 )
 
 
+#: the layer of the kernels launched inside the MoE layer's profiler
+#: ranges (``models.moe.DISPATCH`` and ``COMBINE``) and by the backward of
+#: the operators run there: the routing, dispatch and combine
+MOE_LAYER = "moe dispatch and combine"
+
+
+def ranged_kernels(prof, ranges) -> dict:
+    """kernel name -> device us of the kernels launched by the operators
+    inside the profiler ranges ``ranges`` (their recomputation under
+    ``remat="full"`` included) and by the backward nodes of those
+    operators, found by their autograd sequence numbers (which count per
+    thread, so a node matches by its forward thread too).  Inside a
+    backward node an ``aten::`` operator with a sequence number is not
+    the node's work (the backward runs with grad mode off) but a
+    recomputation that the node set off: it counts only under a range of
+    its own."""
+    events = prof.events()
+    out: dict[str, float] = {}
+    seqs: set = set()
+
+    def add(e):
+        for k in getattr(e, "kernels", ()):
+            out[k.name] = out.get(k.name, 0.0) + k.duration
+
+    def collect(root, forward):
+        stack = list(root.cpu_children)
+        while stack:
+            e = stack.pop()
+            seq = getattr(e, "sequence_nr", -1)
+            if not forward and (e.name in ranges or (
+                    seq >= 0 and e.name.startswith("aten::"))):
+                continue
+            add(e)
+            if forward and seq >= 0:
+                seqs.add((e.thread, seq))
+            stack.extend(e.cpu_children)
+    for e in events:
+        if e.name in ranges:
+            collect(e, True)
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function") and (
+                getattr(e, "fwd_thread", e.thread),
+                getattr(e, "sequence_nr", -1)) in seqs:
+            add(e)
+            collect(e, False)
+    return out
+
+
 def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
     """Device time of one profiled step by layer (ms), and the share of
     an unprofiled step's wall time ``step_s`` in which no kernel ran
     (busy time summed over the streams: exact where kernels do not
     overlap, as on the classic step's one stream; ``stream_overlap``
     gives the union for the overlapped step's two); the profiled step's
-    own wall time, profiler cost included, is ``profiled_s``."""
+    own wall time, profiler cost included, is ``profiled_s``.  The MoE
+    routing, dispatch and combine (``ranged_kernels``) are a layer of
+    their own, ``MOE_LAYER``."""
+    from repro_torch.models import moe as moe_mod
+    ranges = (moe_mod.DISPATCH, moe_mod.COMBINE)
     groups: dict[str, float] = {}
     top, compression = [], []
+    moe = ranged_kernels(prof, ranges)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
-        if not us or not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if not us or not str(getattr(ev, "device_type", "")).endswith(
+                "CUDA") or ev.key in ranges:
             continue
         name = ev.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other kernels")
-        groups[group] = groups.get(group, 0.0) + us / 1e3
+        in_moe = min(us, moe.get(ev.key, 0.0))
+        if in_moe:
+            groups[MOE_LAYER] = groups.get(MOE_LAYER, 0.0) + in_moe / 1e3
+        groups[group] = groups.get(group, 0.0) + (us - in_moe) / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
         if group == "compression kernels":
             compression.append({"kernel": ev.key[:90], "count": ev.count,
@@ -935,6 +1025,147 @@ def overlap_reference(steps: int = 2, lr: float = 1e-3) -> None:
         f"states, metrics)")
 
 
+# ---------------------------------------------------------------- the MoE
+#: the MoE slice's model: full-width qwen2-moe-a2.7b cut to 2 blocks (24 at
+#: full depth hold 14.3 B parameters, beyond one card's AdamW state)
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 2
+
+
+def moe_arch():
+    from repro_torch.configs import base as cfgs
+    return dataclasses.replace(cfgs.get(MOE_ARCH), n_layers=MOE_LAYERS)
+
+
+def moe_reference(lr: float = 1e-3) -> None:
+    """The reduced ``qwen2-moe-a2.7b`` (2 layers, d_model 128, 4 experts
+    top-2, one shared expert) on DDP with ZeRO-1 and PowerSGD, computing
+    in fp32, from the same bf16 parameters (the router and the shared
+    gate fp32) and compressor state: one classic step on the card against
+    the CPU, within ``zero1_reference``'s tolerances (losses and
+    ``moe_aux`` ``rtol=1e-4``); then 2 overlapped steps on the card under
+    ``overlap`` and under ``serial``, which must give the same bits
+    (parameters, shard, compressor states, metrics)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.train import overlap
+    from repro_torch.train import train_step as ts
+
+    arch = cfgs.reduced(cfgs.get(MOE_ARCH))
+    dcfg = DataConfig(vocab=arch.vocab, seq_len=32, global_batch=4, seed=1)
+    start = agg0 = None
+    out = {}
+    for dev, schedule, steps in (("cpu", None, 1), ("cuda", None, 1),
+                                 ("cuda", "overlap", 2),
+                                 ("cuda", "serial", 2)):
+        setup = ts.build(arch, dev, dp_mode="ddp", zero1=True,
+                         bucket_mb=0.125, overlap=schedule is not None,
+                         compression="powersgd")
+        setup.agg_cfg = dataclasses.replace(
+            setup.agg_cfg, compress_axes=("data",), raw_axes=())
+        setup.model.ctx = dataclasses.replace(setup.model.ctx,
+                                              compute_dtype=torch.float32)
+        state = ts.init_state(setup, seed=0)
+        if start is None:
+            start = [p.detach().clone() for p in setup.model.parameters()]
+        with torch.no_grad():
+            for p, p0 in zip(setup.model.parameters(), start):
+                p.copy_(p0)
+        state = ts._fill_zero1_master(setup, state)
+        if schedule is None:
+            if agg0 is None:
+                agg0 = tuple(on_device(st, "cpu") for st in state["agg"])
+            state["agg"] = tuple(on_device(st, dev) for st in agg0)
+        step = overlap.make_step(setup, schedule) if schedule \
+            else ts.make_step(setup)
+        metrics = []
+        for s in range(steps):
+            state, m = step(state, batch_at(dcfg, s), lr)
+            metrics.append(m)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev, schedule] = {
+            "loss": [m["loss"].item() for m in metrics],
+            "aux": [m["moe_aux"].item() for m in metrics],
+            "metrics": [v for m in metrics for v in m.values()],
+            "params": [p.detach().clone() for p in
+                       setup.model.parameters()],
+            "state": [t.clone() for t in state_tensors(
+                {k: state[k] for k in ("opt", "agg")})]}
+        del setup, state, step
+    cpu, gpu = out["cpu", None], out["cuda", None]
+    for what in ("loss", "aux"):
+        if not all(math.isclose(a, b, rel_tol=1e-4)
+                   for a, b in zip(gpu[what], cpu[what])):
+            raise AssertionError(f"moe zero1 powersgd: {what} {gpu[what]} "
+                                 f"on the card, {cpu[what]} on the CPU")
+    for a, b in zip(gpu["params"], cpu["params"]):
+        diff = (a.float().cpu() - b.float()).abs()
+        if not (diff.max().item() <= 2 * lr + 1e-4
+                and (diff > lr / 2).float().mean().item() <= 0.02
+                and diff.median().item() <= lr / 50):
+            raise AssertionError(f"moe zero1 powersgd: parameters differ "
+                                 f"by up to {diff.max().item()}")
+    ov, se = out["cuda", "overlap"], out["cuda", "serial"]
+    for what in ("metrics", "params", "state"):
+        if len(ov[what]) != len(se[what]) or not all(
+                same_bits(a, b) for a, b in zip(ov[what], se[what])):
+            raise AssertionError(f"moe overlap powersgd: serial and "
+                                 f"overlap {what} differ on the card")
+    log(f"[reference] moe zero1 powersgd: card == CPU over one step (loss "
+        f"{gpu['loss']}, moe_aux {gpu['aux']}); serial == overlap bit for "
+        f"bit on the card over 2 steps (losses {ov['loss']})")
+
+
+def moe_block_syncs() -> None:
+    """One full-width MoE block (``MOE_ARCH``'s widths, bf16 parameters
+    with the fp32 router and shared gate, batch 4 x 512), forward and
+    backward through ``Model.stage_block`` with ``remat="full"``, under the
+    sync debug mode "error": fatal if the block synchronises the host."""
+    import torch
+
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import (BLOCK_PREFIX, Model, leaf_dtype,
+                                          param_layout)
+    arch = dataclasses.replace(moe_arch(), n_layers=1)
+    ctx = ShardCtx(param_dtype=torch.bfloat16)
+    model = Model(arch, ctx, device="meta")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p_l = {}
+    for name, shape, std in param_layout(arch):
+        if name.startswith(BLOCK_PREFIX):
+            t = torch.ones(shape[1:], device="cuda") if std is None else \
+                std * torch.randn(shape[1:], generator=gen, device="cuda")
+            p_l[name[len(BLOCK_PREFIX):]] = t.to(
+                leaf_dtype(name, ctx)).requires_grad_()
+    b, s = 4, 512
+    x = torch.randn(b, s, arch.d_model, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = model.stage_block(p_l, x, positions)
+        grads = torch.autograd.grad((y, aux), (x, *p_l.values()),
+                                    (torch.ones_like(y),
+                                     torch.ones_like(aux)))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(g).all()) for g in grads) \
+            or not math.isfinite(aux.item()):
+        raise AssertionError("moe block: non-finite output or gradient")
+    log(f"[reference] moe block ({arch.moe.n_experts} experts top-"
+        f"{arch.moe.top_k}, d_ff {arch.d_ff}, {arch.moe.n_shared} shared, "
+        f"batch {b} x {s}): forward and backward with remat under the sync "
+        f"debug mode \"error\": no host sync ({ms:.1f} ms, aux "
+        f"{aux.item():.4f})")
+
+
 def host_syncs(fn) -> list[str]:
     """Runs ``fn`` with PyTorch's sync debug mode set to warn; returns the
     Python caller (file:line) of each host-device synchronisation it made,
@@ -965,13 +1196,16 @@ def flush_order_ok(order, ready, schedule: str) -> bool:
 
 def train_phase(label: str, steps: int, per_step: dict[str, int],
                 accum: int = 1, schedule: "str | None" = None,
-                **overrides):
+                arch=None, keep: "dict | None" = None, **overrides):
     """Full-width training through the port's entry points, built from the
-    arch's plan with ``overrides``; returns the per-step records and the
-    launch counts of the run.  With ``schedule`` the step is the overlapped
-    one (``overlap=True``) run under that schedule, and the host-side
-    flush order of every step is checked against the layout's
-    ``bucket_ready``."""
+    plan of ``arch`` (full-size ``tinyllama-1.1b`` unless given) with
+    ``overrides``; returns the per-step records and the launch counts of
+    the run.  With ``schedule`` the step is the overlapped one
+    (``overlap=True``) run under that schedule, and the host-side flush
+    order of every step is checked against the layout's ``bucket_ready``.
+    With ``keep`` (a dict) the final parameters, ZeRO-1 shards,
+    compressor states and every step's metrics are copied into it, on the
+    host."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -982,7 +1216,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     from repro_torch.train.schedule import ScheduleConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    arch = cfgs.get("tinyllama-1.1b")
+    from repro_torch.models.model import leaf_dtype
+    arch = arch or cfgs.get("tinyllama-1.1b")
     torch.cuda.reset_peak_memory_stats()
     if schedule:
         overrides["overlap"] = True
@@ -1072,17 +1307,33 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
             raise AssertionError(f"{label}: {k} launched {counts.get(k, 0)} "
                                  f"times, expected {want.get(k, 0)}")
     for rec in history + [profiled]:
-        if not math.isfinite(rec["loss"]) or not math.isfinite(
-                rec["grad_norm"]):
+        if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm",
+                                                   "moe_aux")):
             raise AssertionError(f"{label}: non-finite metrics {rec}")
-    params = list(setup.model.parameters())
-    if not all(p.dtype == setup.layout.dtype and bool(torch.isfinite(p).all())
-               for p in params):
-        raise AssertionError(f"{label}: parameters not finite or not "
-                             f"{setup.layout.dtype}")
+    ctx = setup.model.ctx
+    if not all(p.dtype == leaf_dtype(name, ctx)
+               and bool(torch.isfinite(p).all())
+               for name, p in setup.model.named_parameters()):
+        raise AssertionError(f"{label}: parameters not finite or not of "
+                             f"their leaf dtype ({ctx.param_dtype})")
     log(f"[train] {label}: launches {counts}; peak "
         f"{max(r['peak_mem_gb'] for r in history):.2f} GiB "
-        f"(torch.cuda.max_memory_allocated in a step)")
+        f"(torch.cuda.max_memory_allocated in a step); moe_aux "
+        f"{[r['moe_aux'] for r in history]}")
+    if keep is not None and "tensors" in keep:
+        # compare with the kept run, one tensor on the card at a time
+        mine = state_tensors(trainer.state)
+        keep["same"] = keep["metrics"] == [
+            (r["loss"], r["grad_norm"], r["moe_aux"])
+            for r in history + [profiled]] and len(mine) == len(
+                keep["tensors"]) and all(
+                    same_bits(a.detach(), b.to(a.device))
+                    for a, b in zip(mine, keep["tensors"]))
+    elif keep is not None:
+        keep["metrics"] = [(r["loss"], r["grad_norm"], r["moe_aux"])
+                           for r in history + [profiled]]
+        keep["tensors"] = [t.detach().cpu() for t in state_tensors(
+            trainer.state)]
     del trainer, setup, data
     if schedule:
         del step, logged
@@ -1660,6 +1911,26 @@ def main() -> int:
                for name, lay in layouts.items()
                for which, n in (("full", lay.bucket_elems),
                                 ("last", lay.last_elems))]
+    # the MoE slice's overlapped ZeRO-1 layout: its largest block bucket
+    # (one layer's slice of an expert leaf) and its largest tail bucket
+    # (one vocabulary table)
+    moe = moe_arch()
+
+    def moe_meta(dtype):
+        return Model(moe, ShardCtx(param_dtype=dtype), device="meta")
+    mov = overlap.layout_for_model(moe_meta(torch.bfloat16),
+                                   moe.plan.bucket_mb)
+    by_stage = list(zip(mov.layout.sizes, mov.bucket_ready))
+    shapes += [(f"moe overlap {which}", *matrix_shape(n), n)
+               for which, n in (
+                   ("block", max(n for n, r in by_stage if r < mov.n_stages)),
+                   ("tail", max(n for n, r in by_stage
+                                if r == mov.n_stages)))]
+    moe_layouts = {
+        name: bucketing.layout_for(list(moe_meta(dtype).parameters()),
+                                   moe.plan.bucket_mb)
+        for name, dtype in (("zero1", torch.bfloat16),
+                            ("classic", torch.float32))}
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -1678,6 +1949,8 @@ def main() -> int:
         reference_phase()
         zero1_reference()
         overlap_reference()
+        moe_reference()
+        moe_block_syncs()
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
         ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
         runs = {  # name -> (steps, launches per step, accum, build overrides)
@@ -1739,6 +2012,51 @@ def main() -> int:
                 ov_runs.items():
             hist[label], counts[label] = train_phase(
                 label, steps, per_step, accum, schedule, **overrides)
+        # the MoE slice: full-width qwen2-moe-a2.7b cut to MOE_LAYERS
+        # blocks on the DDP step (the arch's own plan is FSDP)
+        t0 = time.perf_counter()
+        mb, mz = (moe_layouts[k].n_buckets for k in ("classic", "zero1"))
+        mo = mov.layout.n_buckets
+
+        def psgd(n):
+            return {"powersgd_encode": 2 * n, "powersgd_decode": n}
+        moe_runs = {  # name -> (steps, launches per step, schedule, build
+            #                   overrides beside dp_mode="ddp")
+            "moe classic none": (2, {}, None, dict(zero1=False)),
+            "moe classic powersgd": (2, psgd(mb), None,
+                                     dict(zero1=False,
+                                          compression="powersgd")),
+            "moe zero1 powersgd": (2, psgd(mz), None,
+                                   dict(zero1=True, compression="powersgd")),
+            "moe zero1 signsgd": (1, {"pack_signs": mz,
+                                      "popcount_votes": mz}, None,
+                                  dict(zero1=True, compression="signsgd")),
+            "moe zero1 qsgd": (1, {"qsgd_quantize": mz}, None,
+                               dict(zero1=True, compression="qsgd")),
+            "moe zero1 overlap powersgd": (2, psgd(mo), "overlap",
+                                           dict(zero1=True,
+                                                compression="powersgd")),
+            "moe zero1 serial powersgd": (2, psgd(mo), "serial",
+                                          dict(zero1=True,
+                                               compression="powersgd")),
+        }
+        # the overlap run's final state is kept on the host; the serial run
+        # compares its own with it
+        kept = {}
+        for label, (steps, per_step, schedule, overrides) in \
+                moe_runs.items():
+            hist[label], counts[label] = train_phase(
+                label, steps, per_step, 1, schedule, arch=moe,
+                keep=kept if schedule else None, dp_mode="ddp", **overrides)
+        if not kept.get("same"):
+            raise AssertionError("moe: serial and overlap differ at full "
+                                 "width")
+        log(f"[moe] serial == overlap bit for bit at full width: "
+            f"{len(kept['tensors'])} state tensors ("
+            f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
+            f"metrics of {len(kept['metrics'])} steps")
+        del kept
+        log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         hist["adaptive powersgd"], counts["adaptive powersgd"] = \
             adaptive_phase(hist, ovs["zero1"].layout)
@@ -1815,6 +2133,8 @@ def main() -> int:
             "experiment_launches": sum(c.get(name, 0)
                                        for c in live.values()),
             "adaptive_launches": counts["adaptive powersgd"].get(name, 0),
+            "moe_launches": {label: counts[label].get(name, 0)
+                             for label in moe_runs},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -20,7 +20,6 @@ so the decisions and floats are its own.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Sequence
 
 from repro_torch.adaptive import policy
@@ -152,13 +151,10 @@ class BucketController:
 # ---------------------------------------------------------------------------
 # launch-time plan resolution
 # ---------------------------------------------------------------------------
-@functools.lru_cache(maxsize=64)
 def _param_count(arch_cfg) -> int:
-    """The model's parameter count, from its shapes on the ``meta``
-    device (no allocation); the JAX package's ``ArchConfig.param_count``
-    sums the same tree."""
-    from repro_torch.models.model import Model
-    return sum(p.numel() for p in Model(arch_cfg, device="meta").parameters())
+    """The model's parameter count (``models.registry``, as the JAX
+    package's ``ArchConfig.param_count``)."""
+    return arch_cfg.param_count()
 
 
 def workload_for_arch(arch_cfg, batch: int, seq: int,

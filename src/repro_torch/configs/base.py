@@ -133,6 +133,16 @@ class ArchConfig:
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
+    # ---- derived quantities used by the perf model ----
+    def param_count(self) -> int:
+        """Total parameters (exact for the port's model)."""
+        from repro_torch.models import registry as model_registry
+        return model_registry.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import registry as model_registry
+        return model_registry.param_count(self, active_only=True)
+
 
 REGISTRY: dict[str, ArchConfig] = {}
 

@@ -45,7 +45,8 @@ def to_tensor(a: np.ndarray) -> torch.Tensor:
 def load_params(model: torch.nn.Module, tree: Mapping) -> None:
     """Copy a JAX parameter tree into ``model`` (same names and shapes).
     Each parameter keeps its dtype; a source of the same dtype is copied
-    bit for bit."""
+    bit for bit, so a mixed tree (the MoE family's fp32 router and shared
+    gate among bf16 leaves) arrives leaf by leaf in its own dtypes."""
     flat = flatten(tree)
     params = dict(model.named_parameters())
     if list(flat) != list(params):

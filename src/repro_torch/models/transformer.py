@@ -1,6 +1,8 @@
 """Dense transformer backbone: the pre-norm GQA attention + SwiGLU block
 and the chunked LM loss.  Counterpart of the dense-family parts of
-``repro.models.transformer`` at tensor-parallel degree 1.
+``repro.models.transformer`` at tensor-parallel degree 1, qk-norm
+included (``cfg.qk_norm``: an RMSNorm over ``head_dim`` of each q and k
+head after the projection, before the rotation, as qwen3 has it).
 
 A block's parameters arrive as a dict keyed by their names under
 ``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
@@ -17,10 +19,13 @@ from repro_torch.models.layers import (ShardCtx, apply_rope, linear, rmsnorm,
                                        unembed_logits, vocab_parallel_xent)
 
 
-def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
-    g = linear(p["mlp.gate.w"], x, ctx)
-    u = linear(p["mlp.up.w"], x, ctx)
-    return linear(p["mlp.down.w"], F.silu(g) * u, ctx)
+def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
+              prefix: str = "mlp.") -> torch.Tensor:
+    """The SwiGLU MLP whose weights are ``p[prefix + "{gate,up,down}.w"]``
+    (the MoE family's shared experts and dense residual use it too)."""
+    g = linear(p[prefix + "gate.w"], x, ctx)
+    u = linear(p[prefix + "up.w"], x, ctx)
+    return linear(p[prefix + "down.w"], F.silu(g) * u, ctx)
 
 
 def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -32,6 +37,9 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     q = linear(p["attn.wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
     k = linear(p["attn.wk.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
     v = linear(p["attn.wv.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["attn.q_norm.scale"], q, cfg.norm_eps)
+        k = rmsnorm(p["attn.k_norm.scale"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = causal_attention(q, k, v, positions)

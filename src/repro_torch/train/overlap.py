@@ -45,8 +45,13 @@ non-associative schemes, needs every peer before any decode, so it runs
 all (the exchange is folded into ZeRO-1's update), so the backward runs
 ``raw``.  ``effective_schedule`` reports the resolution.
 
-Supported: the dense family (the only one the port has), ZeRO-1 through
-``train_step.zero1_apply`` on the ordered leaves, and ``accum > 1``
+The MoE family's blocks also return a load-balancing loss: each block's
+backward is seeded with ``MOE_AUX_COEF / (L * p_fsdp)`` on that output,
+the derivative of the classic step's ``MOE_AUX_COEF * mean / p_fsdp``,
+and the step reports the mean over the layers as ``moe_aux``.
+
+Supported: the dense and MoE families (the ones the port has), ZeRO-1
+through ``train_step.zero1_apply`` on the ordered leaves, and ``accum > 1``
 (microbatches 0..N-2 run ``raw`` into an fp32 sum; each bucket is flushed
 once, during the final microbatch's backward).  ``OverlapLayout.stacks``
 is a tuple so that the enc-dec family's two stacks can plug in with its
@@ -68,7 +73,7 @@ from repro_torch.parallel import commplan as cp
 
 #: families whose training stack is a single block collection, and its
 #: parameter prefix (the JAX package's ``params`` key).
-_STACK_KEYS = {"dense": "blocks"}
+_STACK_KEYS = {"dense": "blocks", "moe": "blocks"}
 
 
 # --------------------------------------------------------------------------
@@ -91,7 +96,7 @@ def check_supported(arch, plan) -> None:
     if arch.family not in _STACK_KEYS:
         raise NotImplementedError(
             f"plan.overlap for {arch.name}: the {arch.family!r} family is "
-            f"not ported yet (the port has the dense family only)")
+            f"not ported yet (the port has {', '.join(_STACK_KEYS)})")
     ok, why = supports(arch, plan)
     if not ok:
         raise ValueError(f"plan.overlap unsupported for {arch.name}: {why}")
@@ -355,10 +360,12 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
                     xent_chunk: int):
-    """The dense family: the forward keeps one autograd graph per stage;
-    the backward takes them in reverse layer order, handing each stage's
-    leaf gradients to ``flush``.  Returns (ordered aggregated leaves, loss
-    sum, global token count)."""
+    """The dense and MoE families: the forward keeps one autograd graph
+    per stage; the backward takes them in reverse layer order, handing
+    each stage's leaf gradients to ``flush``.  Returns (ordered aggregated
+    leaves, loss sum, global token count, MoE loss)."""
+    from repro_torch.train.train_step import MOE_AUX_COEF
+
     model = setup.model
     seg = ov.stacks[0]
     stacked = [(name, p.detach()) for name, p in model.block_params()]
@@ -377,38 +384,51 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
         for layer in range(seg.n_layers):
             p_l = {name: p[layer].requires_grad_() for name, p in stacked}
             y = model.stage_block(p_l, x, positions)
-            stages.append((p_l, x, y))
-            x = _leaf(y)
+            # the block's outputs: (y,) or, for MoE, (y, its aux loss)
+            outs = y if model.has_aux else (y,)
+            stages.append((p_l, x, outs))
+            x = _leaf(outs[0])
         loss_sum, ntok = model.stage_loss(*(leaves[n] for n in head), x,
                                           labels, xent_chunk)
     seed, n_glob = _backward_seed(setup, loss_sum, ntok)
+    L = seg.n_layers
+    if model.has_aux:
+        moe_aux = sum(outs[1].detach() for _, _, outs in stages) / L
+        # a fill on the device, not a copy from the host
+        aux_seed = (moe_aux.new_full((), MOE_AUX_COEF / (L * setup.p_fsdp)),)
+    else:
+        moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_seed = ()
 
     # ---- backward: reverse layer order, flushing completed buckets ----
     *d_head, d_x = torch.autograd.grad(
         loss_sum, (*(leaves[n] for n in head), x), seed)
     grads = dict(zip(head, d_head))
     del x
-    for s in range(seg.n_layers):
-        p_l, x_in, y = stages[seg.n_layers - 1 - s]
-        stages[seg.n_layers - 1 - s] = None       # free the stage's graph
-        *d_p, d_x = torch.autograd.grad(y, (*p_l.values(), x_in), d_x)
-        del p_l, x_in, y
+    for s in range(L):
+        p_l, x_in, outs = stages[L - 1 - s]
+        stages[L - 1 - s] = None                  # free the stage's graph
+        *d_p, d_x = torch.autograd.grad(outs, (*p_l.values(), x_in),
+                                        (d_x, *aux_seed))
+        del p_l, x_in, outs
         flush.stage(seg.stage0 + s, d_p)
     d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
     del d_x, x0
     grads["embed.table"] = grads["embed.table"] + d_emb \
         if "embed.table" in grads else d_emb
-    return flush.tail([grads[n] for n in leaves]), loss_sum.detach(), n_glob
+    return (flush.tail([grads[n] for n in leaves]), loss_sum.detach(),
+            n_glob, moe_aux)
 
 
 def _segmented_backward(setup, ov: OverlapLayout, batch: dict,
                         flush: _Flush, xent_chunk: int):
     """Forward (one graph per stage) and reverse-order backward with
     per-bucket aggregation through ``flush``; returns (ordered leaves,
-    loss sum, global token count).  ``flush.schedule`` ``"overlap"``
-    flushes each completed bucket between backward stages; ``"serial"``
-    flushes every bucket after the whole backward (the same bits);
-    ``"raw"`` aggregates nothing and returns the local gradients."""
+    loss sum, global token count, MoE loss).  ``flush.schedule``
+    ``"overlap"`` flushes each completed bucket between backward stages;
+    ``"serial"`` flushes every bucket after the whole backward (the same
+    bits); ``"raw"`` aggregates nothing and returns the local
+    gradients."""
     return _backward_stack(setup, ov, batch, flush, xent_chunk)
 
 
@@ -452,9 +472,9 @@ def make_step(setup, schedule: str = "overlap", accum: int = 1,
         if accum == 1:
             flush = _Flush(ov, aggregator, agg_states, schedule, do_agg,
                            side)
-            leaves, loss_sum, n_glob = _segmented_backward(
+            leaves, loss_sum, n_glob, aux = _segmented_backward(
                 setup, ov, batch, flush, xent_chunk)
-            return leaves, flush, loss_sum, n_glob
+            return leaves, flush, loss_sum, n_glob, aux
         rows = batch["tokens"].shape[0]
         if rows % accum:
             raise ValueError(f"{rows} rows do not split into {accum} "
@@ -462,10 +482,11 @@ def make_step(setup, schedule: str = "overlap", accum: int = 1,
         mb = rows // accum
         micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                  for i in range(accum)]
-        acc = loss_sum = n_glob = None
+        acc = loss_sum = n_glob = aux = None
         for m in micro[:-1]:
             raw = _Flush(ov, aggregator, (), "raw", False)
-            g, l_m, n_m = _segmented_backward(setup, ov, m, raw, xent_chunk)
+            g, l_m, n_m, a_m = _segmented_backward(setup, ov, m, raw,
+                                                   xent_chunk)
             with torch.no_grad():
                 if acc is None:       # the fp32 sum starts at zero: exact
                     acc = [v.float() for v in g]
@@ -475,23 +496,25 @@ def make_step(setup, schedule: str = "overlap", accum: int = 1,
             del g, raw
             loss_sum = l_m if loss_sum is None else loss_sum + l_m
             n_glob = n_m if n_glob is None else n_glob + n_m
+            aux = a_m if aux is None else aux + a_m
         flush = _Flush(ov, aggregator, agg_states, schedule, do_agg, side,
                        acc=acc, inv_accum=1.0 / accum)
         del acc
-        leaves, l_m, n_m = _segmented_backward(setup, ov, micro[-1], flush,
-                                               xent_chunk)
-        return leaves, flush, loss_sum + l_m, n_glob + n_m
+        leaves, l_m, n_m, a_m = _segmented_backward(
+            setup, ov, micro[-1], flush, xent_chunk)
+        return (leaves, flush, loss_sum + l_m, n_glob + n_m,
+                (aux + a_m) / accum)
 
     flush_order: list = []
 
     def step(state: dict, batch: dict, lr: float):
         batch = ts._to_device(batch, setup.device)
-        leaves, flush, loss_sum, n_glob = backward(batch, state["agg"])
+        leaves, flush, loss_sum, n_glob, aux = backward(batch, state["agg"])
         with torch.no_grad():
             params, new_opt, gnorm = update_fn(state["params"], leaves,
                                                state["opt"], lr)
             del leaves
-            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm)
+            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm, aux)
         flush_order[:] = flush.order
         return {"step": state["step"] + 1, "params": params, "opt": new_opt,
                 "agg": flush.new_agg()}, metrics
@@ -523,8 +546,8 @@ def make_unfused_step(setup, xent_chunk: int = 1024):
     def step(state: dict, batch: dict, lr: float):
         batch = ts._to_device(batch, setup.device)
         flush = _Flush(ov, aggregator, (), "raw", False)
-        leaves, loss_sum, n_glob = _segmented_backward(setup, ov, batch,
-                                                       flush, xent_chunk)
+        leaves, loss_sum, n_glob, aux = _segmented_backward(
+            setup, ov, batch, flush, xent_chunk)
         new_agg = state["agg"]
         with torch.no_grad():
             if do_agg:
@@ -539,7 +562,7 @@ def make_unfused_step(setup, xent_chunk: int = 1024):
             params, new_opt, gnorm = update_fn(state["params"], leaves,
                                                state["opt"], lr)
             del leaves
-            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm)
+            metrics = ts.train_metrics(setup, loss_sum, n_glob, gnorm, aux)
         return {"step": state["step"] + 1, "params": params, "opt": new_opt,
                 "agg": new_agg}, metrics
 

@@ -267,7 +267,7 @@ def _plan_check(setup, ov, batch: dict) -> dict:
     from repro_torch.train import train_step as ts
 
     flush = overlap._Flush(ov, None, (), "raw", False)
-    leaves, _, _ = overlap._segmented_backward(
+    leaves, _, _, _ = overlap._segmented_backward(
         setup, ov, ts._to_device(batch, setup.device), flush, 1024)
     lo, hi = ov.layout.bucket_leaves(0)
     g = torch.cat([v.reshape(-1).float() for v in leaves[lo:hi]])

@@ -20,6 +20,13 @@ reduce-scatter of the owner-aligned raw gradient inside the update is the
 step's only gradient collective.  ``param_dtype="bfloat16"`` gives bf16
 parameters with the replicated AdamW.
 
+The MoE family adds its load-balancing loss to the differentiated loss
+as the JAX package does, ``MOE_AUX_COEF * moe_aux / p_fsdp``, and every
+step reports ``moe_aux`` (0 for the dense family).  Under ZeRO-1 its two
+fp32 leaves (the router and the shared gate) ride the bf16 buckets and
+the fp32 master, rounded through bf16 as the JAX package's majority-dtype
+buckets round them.
+
 ``accum > 1`` is the classic accumulation: the step's batch is split into
 ``accum`` microbatches whose gradients are summed in fp32 and divided by
 ``accum`` before the aggregation.
@@ -42,8 +49,8 @@ optimizer there, where the JAX step fails its assertion at the first
 call.  As in JAX, ``build`` reads the plan's static fields only:
 ``plan.adaptive`` is resolved before it, by
 ``adaptive.controller.resolve_plan``.  ``build`` raises
-``NotImplementedError`` on what later slices port (FSDP).  Like the JAX
-``build``, it
+``NotImplementedError`` on what later slices port (FSDP, and the
+families ``models.model`` does not build).  Like the JAX ``build``, it
 drops reduction axes of size 1 from the aggregation (on one rank the
 compressor is not run unless the caller points ``agg_cfg`` back at the
 ``data`` axis) and checks a ``hierarchical`` plan against the remaining
@@ -66,13 +73,15 @@ from repro_torch.core import bucketing
 from repro_torch.core.compression import base as cbase
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import ShardCtx
-from repro_torch.models.model import Model
+from repro_torch.models.model import FAMILIES, Model
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import overlap as overlap_mod
 
 #: offset of the compressor-state seed from the parameter seed.
 AGG_SEED_OFFSET = 7
+#: weight of the MoE load-balancing loss in the differentiated loss
+MOE_AUX_COEF = 0.01
 
 
 @dataclasses.dataclass
@@ -107,9 +116,17 @@ class TrainSetup:
     def p_dp(self) -> int:
         return cp.axes_p(self.dp_axes)
 
+    @property
+    def p_fsdp(self) -> int:
+        """The FSDP degree, which divides the MoE loss term: 1, the port
+        has no FSDP axes."""
+        return 1
 
-def _check_ported(plan) -> None:
+
+def _check_ported(arch: ArchConfig, plan) -> None:
     todo = []
+    if arch.family not in FAMILIES:
+        todo.append(f"the {arch.family!r} family")
     if plan.dp_mode != "ddp":
         todo.append(f"dp_mode={plan.dp_mode!r}")
     if plan.param_dtype not in ("float32", "bfloat16"):
@@ -135,7 +152,7 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
         raise cp.CommPlanError(
             "comm='reduce_to_owner_broadcast' needs an owner-sharded "
             "update: dp_mode='ddp' with zero1=True")
-    _check_ported(plan)
+    _check_ported(arch, plan)
     ocfg = opt_cfg or opt_mod.OptConfig(name=plan.optimizer)
     if zero1 and ocfg.name != "adamw":
         raise ValueError(f"zero1 shards flat AdamW state; optimizer="
@@ -366,11 +383,14 @@ def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout,
 
 
 def train_metrics(setup: TrainSetup, loss_sum: torch.Tensor,
-                  n_glob: torch.Tensor, gnorm: torch.Tensor) -> dict:
-    """The step's metrics (loss is the DP-global token mean)."""
+                  n_glob: torch.Tensor, gnorm: torch.Tensor,
+                  moe_aux: torch.Tensor) -> dict:
+    """The step's metrics (loss is the DP-global token mean; ``moe_aux``
+    this rank's load-balancing loss averaged over the layers, 0 for the
+    dense family)."""
     loss_g = cp.psum(loss_sum, setup.dp_axes)
     return {"loss": loss_g / torch.clamp(n_glob.float(), min=1.0),
-            "tokens": n_glob, "grad_norm": gnorm}
+            "tokens": n_glob, "grad_norm": gnorm, "moe_aux": moe_aux}
 
 
 @torch.no_grad()
@@ -421,12 +441,14 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
 
     def one_micro(params, batch):
         """(grads in the parameters' dtype, local loss sum, global token
-        count) of one microbatch."""
-        loss_sum, ntok = model.loss(batch, xent_chunk)
+        count, MoE loss) of one microbatch."""
+        loss_sum, ntok, aux = model.loss(batch, xent_chunk)
         n_glob = cp.psum(ntok, dp)
         scaled = loss_sum * (p_dp / n_glob.float())
+        if setup.arch.moe.n_experts:
+            scaled = scaled + MOE_AUX_COEF * aux / setup.p_fsdp
         grads = torch.autograd.grad(scaled, params)
-        return list(grads), loss_sum.detach(), n_glob
+        return list(grads), loss_sum.detach(), n_glob, aux.detach()
 
     def step(state: dict, batch: dict, lr: float):
         batch = _to_device(batch, setup.device)
@@ -438,21 +460,23 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
                                  f"{accum} microbatches")
             mb = rows // accum
             for i in range(accum):
-                g, l, n = one_micro(params, {k: v[i * mb:(i + 1) * mb]
-                                             for k, v in batch.items()})
+                g, l, n, a = one_micro(params, {k: v[i * mb:(i + 1) * mb]
+                                                for k, v in batch.items()})
                 if i == 0:       # the fp32 sum starts at zero: exact
-                    grads, loss_sum, n_glob = [x.float() for x in g], l, n
+                    grads = [x.float() for x in g]
+                    loss_sum, n_glob, aux = l, n, a
                     continue
                 with torch.no_grad():
-                    for a, x in zip(grads, g):
-                        a.add_(x)
-                loss_sum, n_glob = loss_sum + l, n_glob + n
+                    for acc, x in zip(grads, g):
+                        acc.add_(x)
+                loss_sum, n_glob, aux = loss_sum + l, n_glob + n, aux + a
                 del g
             with torch.no_grad():
-                for a in grads:
-                    a.div_(accum)
+                for acc in grads:
+                    acc.div_(accum)
+            aux = aux / accum
         else:
-            grads, loss_sum, n_glob = one_micro(params, batch)
+            grads, loss_sum, n_glob, aux = one_micro(params, batch)
         with torch.no_grad():
             if setup.rtob:
                 # no gradient aggregation: the update's owner-aligned
@@ -463,7 +487,7 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
             params, new_opt, gnorm = update_fn(params, grads, state["opt"],
                                                lr)
             del grads
-            metrics = train_metrics(setup, loss_sum, n_glob, gnorm)
+            metrics = train_metrics(setup, loss_sum, n_glob, gnorm, aux)
         new_state = {"step": state["step"] + 1, "params": params,
                      "opt": new_opt, "agg": new_agg}
         return new_state, metrics

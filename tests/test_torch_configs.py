@@ -1,0 +1,112 @@
+"""The port's arch registry, shapes and parameter accounting against the
+JAX package's (``repro.configs``, ``repro.models.registry``).
+
+* All ten ``ArchConfig``s, their ``reduced()`` forms, ``SHAPES`` and
+  ``applicable`` equal JAX's field for field (``dataclasses.asdict``).
+* ``param_count`` and ``active_param_count`` equal JAX's exactly at full
+  size for every arch the port builds (counted on the ``meta`` device),
+  and ``model_flops`` equals JAX's.
+* The other four families raise ``NotImplementedError`` naming the family
+  from ``Model``, ``param_count`` and ``train_step.build``.
+* ``adaptive.controller``'s parameter count goes through the registry, so
+  ``resolve_plan`` runs for the MoE arch (it raised before).
+"""
+import dataclasses
+
+import pytest
+
+from repro.configs import base as jcfgs
+from repro.configs import shapes as jshapes
+from repro.models import registry as jregistry
+from repro_torch.configs import base as tcfgs
+from repro_torch.configs import shapes as tshapes
+from repro_torch.models import registry as tregistry
+
+NAMES = ["arctic-480b", "granite-8b", "mistral-nemo-12b", "qwen2-moe-a2.7b",
+         "qwen2-vl-7b", "qwen3-32b", "seamless-m4t-medium", "tinyllama-1.1b",
+         "xlstm-350m", "zamba2-2.7b"]
+#: arch -> (parameters, active parameters) at full size: JAX's registry
+COUNTS = {
+    "tinyllama-1.1b": (1_100_048_384, 1_100_048_384),
+    "granite-8b": (8_254_689_280, 8_254_689_280),
+    "mistral-nemo-12b": (12_772_070_400, 12_772_070_400),
+    "qwen3-32b": (30_497_192_960, 30_497_192_960),
+    "qwen2-moe-a2.7b": (14_315_636_736, 2_689_026_048),
+    "arctic-480b": (476_850_275_328, 15_584_314_368),
+}
+#: the families the port does not build yet
+NOT_PORTED = {"qwen2-vl-7b": "vlm", "seamless-m4t-medium": "audio",
+              "xlstm-350m": "ssm", "zamba2-2.7b": "hybrid"}
+
+
+def test_every_arch_is_registered():
+    assert tcfgs.names() == jcfgs.names() == NAMES
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_arch_config_equals_jax(name):
+    assert dataclasses.asdict(tcfgs.get(name)) == \
+        dataclasses.asdict(jcfgs.get(name))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_reduced_config_equals_jax(name):
+    got = tcfgs.reduced(tcfgs.get(name))
+    want = jcfgs.reduced(jcfgs.get(name))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    over = dict(n_layers=3, d_model=64)
+    assert dataclasses.asdict(tcfgs.reduced(tcfgs.get(name), **over)) == \
+        dataclasses.asdict(jcfgs.reduced(jcfgs.get(name), **over))
+
+
+def test_shapes_equal_jax():
+    assert list(tshapes.SHAPES) == list(jshapes.SHAPES)
+    for k, s in tshapes.SHAPES.items():
+        assert dataclasses.asdict(s) == dataclasses.asdict(jshapes.SHAPES[k])
+        assert dataclasses.asdict(tshapes.get(k)) == \
+            dataclasses.asdict(jshapes.get(k))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_applicable_equals_jax(name):
+    for k in tshapes.SHAPES:
+        assert tshapes.applicable(tcfgs.get(name), tshapes.SHAPES[k]) == \
+            jshapes.applicable(jcfgs.get(name), jshapes.SHAPES[k])
+
+
+@pytest.mark.parametrize("name", list(COUNTS))
+def test_param_counts_equal_jax(name):
+    total, active = COUNTS[name]
+    cfg = tcfgs.get(name)
+    assert cfg.param_count() == tregistry.param_count(cfg) == total
+    assert cfg.active_param_count() == active
+    jcfg = jcfgs.get(name)
+    assert (jcfg.param_count(), jcfg.active_param_count()) == (total, active)
+    for tokens, training in ((4096, True), (512, False)):
+        assert tregistry.model_flops(cfg, tokens, training) == \
+            jregistry.model_flops(jcfg, tokens, training)
+
+
+@pytest.mark.parametrize("name", list(NOT_PORTED))
+def test_unported_families_raise_naming_the_family(name):
+    from repro_torch.models.model import Model
+    from repro_torch.train import train_step as tts
+    fam = NOT_PORTED[name]
+    cfg = tcfgs.get(name)
+    with pytest.raises(NotImplementedError, match=repr(fam)):
+        Model(cfg, device="meta")
+    with pytest.raises(NotImplementedError, match=repr(fam)):
+        cfg.param_count()
+    with pytest.raises(NotImplementedError, match=repr(fam)):
+        tts.build(tcfgs.reduced(cfg), "cpu", dp_mode="ddp")
+
+
+def test_controller_param_count_goes_through_the_registry():
+    """``_param_count`` built ``Model`` itself before, so it already gave
+    these numbers for the dense archs; that it equals the registry's for
+    the MoE arch too is what ``resolve_plan`` on qwen2-moe needs."""
+    from repro_torch.adaptive import controller as actl
+    for name, (total, _) in COUNTS.items():
+        assert actl._param_count(tcfgs.get(name)) == total
+    with pytest.raises(NotImplementedError, match="'hybrid'"):
+        actl._param_count(tcfgs.get("zamba2-2.7b"))

@@ -51,8 +51,9 @@ def pair():
                     TShardCtx(compute_dtype=torch.float32), device="cpu")
     host = jax.device_get(params)
     convert.load_params(tmodel, host)
-    tloss, tntok = tmodel.loss({k: torch.from_numpy(v).long()
-                                for k, v in batch.items()})
+    tloss, tntok, taux = tmodel.loss({k: torch.from_numpy(v).long()
+                                      for k, v in batch.items()})
+    assert taux.item() == 0.0           # the dense family has no MoE loss
     tgrads = torch.autograd.grad(tloss, list(tmodel.parameters()))
     return dict(params=params, host=host, jloss=jloss, jntok=jntok,
                 jgrads=jax.device_get(jgrads), tmodel=tmodel, tloss=tloss,

@@ -25,8 +25,10 @@ the JAX package (``repro.train.overlap``).
   under accumulation, ``(g + sum) / accum`` rounded once where the classic
   step divides the sum).
 * Under ``accum > 1`` each bucket is aggregated once per step; ``build``
-  takes ``overlap=True`` for the dense family and refuses FSDP and other
-  families; ``--overlap`` on the CPU launcher and ``overlap_bench`` run.
+  takes ``overlap=True`` for the dense family and refuses FSDP and the
+  families the port does not have (``tests/test_torch_moe_step.py``
+  holds the MoE family's overlapped step); ``--overlap`` on the CPU
+  launcher and ``overlap_bench`` run.
 
 The cases compute in fp32 on both sides with the arch's bf16 parameters
 (RandomK runs ``zero1=False``, the classic fp32 parameters), for the
@@ -773,11 +775,12 @@ def test_segmented_backward_gives_the_classic_gradients(world, tied, remat):
              for k in ("tokens", "labels")}
     ov = overlap.build_layout(setup)
     flush = overlap._Flush(ov, None, (), "raw", False)
-    leaves, loss_sum, n_glob = overlap._segmented_backward(
+    leaves, loss_sum, n_glob, moe_aux = overlap._segmented_backward(
         setup, ov, batch, flush, 8)
+    assert moe_aux.item() == 0.0
     got = overlap._unordered_tree(ov, leaves)
     params = list(setup.model.parameters())
-    want_loss, ntok = setup.model.loss(batch, 8)
+    want_loss, ntok, _ = setup.model.loss(batch, 8)
     want = torch.autograd.grad(want_loss * (1 / ntok.float()), params)
     assert int(n_glob) == int(ntok) == 32
     assert torch.equal(loss_sum, want_loss.detach())
@@ -804,8 +807,8 @@ def test_build_runs_the_overlapped_step(world):
     with pytest.raises(ValueError, match="FSDP"):
         overlap.check_supported(arch, dataclasses.replace(
             arch.plan, dp_mode="fsdp"))
-    with pytest.raises(NotImplementedError, match="moe"):
-        overlap.check_supported(dataclasses.replace(arch, family="moe"),
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        overlap.check_supported(dataclasses.replace(arch, family="hybrid"),
                                 arch.plan)
     assert overlap.supports(arch, arch.plan) == (True, "")
     with pytest.raises(ValueError, match="schedule"):
