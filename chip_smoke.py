@@ -51,7 +51,13 @@ Phases, each fatal on failure:
      PowerSGD step on the card against the CPU and its overlapped step
      ``serial`` against ``overlap`` bit for bit (``moe_reference``); one
      full-width MoE block's forward and backward under the sync debug
-     mode "error" (``moe_block_syncs``);
+     mode "error" (``moe_block_syncs``); the chunked SSD against the
+     sequential oracle on the card at ``zamba2-2.7b``'s head shapes, and
+     one full-width Mamba2 block's forward and gradients on the card
+     against the CPU in fp32 (``hybrid_reference``); one full-width zamba2
+     group (the shared block with its LoRA, then 6 Mamba2 blocks) forward
+     and backward with nested remat under the sync debug mode "error"
+     (``hybrid_block_syncs``);
   6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -93,10 +99,21 @@ Phases, each fatal on failure:
      ``serial``, whose final states and metrics must agree bit for bit;
      the same checks as above, with finite ``moe_aux``, and the MoE
      routing, dispatch and combine as a layer of their own in the
-     profile.  Then the adaptive controller: ``resolve_plan`` for the
-     full-size arch at n_dev = 2, batch 4 x 512, on the paper's V100
-     preset (fatal unless PowerSGD on overlapped ZeRO-1, the JAX
-     package's decision), 3 steps of that plan through the same checks
+     profile.  Then the hybrid slice (``hybrid_phase``): ``zamba2-2.7b``
+     at full width and depth (54 Mamba2 blocks in 9 groups, d_model
+     2560, d_inner 5120, 80 SSD heads of 64, state 64, chunk 256, vocab
+     32,000; 2,440,081,568 parameters) on its own plan (DDP, ZeRO-1,
+     ``remat="full"``): ZeRO-1 (187 bf16 buckets) 2 PowerSGD steps, 1
+     SignSGD, 1 QSGD; the overlapped ZeRO-1 step (34 leaf-aligned
+     buckets) 2 PowerSGD under ``overlap`` and 2 under ``serial``, which
+     must agree bit for bit; the classic fp32 step 1 step uncompressed;
+     the same checks as above (only the arch as configured, ZeRO-1
+     PowerSGD, takes its extra step under the profiler), and the Mamba2
+     scan and convolution as a layer of their own in the profile.  Then the
+     adaptive controller: ``resolve_plan`` for the full-size arch at
+     n_dev = 2, batch 4 x 512, on the paper's V100 preset (fatal unless
+     PowerSGD on overlapped ZeRO-1, the JAX package's decision), 3 steps
+     of that plan through the same checks
      (encode 2 and decode 1 launch per bucket), and a ``BucketController``
      over its 46 buckets fed the measured step times (syncSGD from
      ``zero1 overlap none``, PowerSGD from this run): whether the
@@ -124,7 +141,8 @@ Phases, each fatal on failure:
      ``allreduce``; PowerSGD over ``pod`` after a raw mean over ``data``;
      SignSGD over both axes, p = 4) and ``pod-ring-p2`` (pod 2 x data 1,
      uncompressed), ``serial`` and ``overlap`` round robin, 1 warm-up and
-     2 reps, then the one-rank compute offset.  Each must give finite
+     1 rep (2 reps until the hybrid phase needed the time), then the
+     one-rank compute offset.  Each must give finite
      losses, the same parameter bits on every rank, ``serial`` ==
      ``overlap`` bit for bit, ``hierarchical`` within fp32 tolerance of
      ``allreduce`` on one gradient bucket, the kernels' launch counts per
@@ -140,12 +158,14 @@ Phases, each fatal on failure:
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
-classic ZeRO-1 step's and the classic fp32 step's, and the MoE slice's
+classic ZeRO-1 step's and the classic fp32 step's, the MoE slice's
 overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
-elements); the ``kernels`` line counts each kernel's launches in the
-overlapped ZeRO-1 run that drives it, in the live cells
-(``experiment_launches``), in the adaptive run (``adaptive_launches``),
-in each MoE run (``moe_launches``) and per pod step.
+elements) and the hybrid slice's (83,931,552 and 81,920,000); the
+``kernels`` line counts each kernel's launches in the overlapped ZeRO-1
+run that drives it, in the live cells (``experiment_launches``), in the
+adaptive run (``adaptive_launches``), in each MoE run
+(``moe_launches``), in each hybrid run (``hybrid_launches``) and per pod
+step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -165,6 +185,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the full-width hybrid steps free and take again a 9 GiB ZeRO-1 shard
+# among others; without expandable segments the third such step of a
+# process can find its 15 GiB of cached free memory too fragmented for it
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
@@ -389,7 +413,7 @@ def kernel_phase(shapes, rank):
                  lambda: kq.quantize(g, norm, levels, u),
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
-        if tag.startswith(("classic", "moe")):  # on no path: not overlap
+        if tag.startswith(("classic", "moe", "hybrid")):  # on no path
             # MSTop-K's 1%, from every k-th element (torch.quantile
             # takes at most 2**24)
             t = torch.quantile(g.abs()[::-(-n // 2**24)], 0.99)
@@ -714,51 +738,63 @@ KERNEL_GROUPS = (
 )
 
 
-#: the layer of the kernels launched inside the MoE layer's profiler
-#: ranges (``models.moe.DISPATCH`` and ``COMBINE``) and by the backward of
-#: the operators run there: the routing, dispatch and combine
+#: the layers of the kernels launched inside a model's profiler ranges and
+#: by the backward of the operators run there: the MoE routing, dispatch
+#: and combine (``models.moe.DISPATCH`` and ``COMBINE``), and the Mamba2
+#: SSD scan and causal convolution (``models.mamba2.SSD`` and ``CONV``)
 MOE_LAYER = "moe dispatch and combine"
+MAMBA_LAYER = "mamba ssd and conv"
 
 
-def ranged_kernels(prof, ranges) -> dict:
-    """kernel name -> device us of the kernels launched by the operators
-    inside the profiler ranges ``ranges`` (their recomputation under
-    ``remat="full"`` included) and by the backward nodes of those
-    operators, found by their autograd sequence numbers (which count per
-    thread, so a node matches by its forward thread too).  Inside a
-    backward node an ``aten::`` operator with a sequence number is not
-    the node's work (the backward runs with grad mode off) but a
-    recomputation that the node set off: it counts only under a range of
-    its own."""
+def ranged_layers() -> dict:
+    from repro_torch.models import mamba2
+    from repro_torch.models import moe as moe_mod
+    return {MOE_LAYER: (moe_mod.DISPATCH, moe_mod.COMBINE),
+            MAMBA_LAYER: (mamba2.SSD, mamba2.CONV)}
+
+
+def ranged_kernels(prof, layers: dict) -> dict:
+    """layer -> kernel name -> device us of the kernels launched by the
+    operators inside the layer's profiler ranges (``layers``: layer ->
+    range names; their recomputation under ``remat="full"`` included) and
+    by the backward nodes of those operators, found by their autograd
+    sequence numbers (which count per thread, so a node matches by its
+    forward thread too).  Inside a backward node an ``aten::`` operator
+    with a sequence number is not the node's work (the backward runs with
+    grad mode off) but a recomputation that the node set off: it counts
+    only under a range of its own."""
     events = prof.events()
-    out: dict[str, float] = {}
-    seqs: set = set()
+    layer_of = {r: layer for layer, rs in layers.items() for r in rs}
+    out: dict[str, dict] = {layer: {} for layer in layers}
+    seqs: dict = {}
 
-    def add(e):
+    def add(e, layer):
         for k in getattr(e, "kernels", ()):
-            out[k.name] = out.get(k.name, 0.0) + k.duration
+            out[layer][k.name] = out[layer].get(k.name, 0.0) + k.duration
 
-    def collect(root, forward):
+    def collect(root, forward, layer):
         stack = list(root.cpu_children)
         while stack:
             e = stack.pop()
             seq = getattr(e, "sequence_nr", -1)
-            if not forward and (e.name in ranges or (
+            if not forward and (e.name in layer_of or (
                     seq >= 0 and e.name.startswith("aten::"))):
                 continue
-            add(e)
+            add(e, layer)
             if forward and seq >= 0:
-                seqs.add((e.thread, seq))
+                seqs[e.thread, seq] = layer
             stack.extend(e.cpu_children)
     for e in events:
-        if e.name in ranges:
-            collect(e, True)
+        if e.name in layer_of:
+            collect(e, True, layer_of[e.name])
     for e in events:
-        if e.name.startswith("autograd::engine::evaluate_function") and (
-                getattr(e, "fwd_thread", e.thread),
-                getattr(e, "sequence_nr", -1)) in seqs:
-            add(e)
-            collect(e, False)
+        if not e.name.startswith("autograd::engine::evaluate_function"):
+            continue
+        layer = seqs.get((getattr(e, "fwd_thread", e.thread),
+                          getattr(e, "sequence_nr", -1)))
+        if layer:
+            add(e, layer)
+            collect(e, False, layer)
     return out
 
 
@@ -769,13 +805,14 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
     overlap, as on the classic step's one stream; ``stream_overlap``
     gives the union for the overlapped step's two); the profiled step's
     own wall time, profiler cost included, is ``profiled_s``.  The MoE
-    routing, dispatch and combine (``ranged_kernels``) are a layer of
-    their own, ``MOE_LAYER``."""
-    from repro_torch.models import moe as moe_mod
-    ranges = (moe_mod.DISPATCH, moe_mod.COMBINE)
+    routing, dispatch and combine and the Mamba2 scan and convolution
+    (``ranged_kernels``) are layers of their own, ``MOE_LAYER`` and
+    ``MAMBA_LAYER``."""
+    layers = ranged_layers()
+    ranges = {r for rs in layers.values() for r in rs}
     groups: dict[str, float] = {}
     top, compression = [], []
-    moe = ranged_kernels(prof, ranges)
+    ranged = ranged_kernels(prof, layers)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -786,10 +823,13 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
         name = ev.key.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other kernels")
-        in_moe = min(us, moe.get(ev.key, 0.0))
-        if in_moe:
-            groups[MOE_LAYER] = groups.get(MOE_LAYER, 0.0) + in_moe / 1e3
-        groups[group] = groups.get(group, 0.0) + (us - in_moe) / 1e3
+        rest = us
+        for layer, kernels in ranged.items():
+            part = min(rest, kernels.get(ev.key, 0.0))
+            if part:
+                groups[layer] = groups.get(layer, 0.0) + part / 1e3
+                rest -= part
+        groups[group] = groups.get(group, 0.0) + rest / 1e3
         top.append((us / 1e3, ev.key[:60], ev.count))
         if group == "compression kernels":
             compression.append({"kernel": ev.key[:90], "count": ev.count,
@@ -1166,6 +1206,228 @@ def moe_block_syncs() -> None:
         f"{aux.item():.4f})")
 
 
+HYBRID_ARCH = "zamba2-2.7b"
+#: card against CPU in fp32 (the Mamba2 block's forward and gradients; the
+#: chunked SSD against the sequential one): max |a - b| <= RTOL * |b| +
+#: SCALE * max|b|.  The decays amplify the matmuls' rounding of dt, B and
+#: C: the CPU tests measured 6.4e-5 of the largest gradient between two
+#: fp32 evaluations (``tests/test_torch_mamba2.py``)
+HYBRID_RTOL, HYBRID_SCALE = 1e-4, 1e-4
+
+
+def hybrid_close(got, want, what: str) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    diff = (got - want).abs()
+    scale = want.abs().max().item()
+    if not bool((diff <= HYBRID_RTOL * want.abs()
+                 + HYBRID_SCALE * scale).all()):
+        raise AssertionError(f"{what}: max |card - CPU| {diff.max().item()}"
+                             f" (largest entry {scale})")
+    return diff.max().item() / max(scale, 1e-30)
+
+
+def hybrid_block_params(arch, ctx, device, gen) -> tuple[dict, dict]:
+    """Group 0's parameters (names under ``groups.``, sliced) and the
+    shared block's (names under ``shared.``) of ``arch`` at its widths,
+    drawn as ``Model.init_params`` draws them, with every LoRA ``b``
+    nonzero so that the LoRA path is live."""
+    import torch
+
+    from repro_torch.models.model import (SHARED_PREFIX, init_leaf_,
+                                          leaf_dtype, param_layout)
+    p_g, shared = {}, {}
+    for name, shape, init in param_layout(arch):
+        if name.startswith("groups."):
+            shape, out, key = shape[1:], p_g, name[len("groups."):]
+        elif name.startswith(SHARED_PREFIX):
+            out, key = shared, name[len(SHARED_PREFIX):]
+        else:
+            continue
+        t = torch.empty(shape, dtype=leaf_dtype(name, ctx), device=device)
+        init_leaf_(t, 0.02 if init == "zeros" else init, gen)
+        out[key] = t.requires_grad_()
+    return p_g, shared
+
+
+def hybrid_reference() -> None:
+    """On the card, the chunked SSD against the sequential oracle at the
+    arch's head shapes (80 heads of 64, state 64, chunk 256, 300 steps, so
+    the scan pads; a nonzero start state), outputs and final states; then
+    one full-width Mamba2 block (d_model 2560, d_inner 5120, batch 1 x 512:
+    two chunks) forward and gradients on the card against the same code
+    on the CPU, in fp32, from the same parameters and inputs, within
+    ``HYBRID_RTOL`` and ``HYBRID_SCALE``."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import mamba2
+    from repro_torch.models.layers import ShardCtx
+
+    arch = cfgs.get(HYBRID_ARCH)
+    sc = arch.ssm
+    _, h, hd, n, _ = mamba2.dims(arch)
+    gen = torch.Generator().manual_seed(3)
+    b, l = 2, 300
+    x = torch.randn(b, l, h, hd, generator=gen)
+    dt = 0.1 * torch.rand(b, l, h, generator=gen)
+    A = -torch.exp(torch.randn(h, generator=gen))
+    Bm, Cm = (torch.randn(b, l, n, generator=gen) for _ in range(2))
+    h0 = torch.randn(b, h, hd, n, generator=gen)
+    args = [t.cuda() for t in (x, dt, A, Bm, Cm)]
+    with torch.no_grad():
+        y, hf = mamba2.ssd_chunked(*args, sc.chunk, h0=h0.cuda())
+        ry, rh = mamba2.ssd_reference(*args, h0=h0.cuda())
+    errs = [hybrid_close(y, ry, "ssd_chunked y"),
+            hybrid_close(hf, rh, "ssd_chunked h")]
+    log(f"[reference] hybrid ssd_chunked == ssd_reference on the card "
+        f"(b {b}, l {l}, {h} heads of {hd}, state {n}, chunk {sc.chunk}; "
+        f"max err / max {max(errs):.3g})")
+
+    ctx = ShardCtx(compute_dtype=torch.float32)
+    p_g, _ = hybrid_block_params(arch, ctx, "cpu",
+                                 torch.Generator().manual_seed(4))
+    p0 = {k[len("mamba."):]: v.detach()[0] for k, v in p_g.items()
+          if k.startswith("mamba.")}
+    x = torch.randn(1, 512, arch.d_model, generator=gen)
+    r = torch.randn(x.shape, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev).requires_grad_() for k, v in p0.items()}
+        xx = x.to(dev).requires_grad_()
+        yy = mamba2.mamba_block_apply(p, xx, arch, ctx)
+        grads = torch.autograd.grad((yy * r.to(dev)).sum(),
+                                    (*p.values(), xx))
+        out[dev] = [yy, *grads]
+    names = ["y", *p0, "x"]
+    errs = {nm: hybrid_close(a, c, f"mamba block {nm}")
+            for nm, a, c in zip(names, out["cuda"], out["cpu"])}
+    log(f"[reference] hybrid mamba block (d_model {arch.d_model}, d_inner "
+        f"{sc.expand * arch.d_model}, batch 1 x 512): card == CPU in fp32, "
+        f"forward and {len(names) - 1} gradients; max err / max "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+
+def hybrid_block_syncs() -> None:
+    """One full-width zamba2 group (the shared block with its LoRA patched
+    in, then 6 Mamba2 blocks; bf16 parameters with ``A_log``, ``D`` and
+    ``dt_bias`` fp32; batch 4 x 512), forward and backward through
+    ``Model.stage_block`` with ``remat="full"`` (nested), under the sync
+    debug mode "error": fatal if the group synchronises the host."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    arch = dataclasses.replace(cfgs.get(HYBRID_ARCH),
+                               n_layers=cfgs.get(HYBRID_ARCH).ssm.attn_every)
+    ctx = ShardCtx(param_dtype=torch.bfloat16)
+    model = Model(arch, ctx, device="meta")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p_g, shared = hybrid_block_params(arch, ctx, "cuda", gen)
+    b, s = 4, 512
+    x = torch.randn(b, s, arch.d_model, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    leaves = (x, *p_g.values(), *shared.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = model.stage_block(p_g, x, positions, shared)
+        grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(g).all()) for g in grads) \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError("hybrid group: non-finite output or gradient")
+    log(f"[reference] hybrid group (shared block + {arch.ssm.attn_every} "
+        f"Mamba2 blocks, d_model {arch.d_model}, batch {b} x {s}): forward "
+        f"and backward with nested remat under the sync debug mode "
+        f"\"error\": no host sync ({ms:.1f} ms, {len(grads)} gradients)")
+
+
+def hybrid_layouts() -> tuple[dict, list]:
+    """The full-size hybrid arch's bucket counts (classic ZeRO-1 and
+    overlapped ZeRO-1, from the layouts on the ``meta`` device) and the
+    kernel phase's hybrid shapes: the overlapped layout's largest block
+    bucket (one group's slice) and its largest tail bucket (one
+    vocabulary table)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import bucketing
+    from repro_torch.core.compression.powersgd import matrix_shape
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    from repro_torch.train import overlap
+    arch = cfgs.get(HYBRID_ARCH)
+    model = Model(arch, ShardCtx(param_dtype=torch.bfloat16), device="meta")
+    ov = overlap.layout_for_model(model, arch.plan.bucket_mb)
+    by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
+    shapes = [(f"hybrid overlap {which}", *matrix_shape(n), n)
+              for which, n in (
+                  ("block", max(n for n, r in by_stage if r < ov.n_stages)),
+                  ("tail", max(n for n, r in by_stage
+                               if r == ov.n_stages)))]
+    zero1 = bucketing.layout_for(list(model.parameters()),
+                                 arch.plan.bucket_mb)
+    return {"zero1": zero1.n_buckets, "overlap": ov.layout.n_buckets}, shapes
+
+
+def hybrid_phase(buckets: dict, hist: dict, counts: dict) -> dict:
+    """``zamba2-2.7b`` at full width and depth (54 Mamba2 blocks in 9
+    groups, the shared block with per-group LoRA) on its own plan (DDP,
+    ZeRO-1, ``remat="full"``) through ``train_phase``: ZeRO-1 2 PowerSGD
+    steps, 1 SignSGD, 1 QSGD; the overlapped ZeRO-1 step 2 PowerSGD steps
+    under ``overlap`` and 2 under ``serial``, whose final states and
+    metrics must agree bit for bit; the classic fp32 step 1 step
+    uncompressed.  The arch as configured (ZeRO-1 PowerSGD) takes its
+    extra step under the profiler, the others without it (the breakdown
+    of one full-width zamba2 step costs 40-50 s of host time).
+    ``buckets`` holds the layouts' bucket counts
+    (``hybrid_layouts``); each run's records and launch counts go into
+    ``hist`` and ``counts``.  Returns the runs."""
+    from repro_torch.configs import base as cfgs
+    t0 = time.perf_counter()
+    hz, ho = buckets["zero1"], buckets["overlap"]
+
+    def psgd(n):
+        return {"powersgd_encode": 2 * n, "powersgd_decode": n}
+    runs = {  # name -> (steps, launches per step, schedule, profiled,
+        #               overrides)
+        "hybrid zero1 powersgd": (2, psgd(hz), None, True,
+                                  dict(compression="powersgd")),
+        "hybrid zero1 signsgd": (1, {"pack_signs": hz, "popcount_votes": hz},
+                                 None, False, dict(compression="signsgd")),
+        "hybrid zero1 qsgd": (1, {"qsgd_quantize": hz}, None, False,
+                              dict(compression="qsgd")),
+        "hybrid zero1 overlap powersgd": (2, psgd(ho), "overlap", False,
+                                          dict(compression="powersgd")),
+        "hybrid zero1 serial powersgd": (2, psgd(ho), "serial", False,
+                                         dict(compression="powersgd")),
+        "hybrid classic none": (1, {}, None, False, dict(zero1=False)),
+    }
+    kept = {}
+    for label, (steps, per_step, schedule, profile, overrides) in \
+            runs.items():
+        hist[label], counts[label] = train_phase(
+            label, steps, per_step, 1, schedule,
+            arch=cfgs.get(HYBRID_ARCH), keep=kept if schedule else None,
+            profile=profile, **overrides)
+    if not kept.get("same"):
+        raise AssertionError("hybrid: serial and overlap differ at full "
+                             "width")
+    log(f"[hybrid] serial == overlap bit for bit at full width: "
+        f"{len(kept['tensors'])} state tensors ("
+        f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
+        f"metrics of {len(kept['metrics'])} steps")
+    del kept
+    log(f"[hybrid] phase in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def host_syncs(fn) -> list[str]:
     """Runs ``fn`` with PyTorch's sync debug mode set to warn; returns the
     Python caller (file:line) of each host-device synchronisation it made,
@@ -1196,7 +1458,8 @@ def flush_order_ok(order, ready, schedule: str) -> bool:
 
 def train_phase(label: str, steps: int, per_step: dict[str, int],
                 accum: int = 1, schedule: "str | None" = None,
-                arch=None, keep: "dict | None" = None, **overrides):
+                arch=None, keep: "dict | None" = None, profile: bool = True,
+                **overrides):
     """Full-width training through the port's entry points, built from the
     plan of ``arch`` (full-size ``tinyllama-1.1b`` unless given) with
     ``overrides``; returns the per-step records and the launch counts of
@@ -1205,7 +1468,10 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     order of every step is checked against the layout's ``bucket_ready``.
     With ``keep`` (a dict) the final parameters, ZeRO-1 shards,
     compressor states and every step's metrics are copied into it, on the
-    host."""
+    host.  The extra step after the records runs under the profiler
+    unless ``profile`` is false (its breakdown of a full-width zamba2
+    step costs 40-50 s of host time, most of it in PyTorch's parsing of
+    the profiler's events)."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -1218,6 +1484,7 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
 
     from repro_torch.models.model import leaf_dtype
     arch = arch or cfgs.get("tinyllama-1.1b")
+    wall = {"start": time.perf_counter()}
     torch.cuda.reset_peak_memory_stats()
     if schedule:
         overrides["overlap"] = True
@@ -1262,27 +1529,36 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
                                  f"fp32 copy of the {setup.layout.n_elements}"
                                  f" parameters")
     kbuild.reset_launches()
+    wall["built"] = time.perf_counter()
     trainer.run()
     torch.cuda.synchronize()
+    wall["ran"] = time.perf_counter()
     counts = dict(kbuild.LAUNCHES)
     history = list(trainer.history)
     # one more step under the profiler, kept out of the history and counts
     tcfg.total_steps = steps + 1
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    if not profile:
         trainer.run()
-    torch.cuda.synchronize()
-    profiled = trainer.history.pop()
-    breakdown = device_breakdown(prof, profiled["step_s"],
-                                 history[-1]["step_s"])
-    if schedule:
-        so = stream_overlap(prof)
-        if so.get("busy_union_ms"):
-            so["idle_share"] = 1 - so["busy_union_ms"] / (
-                history[-1]["step_s"] * 1e3)
-        breakdown["stream_overlap"] = so
-    log(f"[profile] {label} " + json.dumps(breakdown))
+        torch.cuda.synchronize()
+        profiled = trainer.history.pop()
+    else:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            trainer.run()
+        torch.cuda.synchronize()
+        profiled = trainer.history.pop()
+        breakdown = device_breakdown(prof, profiled["step_s"],
+                                     history[-1]["step_s"])
+        if schedule:
+            so = stream_overlap(prof)
+            if so.get("busy_union_ms"):
+                so["idle_share"] = 1 - so["busy_union_ms"] / (
+                    history[-1]["step_s"] * 1e3)
+            breakdown["stream_overlap"] = so
+        del prof
+        log(f"[profile] {label} " + json.dumps(breakdown))
+    wall["profiled"] = time.perf_counter()
     if schedule:
         ready = overlap.build_layout(setup).bucket_ready
         if not all(flush_order_ok(o, ready, effective) for o in orders):
@@ -1339,6 +1615,12 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         del step, logged
     gc.collect()
     torch.cuda.empty_cache()
+    now = time.perf_counter()
+    log(f"[train] {label}: wall {now - wall['start']:.1f} s (build and "
+        f"init {wall['built'] - wall['start']:.1f}, steps "
+        f"{wall['ran'] - wall['built']:.1f}, profiled step and its "
+        f"breakdown {wall['profiled'] - wall['ran']:.1f}, the rest "
+        f"{now - wall['profiled']:.1f})")
     return history, counts
 
 
@@ -1779,7 +2061,7 @@ def pod_phase(kind: str) -> dict:
     from repro_torch.experiments import (MultiProcessBackend, Runner,
                                          headline)
     cells = pod_specs()
-    backend = MultiProcessBackend(reps=2, warmup=1, device="cuda",
+    backend = MultiProcessBackend(reps=1, warmup=1, device="cuda",
                                   pod_timeout=POD_TIMEOUT_S,
                                   worker_args=POD_WORKER_ARGS)
     recs, results = {}, []
@@ -1931,6 +2213,8 @@ def main() -> int:
                                    moe.plan.bucket_mb)
         for name, dtype in (("zero1", torch.bfloat16),
                             ("classic", torch.float32))}
+    hybrid_buckets, hybrid_shapes = hybrid_layouts()
+    shapes += hybrid_shapes
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -1951,6 +2235,11 @@ def main() -> int:
         overlap_reference()
         moe_reference()
         moe_block_syncs()
+        t0 = time.perf_counter()
+        hybrid_reference()
+        hybrid_block_syncs()
+        log(f"[hybrid] reference and block syncs in "
+            f"{time.perf_counter() - t0:.1f} s")
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
         ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
         runs = {  # name -> (steps, launches per step, accum, build overrides)
@@ -2057,6 +2346,7 @@ def main() -> int:
             f"metrics of {len(kept['metrics'])} steps")
         del kept
         log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
+        hybrid_runs = hybrid_phase(hybrid_buckets, hist, counts)
         t0 = time.perf_counter()
         hist["adaptive powersgd"], counts["adaptive powersgd"] = \
             adaptive_phase(hist, ovs["zero1"].layout)
@@ -2135,6 +2425,8 @@ def main() -> int:
             "adaptive_launches": counts["adaptive powersgd"].get(name, 0),
             "moe_launches": {label: counts[label].get(name, 0)
                              for label in moe_runs},
+            "hybrid_launches": {label: counts[label].get(name, 0)
+                                for label in hybrid_runs},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,12 +1,13 @@
-"""The decoder as an ``nn.Module``: the dense and MoE families of
+"""The decoder as an ``nn.Module``: the dense, MoE and hybrid families of
 ``repro.models.model.Model`` (init and loss).  Counterpart of those
-families at tensor-parallel degree 1; ``hybrid``, ``ssm``, ``audio`` and
-``vlm`` raise ``NotImplementedError``.
+families at tensor-parallel degree 1; ``ssm``, ``audio`` and ``vlm``
+raise ``NotImplementedError``.
 
 The parameters are stored as the JAX package stores them: one stacked
-``(n_layers, ...)`` leaf per block weight, weights laid out ``(d_in,
-d_out)``, under the JAX tree's key paths joined by dots, and registered in
-the JAX tree's leaf order (sorted keys at every level).  The dense block:
+leaf per block weight, weights laid out ``(d_in, d_out)``, under the JAX
+tree's key paths joined by dots, and registered in the JAX tree's leaf
+order (sorted keys at every level, uppercase first).  The dense family
+stacks ``(n_layers, ...)`` blocks under ``blocks.``:
 
     blocks.attn.{k_norm,q_norm}.scale (qk-norm only),
     blocks.attn.{wk,wo,wq,wv}.w, blocks.ln1.scale, blocks.ln2.scale,
@@ -17,16 +18,35 @@ The MoE block has ``blocks.moe`` in place of ``blocks.mlp``:
 ``dense.{down,gate,up}.w`` (the dense residual), ``experts.{down,gate,up}``
 (``(L, E, d_ff, d)`` / ``(L, E, d, d_ff)``, with no ``.w``), ``router``
 ``(L, d, E)``, ``shared.{down,gate,up}.w`` and ``shared_gate`` ``(L, d,
-1)``.  ``router`` and ``shared_gate`` are fp32 whatever the parameter
-dtype (``moe.FP32_LEAVES``).
+1)``.
+
+The hybrid family (zamba2) stacks ``G = n_layers // attn_every`` groups
+under ``groups.``, which sort after ``embed`` and ``final_norm``:
+
+    embed.table, final_norm.scale,
+    groups.lora.{gate,up,wq}.{a,b}        (G, d, r) / (G, r, d_out)
+    groups.mamba.{A_log, D, conv_bc, conv_x, dt_bias, in_bc, in_dt,
+                  in_x.w, in_z.w, ln, norm, out.w}   (G, attn_every, ...)
+    shared.attn.{wk,wo,wq,wv}.w, shared.ln1.scale, shared.ln2.scale,
+    shared.mlp.{down,gate,up}.w           (one dense block, unstacked)
+    unembed.table
+
+A group runs the shared dense block with ``w + a @ b`` (rank
+``ZAMBA_LORA_RANK``, fp32 product cast to ``w``'s dtype) in place of
+``attn.wq``, ``mlp.gate`` and ``mlp.up``, then its ``attn_every`` Mamba2
+blocks (``models.mamba2``).  ``lora.*.b`` starts at zero.
+
+Whatever the parameter dtype, the MoE ``router`` and ``shared_gate`` and
+the Mamba2 ``A_log``, ``D`` and ``dt_bias`` are fp32 (``leaf_dtype``).
 
 ``parameters()`` therefore yields the leaves in the order in which the JAX
 package ravels its gradient into buckets, which PowerSGD depends on.  The
-block loop takes layer ``l``'s slice of each stacked leaf; ``remat="full"``
-recomputes each block in the backward pass.  ``loss`` is three stages
-(``stage_embed``, ``stage_block`` per layer, ``stage_loss``), which the
-overlapped step (``repro_torch.train.overlap``) runs one autograd graph at
-a time.
+block loop takes stage ``l``'s slice of each stacked leaf; ``remat="full"``
+recomputes each stage (a block, or a group) in the backward pass, and
+inside a group each block again, as the JAX package nests its remat.
+``loss`` is three stages (``stage_embed``, ``stage_block`` per layer or
+group, ``stage_loss``), which the overlapped step
+(``repro_torch.train.overlap``) runs one autograd graph at a time.
 """
 from __future__ import annotations
 
@@ -37,70 +57,132 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ShardCtx, embedding_lookup,
                                        trunc_normal_)
 
 BLOCK_PREFIX = "blocks."
-#: the families the port builds
-FAMILIES = ("dense", "moe")
+SHARED_PREFIX = "shared."
+#: the families the port builds, and the prefix of each one's stacked
+#: leaves (the JAX package's ``params`` key)
+STACK_PREFIX = {"dense": BLOCK_PREFIX, "moe": BLOCK_PREFIX,
+                "hybrid": "groups."}
+FAMILIES = tuple(STACK_PREFIX)
+#: the rank of the zamba2 shared block's per-group LoRA adapters
+ZAMBA_LORA_RANK = 64
+#: shared-block weight -> the LoRA adapter patched into it in every group
+LORA_TARGETS = {"attn.wq.w": "wq", "mlp.gate.w": "gate", "mlp.up.w": "up"}
+#: the leaves kept in fp32 whatever the parameter dtype
+FP32_LEAVES = frozenset(
+    [BLOCK_PREFIX + n for n in moe_mod.FP32_LEAVES]
+    + ["groups.mamba." + n for n in mamba2.FP32_LEAVES])
 
 
-def _mlp_layout(prefix: str, L: int, d: int, d_ff: int) -> list:
-    return [(prefix + "down.w", (L, d_ff, d), 1 / math.sqrt(d_ff)),
-            (prefix + "gate.w", (L, d, d_ff), 1 / math.sqrt(d)),
-            (prefix + "up.w", (L, d, d_ff), 1 / math.sqrt(d))]
+def _mlp_layout(prefix: str, lead: tuple, d: int, d_ff: int) -> list:
+    return [(prefix + "down.w", (*lead, d_ff, d), 1 / math.sqrt(d_ff)),
+            (prefix + "gate.w", (*lead, d, d_ff), 1 / math.sqrt(d)),
+            (prefix + "up.w", (*lead, d, d_ff), 1 / math.sqrt(d))]
 
 
 def _moe_layout(cfg) -> list:
-    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    L, d, f = (cfg.n_layers,), cfg.d_model, cfg.d_ff
     mc = cfg.moe
     e = moe_mod.pad_experts(mc.n_experts, 1)
     out = _mlp_layout("blocks.moe.dense.", L, d, f) \
         if mc.dense_residual else []
-    out += [("blocks.moe.experts.down", (L, e, f, d), 1 / math.sqrt(f)),
-            ("blocks.moe.experts.gate", (L, e, d, f), 1 / math.sqrt(d)),
-            ("blocks.moe.experts.up", (L, e, d, f), 1 / math.sqrt(d)),
-            ("blocks.moe.router", (L, d, e), 0.02)]
+    out += [("blocks.moe.experts.down", (*L, e, f, d), 1 / math.sqrt(f)),
+            ("blocks.moe.experts.gate", (*L, e, d, f), 1 / math.sqrt(d)),
+            ("blocks.moe.experts.up", (*L, e, d, f), 1 / math.sqrt(d)),
+            ("blocks.moe.router", (*L, d, e), 0.02)]
     if mc.n_shared:
         out += _mlp_layout("blocks.moe.shared.", L, d, f * mc.n_shared)
-        out.append(("blocks.moe.shared_gate", (L, d, 1), 0.02))
+        out.append(("blocks.moe.shared_gate", (*L, d, 1), 0.02))
     return out
 
 
-def param_layout(cfg) -> list[tuple[str, tuple[int, ...], "float | None"]]:
-    """(name, shape, init std; None = ones) of every leaf, in leaf order."""
-    L, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+def _attn_layout(cfg, prefix: str, lead: tuple) -> list:
+    """The pre-norm attention half of a dense block, and its two norms."""
+    d, hd = cfg.d_model, cfg.head_dim
     q_out, kv_out = cfg.n_heads * hd, cfg.n_kv_heads * hd
     out = []
     if cfg.qk_norm:
-        out += [("blocks.attn.k_norm.scale", (L, hd), None),
-                ("blocks.attn.q_norm.scale", (L, hd), None)]
-    out += [
-        ("blocks.attn.wk.w", (L, d, kv_out), 1 / math.sqrt(d)),
-        ("blocks.attn.wo.w", (L, q_out, d), 1 / math.sqrt(q_out)),
-        ("blocks.attn.wq.w", (L, d, q_out), 1 / math.sqrt(d)),
-        ("blocks.attn.wv.w", (L, d, kv_out), 1 / math.sqrt(d)),
-        ("blocks.ln1.scale", (L, d), None),
-        ("blocks.ln2.scale", (L, d), None),
-    ]
+        out += [(prefix + "attn.k_norm.scale", (*lead, hd), None),
+                (prefix + "attn.q_norm.scale", (*lead, hd), None)]
+    return out + [
+        (prefix + "attn.wk.w", (*lead, d, kv_out), 1 / math.sqrt(d)),
+        (prefix + "attn.wo.w", (*lead, q_out, d), 1 / math.sqrt(q_out)),
+        (prefix + "attn.wq.w", (*lead, d, q_out), 1 / math.sqrt(d)),
+        (prefix + "attn.wv.w", (*lead, d, kv_out), 1 / math.sqrt(d)),
+        (prefix + "ln1.scale", (*lead, d), None),
+        (prefix + "ln2.scale", (*lead, d), None)]
+
+
+def _hybrid_layout(cfg) -> list:
+    """The zamba2 groups and the shared block, in leaf order."""
+    d = cfg.d_model
+    g = (cfg.n_layers // cfg.ssm.attn_every,)
+    d_out = {"gate": cfg.d_ff, "up": cfg.d_ff,
+             "wq": cfg.n_heads * cfg.head_dim}
+    out = []
+    for name in sorted(d_out):
+        out += [(f"groups.lora.{name}.a", (*g, d, ZAMBA_LORA_RANK),
+                 1 / math.sqrt(d)),
+                (f"groups.lora.{name}.b", (*g, ZAMBA_LORA_RANK, d_out[name]),
+                 "zeros")]
+    out += mamba2.param_layout(cfg, (*g, cfg.ssm.attn_every),
+                               "groups.mamba.")
+    out += _attn_layout(cfg, SHARED_PREFIX, ())
+    return out + _mlp_layout(SHARED_PREFIX + "mlp.", (), d, cfg.d_ff)
+
+
+def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
+                                    "float | str | None"]]:
+    """(name, shape, init) of every leaf, in leaf order.  ``init`` is a
+    truncated-normal std, None for ones, ``"zeros"``, or the name of a
+    Mamba2 draw (``mamba2.param_layout``)."""
+    d = cfg.d_model
+    io = [("embed.table", (cfg.vocab, d), 0.02),
+          ("final_norm.scale", (d,), None)]
+    tail = [] if cfg.tie_embeddings \
+        else [("unembed.table", (cfg.vocab, d), 0.02)]
+    if cfg.family == "hybrid":
+        return io + _hybrid_layout(cfg) + tail
+    out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,))
     if cfg.family == "moe":
         out += _moe_layout(cfg)
     else:
-        out += _mlp_layout("blocks.mlp.", L, d, cfg.d_ff)
-    out += [("embed.table", (cfg.vocab, d), 0.02),
-            ("final_norm.scale", (d,), None)]
-    if not cfg.tie_embeddings:
-        out.append(("unembed.table", (cfg.vocab, d), 0.02))
-    return out
+        out += _mlp_layout("blocks.mlp.", (cfg.n_layers,), d, cfg.d_ff)
+    return out + io + tail
 
 
 def leaf_dtype(name: str, ctx: ShardCtx) -> torch.dtype:
-    """A leaf's storage dtype: fp32 for the MoE router and shared-expert
-    gate, ``ctx.param_dtype`` otherwise."""
-    fp32 = tuple(BLOCK_PREFIX + n for n in moe_mod.FP32_LEAVES)
-    return torch.float32 if name in fp32 else ctx.param_dtype
+    """A leaf's storage dtype: fp32 for ``FP32_LEAVES`` (the MoE router
+    and shared-expert gate, the Mamba2 ``A_log``, ``D`` and ``dt_bias``),
+    ``ctx.param_dtype`` otherwise."""
+    return torch.float32 if name in FP32_LEAVES else ctx.param_dtype
+
+
+def init_leaf_(p: torch.Tensor, init: "float | str | None",
+               generator: torch.Generator) -> None:
+    """Fill one leaf as ``param_layout``'s ``init`` says."""
+    if init is None:
+        p.fill_(1.0)
+    elif init == "zeros":
+        p.zero_()
+    elif init == "a_log":
+        p.copy_(mamba2.a_log_init(p.shape[-1]).expand(p.shape))
+    elif init == "dt_bias":
+        mamba2.dt_bias_init_(p, generator)
+    else:
+        trunc_normal_(p, init, generator)
+
+
+def _lora_patch(w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """``w + a @ b``, the product in fp32 and cast to ``w``'s dtype."""
+    return w + (a.float() @ b.float()).to(w.dtype)
 
 
 class Model(nn.Module):
@@ -121,8 +203,8 @@ class Model(nn.Module):
             device = mesh_mod.resolve_device(device)
         self.cfg = cfg
         self.ctx = ctx
-        self._std = {}
-        for name, shape, std in param_layout(cfg):
+        self._init = {}
+        for name, shape, init in param_layout(cfg):
             *path, leaf = name.split(".")
             node: nn.Module = self
             for part in path:
@@ -131,7 +213,7 @@ class Model(nn.Module):
                 node = getattr(node, part)
             node.register_parameter(leaf, nn.Parameter(torch.empty(
                 shape, dtype=leaf_dtype(name, ctx), device=device)))
-            self._std[name] = std
+            self._init[name] = init
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
                          remove_duplicate: bool = True):
@@ -143,19 +225,16 @@ class Model(nn.Module):
                                                 remove_duplicate)
             return
         params = dict(super().named_parameters())
-        for name in self._std:
+        for name in self._init:
             yield prefix + ("." if prefix else "") + name, params[name]
 
     def init_params(self, generator: torch.Generator) -> None:
-        """Truncated-normal weights and unit norm scales, drawn in leaf
-        order from ``generator``."""
+        """Every leaf as ``param_layout`` says (truncated-normal weights,
+        unit norm scales, zero LoRA ``b``, the Mamba2 ``A_log``, ``D`` and
+        ``dt_bias``), drawn in leaf order from ``generator``."""
         with torch.no_grad():
             for name, p in self.named_parameters():
-                std = self._std[name]
-                if std is None:
-                    p.fill_(1.0)
-                else:
-                    trunc_normal_(p, std, generator)
+                init_leaf_(p, self._init[name], generator)
 
     # ---- the three stages of the loss; the classic step runs them in one
     # ---- autograd graph, the overlapped step one graph per stage ----------
@@ -169,18 +248,62 @@ class Model(nn.Module):
         """Does ``stage_block`` return a load-balancing loss too?"""
         return self.cfg.family == "moe"
 
+    @property
+    def stack_prefix(self) -> str:
+        """The prefix of the stacked leaves: ``blocks.`` or ``groups.``."""
+        return STACK_PREFIX[self.cfg.family]
+
+    @property
+    def n_stages(self) -> int:
+        """Slices of the stacked leaves: layers, or zamba2 groups."""
+        if self.cfg.family == "hybrid":
+            return self.cfg.n_layers // self.cfg.ssm.attn_every
+        return self.cfg.n_layers
+
+    def _remat(self) -> bool:
+        return self.cfg.plan.remat == "full" and torch.is_grad_enabled()
+
+    def _group_apply(self, p_g: dict, shared: dict, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """One zamba2 group: the shared block with this group's LoRA
+        patched in, then its Mamba2 blocks, each recomputed in the
+        backward pass under ``remat="full"``."""
+        cfg, ctx = self.cfg, self.ctx
+        patched = dict(shared)
+        for w, name in LORA_TARGETS.items():
+            patched[w] = _lora_patch(shared[w], p_g[f"lora.{name}.a"],
+                                     p_g[f"lora.{name}.b"])
+        remat = self._remat()
+        args = (patched, x, positions, cfg, ctx)
+        x = checkpoint(tf.dense_block_apply, *args, use_reentrant=False) \
+            if remat else tf.dense_block_apply(*args)
+        inner = [(name[len("mamba."):], p.unbind(0))
+                 for name, p in p_g.items() if name.startswith("mamba.")]
+        for i in range(cfg.ssm.attn_every):
+            args = ({name: p[i] for name, p in inner}, x, cfg, ctx)
+            x = checkpoint(mamba2.mamba_block_apply, *args,
+                           use_reentrant=False) if remat \
+                else mamba2.mamba_block_apply(*args)
+        return x
+
     def stage_block(self, p_l: dict, x: torch.Tensor,
-                    positions: torch.Tensor):
-        """One block on one layer's parameters (``p_l``: names under
-        ``blocks.`` -> that layer's slice), recomputed in the backward
-        pass when ``remat="full"``.  Returns the block's output, and for
-        the MoE family (``has_aux``) ``(output, load-balancing loss)``."""
-        fn = moe_mod.moe_block_apply if self.has_aux \
-            else tf.dense_block_apply
-        if self.cfg.plan.remat == "full" and torch.is_grad_enabled():
-            return checkpoint(fn, p_l, x, positions, self.cfg, self.ctx,
-                              use_reentrant=False)
-        return fn(p_l, x, positions, self.cfg, self.ctx)
+                    positions: torch.Tensor, shared: "dict | None" = None):
+        """One stage on one slice of the stacked parameters (``p_l``:
+        names under ``stack_prefix`` -> that slice): a block, or for the
+        hybrid family a group, which also reads ``shared`` (names under
+        ``shared.`` -> the shared block's parameters).  Recomputed in the
+        backward pass when ``remat="full"``.  Returns the stage's output,
+        and for the MoE family (``has_aux``) ``(output, load-balancing
+        loss)``."""
+        if self.cfg.family == "hybrid":
+            fn, args = self._group_apply, (p_l, shared, x, positions)
+        else:
+            fn = moe_mod.moe_block_apply if self.has_aux \
+                else tf.dense_block_apply
+            args = (p_l, x, positions, self.cfg, self.ctx)
+        if self._remat():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def stage_loss(self, final_scale: torch.Tensor, table: torch.Tensor,
                    x: torch.Tensor, labels: torch.Tensor,
@@ -192,25 +315,34 @@ class Model(nn.Module):
                           xent_chunk)
 
     def block_params(self) -> list[tuple[str, torch.Tensor]]:
-        """(name under ``blocks.``, stacked ``(L, ...)`` parameter) in leaf
-        order."""
-        return [(name[len(BLOCK_PREFIX):], p)
+        """(name under ``stack_prefix``, stacked ``(n_stages, ...)``
+        parameter) in leaf order."""
+        pre = self.stack_prefix
+        return [(name[len(pre):], p) for name, p in self.named_parameters()
+                if name.startswith(pre)]
+
+    def shared_params(self) -> dict[str, torch.Tensor]:
+        """name under ``shared.`` -> the hybrid family's shared block
+        parameter (empty for the other families)."""
+        return {name[len(SHARED_PREFIX):]: p
                 for name, p in self.named_parameters()
-                if name.startswith(BLOCK_PREFIX)]
+                if name.startswith(SHARED_PREFIX)}
 
     def loss(self, batch: dict, xent_chunk: int = 1024
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """batch: ``tokens`` and ``labels`` (B, S) on the model's device.
         Returns (local loss sum, local token count, the load-balancing
-        loss averaged over the layers: 0 for the dense family)."""
+        loss averaged over the layers: 0 but for the MoE family)."""
         tokens, labels = batch["tokens"], batch["labels"]
         x = self.stage_embed(self.embed.table, tokens)
         positions = positions_of(tokens)
         stacked = [(name, p.unbind(0)) for name, p in self.block_params()]
+        shared = self.shared_params()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in range(self.cfg.n_layers):
+        for layer in range(self.n_stages):
             x = self.stage_block({name: slices[layer]
-                                  for name, slices in stacked}, x, positions)
+                                  for name, slices in stacked}, x, positions,
+                                 shared)
             if self.has_aux:
                 x, a = x
                 aux = aux + a

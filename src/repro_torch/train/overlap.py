@@ -50,12 +50,19 @@ backward is seeded with ``MOE_AUX_COEF / (L * p_fsdp)`` on that output,
 the derivative of the classic step's ``MOE_AUX_COEF * mean / p_fsdp``,
 and the step reports the mean over the layers as ``moe_aux``.
 
-Supported: the dense and MoE families (the ones the port has), ZeRO-1
-through ``train_step.zero1_apply`` on the ordered leaves, and ``accum > 1``
-(microbatches 0..N-2 run ``raw`` into an fp32 sum; each bucket is flushed
-once, during the final microbatch's backward).  ``OverlapLayout.stacks``
-is a tuple so that the enc-dec family's two stacks can plug in with its
-slice; FSDP is refused, as in the JAX package.
+The hybrid family's stage is a zamba2 group, whose leaves (``groups.``)
+sit between ``final_norm`` and ``shared`` in the leaf order: the layout
+picks the stack by its prefix, wherever it sits, and the tail is the
+rest in parameter order.  Every group reads the shared block; its
+gradient is summed over the groups' backwards and flushed with the tail.
+
+Supported: the dense, MoE and hybrid families (the ones the port has),
+ZeRO-1 through ``train_step.zero1_apply`` on the ordered leaves, and
+``accum > 1`` (microbatches 0..N-2 run ``raw`` into an fp32 sum; each
+bucket is flushed once, during the final microbatch's backward).
+``OverlapLayout.stacks`` is a tuple so that the enc-dec family's two
+stacks can plug in with its slice; FSDP is refused, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -68,12 +75,12 @@ import torch
 
 from repro_torch.core import aggregator as agg_mod
 from repro_torch.core import bucketing
-from repro_torch.models.model import BLOCK_PREFIX, positions_of
+from repro_torch.models.model import positions_of
 from repro_torch.parallel import commplan as cp
 
 #: families whose training stack is a single block collection, and its
 #: parameter prefix (the JAX package's ``params`` key).
-_STACK_KEYS = {"dense": "blocks", "moe": "blocks"}
+_STACK_KEYS = {"dense": "blocks", "moe": "blocks", "hybrid": "groups"}
 
 
 # --------------------------------------------------------------------------
@@ -142,8 +149,9 @@ class OverlapLayout:
     """Leaf-aligned bucket layout over backward-completion-ordered leaves.
 
     Leaf order: the stack's last block's leaves first, block 0's next to
-    last; then the tail (every parameter outside the stack: embedding,
-    final norm, unembedding).  Stage ``s`` is one block's backward; stage
+    last; then the tail (every parameter outside the stack, in parameter
+    order: embedding, final norm, the hybrid family's shared block,
+    unembedding).  Stage ``s`` is one block's (or group's) backward; stage
     ``n_stages`` is the tail, final only once the whole backward,
     embedding included, has run.
     """
@@ -151,6 +159,10 @@ class OverlapLayout:
     stacks: tuple[StackSeg, ...]
     n_stages: int                  # total block stages (tail == n_stages)
     bucket_ready: tuple[int, ...]  # bucket -> stage after which complete
+    #: per stack, its leaves' positions in parameter order; then the tail
+    #: leaves' positions in parameter order
+    stack_params: tuple[tuple[int, ...], ...]
+    rest: tuple[int, ...]
 
     def stage_leaf_range(self, s: int) -> tuple[int, int]:
         """Half-open ordered-leaf range written by stage ``s``."""
@@ -167,17 +179,19 @@ class OverlapLayout:
 def layout_for_model(model, bucket_mb: float) -> OverlapLayout:
     """The overlap layout of a ``Model`` (any device, ``meta`` included:
     only shapes and dtypes are read)."""
-    names = [name for name, _ in model.named_parameters()]
-    stacked = model.block_params()
-    if names[:len(stacked)] != [BLOCK_PREFIX + n for n, _ in stacked]:
-        raise ValueError("the block parameters must lead the leaf order")
-    rest = list(model.parameters())[len(stacked):]
-    n_layers = stacked[0][1].shape[0]
-    per_layer = [math.prod(p.shape[1:]) for _, p in stacked]
-    segs = (StackSeg(_STACK_KEYS[model.cfg.family], n_layers,
-                     len(per_layer), 0, 0),)
-    leaf_sizes = per_layer * n_layers + [p.numel() for p in rest]
-    dtype = bucketing._majority_dtype(list(model.parameters()))
+    params = list(model.parameters())
+    key = _STACK_KEYS[model.cfg.family]
+    # the stack picked by its key, wherever it sits in the leaf order (the
+    # hybrid family's groups sit between final_norm and shared), as the
+    # JAX package's _split_params picks it
+    stack = tuple(i for i, (name, _) in enumerate(model.named_parameters())
+                  if name.startswith(key + "."))
+    rest = tuple(i for i in range(len(params)) if i not in stack)
+    n_layers = params[stack[0]].shape[0]
+    per_layer = [math.prod(params[i].shape[1:]) for i in stack]
+    segs = (StackSeg(key, n_layers, len(per_layer), 0, 0),)
+    leaf_sizes = per_layer * n_layers + [params[i].numel() for i in rest]
+    dtype = bucketing._majority_dtype(params)
     layout = bucketing.layout_from_leaf_sizes(leaf_sizes, dtype, bucket_mb)
 
     def stage_of(leaf_idx: int) -> int:
@@ -188,7 +202,7 @@ def layout_for_model(model, bucket_mb: float) -> OverlapLayout:
 
     ready = tuple(stage_of(layout.bucket_leaves(b)[1] - 1)
                   for b in range(layout.n_buckets))
-    return OverlapLayout(layout, segs, n_layers, ready)
+    return OverlapLayout(layout, segs, n_layers, ready, (stack,), rest)
 
 
 def build_layout(setup) -> OverlapLayout:
@@ -360,17 +374,24 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
 
 def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
                     xent_chunk: int):
-    """The dense and MoE families: the forward keeps one autograd graph
+    """The single-stack families: the forward keeps one autograd graph
     per stage; the backward takes them in reverse layer order, handing
-    each stage's leaf gradients to ``flush``.  Returns (ordered aggregated
+    each stage's leaf gradients to ``flush``.  The hybrid family's groups
+    also read the shared block, whose leaves enter every group's graph:
+    each group's backward differentiates them too, and their gradient is
+    the sum over the groups in reverse group order (JAX's
+    ``has_shared``), part of the tail.  Returns (ordered aggregated
     leaves, loss sum, global token count, MoE loss)."""
+    from repro_torch.models.model import SHARED_PREFIX
     from repro_torch.train.train_step import MOE_AUX_COEF
 
     model = setup.model
     seg = ov.stacks[0]
     stacked = [(name, p.detach()) for name, p in model.block_params()]
     leaves = {name: _leaf(p) for name, p in model.named_parameters()
-              if not name.startswith(BLOCK_PREFIX)}   # the tail, in order
+              if not name.startswith(model.stack_prefix)}  # the tail
+    shared = {name[len(SHARED_PREFIX):]: t for name, t in leaves.items()
+              if name.startswith(SHARED_PREFIX)}
     head = ("final_norm.scale", "embed.table" if model.cfg.tie_embeddings
             else "unembed.table")
     tokens, labels = batch["tokens"], batch["labels"]
@@ -383,7 +404,7 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
         stages = []
         for layer in range(seg.n_layers):
             p_l = {name: p[layer].requires_grad_() for name, p in stacked}
-            y = model.stage_block(p_l, x, positions)
+            y = model.stage_block(p_l, x, positions, shared)
             # the block's outputs: (y,) or, for MoE, (y, its aux loss)
             outs = y if model.has_aux else (y,)
             stages.append((p_l, x, outs))
@@ -405,13 +426,20 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
         loss_sum, (*(leaves[n] for n in head), x), seed)
     grads = dict(zip(head, d_head))
     del x
+    n_p, d_shared = len(stacked), None
     for s in range(L):
         p_l, x_in, outs = stages[L - 1 - s]
         stages[L - 1 - s] = None                  # free the stage's graph
-        *d_p, d_x = torch.autograd.grad(outs, (*p_l.values(), x_in),
-                                        (d_x, *aux_seed))
+        d = torch.autograd.grad(outs, (*p_l.values(), *shared.values(),
+                                       x_in), (d_x, *aux_seed))
         del p_l, x_in, outs
+        d_p, d_sh, d_x = d[:n_p], d[n_p:-1], d[-1]
+        if shared:
+            d_shared = d_sh if d_shared is None else [
+                a + b for a, b in zip(d_shared, d_sh)]
         flush.stage(seg.stage0 + s, d_p)
+    if shared:
+        grads.update(zip((SHARED_PREFIX + n for n in shared), d_shared))
     d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
     del d_x, x0
     grads["embed.table"] = grads["embed.table"] + d_emb \
@@ -574,16 +602,16 @@ def make_unfused_step(setup, xent_chunk: int = 1024):
 # --------------------------------------------------------------------------
 def _ordered_leaves(ov: OverlapLayout, leaves: Sequence[torch.Tensor]
                     ) -> list[torch.Tensor]:
-    """Leaves in parameter order (the stack's ``(L, ...)`` leaves first)
-    -> the backward-completion order :func:`build_layout` built the
-    bucket layout over: per-layer views ``t[l]``, last layer first, then
+    """Leaves in parameter order -> the backward-completion order
+    :func:`build_layout` built the bucket layout over: per-layer views
+    ``t[l]`` of the stack's ``(L, ...)`` leaves, last layer first, then
     the tail."""
     out = []
-    for seg in ov.stacks:
-        stack = leaves[:seg.n_leaves]
+    for seg, at in zip(ov.stacks, ov.stack_params):
+        stack = [leaves[i] for i in at]
         for s in range(seg.n_layers):
             out.extend(t[seg.n_layers - 1 - s] for t in stack)
-    out.extend(leaves[sum(seg.n_leaves for seg in ov.stacks):])
+    out.extend(leaves[i] for i in ov.rest)
     return out
 
 
@@ -591,11 +619,12 @@ def _unordered_tree(ov: OverlapLayout, ordered: Sequence[torch.Tensor]
                     ) -> list[torch.Tensor]:
     """Inverse of :func:`_ordered_leaves`: the per-layer leaves stacked
     back into ``(L, ...)`` leaves, in parameter order."""
-    out = []
-    for seg in ov.stacks:
+    out: list = [None] * (sum(map(len, ov.stack_params)) + len(ov.rest))
+    for seg, pos in zip(ov.stacks, ov.stack_params):
         nb, L = seg.n_leaves, seg.n_layers
-        for i in range(nb):
-            out.append(torch.stack([ordered[seg.leaf0 + (L - 1 - l) * nb + i]
-                                    for l in range(L)]))
-    out.extend(ordered[ov.stacks[-1].leaf_end:])
+        for i, at in enumerate(pos):
+            out[at] = torch.stack([ordered[seg.leaf0 + (L - 1 - l) * nb + i]
+                                   for l in range(L)])
+    for j, at in enumerate(ov.rest):
+        out[at] = ordered[ov.stacks[-1].leaf_end + j]
     return out

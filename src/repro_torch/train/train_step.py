@@ -22,10 +22,13 @@ parameters with the replicated AdamW.
 
 The MoE family adds its load-balancing loss to the differentiated loss
 as the JAX package does, ``MOE_AUX_COEF * moe_aux / p_fsdp``, and every
-step reports ``moe_aux`` (0 for the dense family).  Under ZeRO-1 its two
-fp32 leaves (the router and the shared gate) ride the bf16 buckets and
-the fp32 master, rounded through bf16 as the JAX package's majority-dtype
-buckets round them.
+step reports ``moe_aux`` (0 for the other families).  Under ZeRO-1 the
+fp32 leaves (the MoE router and shared gate, the Mamba2 ``A_log``, ``D``
+and ``dt_bias``) ride the bf16 buckets and the fp32 master, rounded
+through bf16 as the JAX package's majority-dtype buckets round them.
+Nothing here depends on where a family's stacked leaves sit in the leaf
+order: the classic step ravels the parameters in that order, whatever it
+is.
 
 ``accum > 1`` is the classic accumulation: the step's batch is split into
 ``accum`` microbatches whose gradients are summed in fp32 and divided by
@@ -386,8 +389,8 @@ def train_metrics(setup: TrainSetup, loss_sum: torch.Tensor,
                   n_glob: torch.Tensor, gnorm: torch.Tensor,
                   moe_aux: torch.Tensor) -> dict:
     """The step's metrics (loss is the DP-global token mean; ``moe_aux``
-    this rank's load-balancing loss averaged over the layers, 0 for the
-    dense family)."""
+    this rank's load-balancing loss averaged over the layers, 0 but for
+    the MoE family)."""
     loss_g = cp.psum(loss_sum, setup.dp_axes)
     return {"loss": loss_g / torch.clamp(n_glob.float(), min=1.0),
             "tokens": n_glob, "grad_norm": gnorm, "moe_aux": moe_aux}

@@ -181,11 +181,20 @@ def test_hysteresis_holds_the_incumbent():
 
 # --------------------------------------------------------- build and cells
 def test_resolved_plan_builds_in_the_port():
+    """(``build`` joins a one-rank process group when there is none; the
+    test leaves none behind for the next module in its process.)"""
+    import torch.distributed as dist
+
     from repro_torch.train import train_step as tts
     _, ta = _archs(False)
     plan, d = tctl.resolve_plan(ta.plan, ta, 4)
     assert d.scheme == "powersgd"
-    setup = tts.build(dataclasses.replace(ta, plan=plan), "cpu")
+    joined = not dist.is_initialized()
+    try:
+        setup = tts.build(dataclasses.replace(ta, plan=plan), "cpu")
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
     assert setup.overlap and setup.zero1
     assert setup.agg_cfg.compressor == "powersgd"
     assert setup.arch.plan.adaptive is False

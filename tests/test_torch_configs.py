@@ -6,10 +6,11 @@ JAX package's (``repro.configs``, ``repro.models.registry``).
 * ``param_count`` and ``active_param_count`` equal JAX's exactly at full
   size for every arch the port builds (counted on the ``meta`` device),
   and ``model_flops`` equals JAX's.
-* The other four families raise ``NotImplementedError`` naming the family
+* The other three families raise ``NotImplementedError`` naming the family
   from ``Model``, ``param_count`` and ``train_step.build``.
 * ``adaptive.controller``'s parameter count goes through the registry, so
-  ``resolve_plan`` runs for the MoE arch (it raised before).
+  ``resolve_plan`` runs for the MoE and hybrid archs (they raised
+  before).
 """
 import dataclasses
 
@@ -33,10 +34,11 @@ COUNTS = {
     "qwen3-32b": (30_497_192_960, 30_497_192_960),
     "qwen2-moe-a2.7b": (14_315_636_736, 2_689_026_048),
     "arctic-480b": (476_850_275_328, 15_584_314_368),
+    "zamba2-2.7b": (2_440_081_568, 2_440_081_568),
 }
 #: the families the port does not build yet
 NOT_PORTED = {"qwen2-vl-7b": "vlm", "seamless-m4t-medium": "audio",
-              "xlstm-350m": "ssm", "zamba2-2.7b": "hybrid"}
+              "xlstm-350m": "ssm"}
 
 
 def test_every_arch_is_registered():
@@ -104,9 +106,10 @@ def test_unported_families_raise_naming_the_family(name):
 def test_controller_param_count_goes_through_the_registry():
     """``_param_count`` built ``Model`` itself before, so it already gave
     these numbers for the dense archs; that it equals the registry's for
-    the MoE arch too is what ``resolve_plan`` on qwen2-moe needs."""
+    the MoE and hybrid archs too is what ``resolve_plan`` on them
+    needs."""
     from repro_torch.adaptive import controller as actl
     for name, (total, _) in COUNTS.items():
         assert actl._param_count(tcfgs.get(name)) == total
-    with pytest.raises(NotImplementedError, match="'hybrid'"):
-        actl._param_count(tcfgs.get("zamba2-2.7b"))
+    with pytest.raises(NotImplementedError, match="'ssm'"):
+        actl._param_count(tcfgs.get("xlstm-350m"))
