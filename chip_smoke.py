@@ -57,7 +57,14 @@ Phases, each fatal on failure:
      against the CPU in fp32 (``hybrid_reference``); one full-width zamba2
      group (the shared block with its LoRA, then 6 Mamba2 blocks) forward
      and backward with nested remat under the sync debug mode "error"
-     (``hybrid_block_syncs``);
+     (``hybrid_block_syncs``); the chunked mLSTM against the sequential
+     oracle on the card at ``xlstm-350m``'s head shapes, one full-width
+     mLSTM and one sLSTM block's forward and gradients on the card
+     against the CPU in fp32, and one mLSTM block's forward and backward
+     at batch 4 x 512 held under 2 GiB of added memory
+     (``ssm_reference``); one full-width xLSTM group (7 mLSTM blocks and
+     the sLSTM block) forward and backward with nested remat under the
+     sync debug mode "error" (``ssm_block_syncs``);
   6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -70,9 +77,10 @@ Phases, each fatal on failure:
      of ``accum=2``.  Every loss and grad norm must be finite and each
      kernel's launch count must equal its count per step times the steps
      (``threshold_mask`` is on no path, as in the JAX package: 0).  Each
-     run prints the peak of ``torch.cuda.max_memory_allocated`` per step,
-     then takes one more step under ``torch.profiler``, kept out of the
-     step records and launch counts; its device time is printed by layer,
+     run prints the peak of ``torch.cuda.max_memory_allocated`` per step;
+     the runs named in ``PROFILED`` (here ZeRO-1 PowerSGD) then take one
+     more step under ``torch.profiler``, kept out of the step records and
+     launch counts; its device time is printed by layer,
      with the share of the last unprofiled step's wall time in which no
      kernel ran, and every compression kernel by name (launches, ms, us
      per launch).  Then the overlapped step (``train/overlap.py``,
@@ -84,9 +92,10 @@ Phases, each fatal on failure:
      ``zero1=False`` step (90 fp32 buckets).  Each also checks the
      host-side flush order of every step (each bucket after the stage
      that completes it under ``overlap``, all after the last stage under
-     ``serial``) and prints, from its profiled step, the device time of
-     each CUDA stream and how much of it ran while the compute stream was
-     busy, then takes one more step with the sync debug mode set to warn
+     ``serial``), prints, from its profiled step (ZeRO-1 and classic
+     PowerSGD under ``overlap``), the device time of each CUDA stream and
+     how much of it ran while the compute stream was busy, and takes one
+     more step with the sync debug mode set to warn
      and prints where the host waited for the card (both reported, not
      checked).  Then the MoE slice: ``qwen2-moe-a2.7b`` at full width (60
      routed experts top-4 of d_ff 1408, 4 shared behind a sigmoid gate,
@@ -99,17 +108,27 @@ Phases, each fatal on failure:
      ``serial``, whose final states and metrics must agree bit for bit;
      the same checks as above, with finite ``moe_aux``, and the MoE
      routing, dispatch and combine as a layer of their own in the
-     profile.  Then the hybrid slice (``hybrid_phase``): ``zamba2-2.7b``
-     at full width and depth (54 Mamba2 blocks in 9 groups, d_model
+     overlapped PowerSGD run's profile.  Then the hybrid slice
+     (``hybrid_phase``): ``zamba2-2.7b`` at full width and depth (54 Mamba2 blocks in 9 groups, d_model
      2560, d_inner 5120, 80 SSD heads of 64, state 64, chunk 256, vocab
      32,000; 2,440,081,568 parameters) on its own plan (DDP, ZeRO-1,
      ``remat="full"``): ZeRO-1 (187 bf16 buckets) 2 PowerSGD steps, 1
      SignSGD, 1 QSGD; the overlapped ZeRO-1 step (34 leaf-aligned
      buckets) 2 PowerSGD under ``overlap`` and 2 under ``serial``, which
      must agree bit for bit; the classic fp32 step 1 step uncompressed;
-     the same checks as above (only the arch as configured, ZeRO-1
-     PowerSGD, takes its extra step under the profiler), and the Mamba2
-     scan and convolution as a layer of their own in the profile.  Then the
+     the same checks as above (no run profiled: the breakdown of one
+     zamba2 step costs 40-50 s of host time).  Then
+     the ssm slice (``ssm_phase``): ``xlstm-350m`` at full width and depth
+     (3 groups of 7 mLSTM blocks and 1 sLSTM block, d_model 1024, 4
+     heads, vocab 50,304; 314,143,912 parameters) on its own plan (DDP,
+     ZeRO-1, ``remat="full"``): ZeRO-1 2 PowerSGD steps, 1 SignSGD and
+     1 QSGD;
+     the overlapped ZeRO-1 step 2 PowerSGD under ``overlap`` and 2 under
+     ``serial``, which must agree bit for bit; the classic fp32 step 1
+     step uncompressed; the same checks, no run profiled (a step is some
+     10^5 kernels); then ``ssm_profiles``: one mLSTM block and the sLSTM
+     scan over 64 tokens profiled, forward and forward plus backward,
+     and scaled to one step.  Then the
      adaptive controller: ``resolve_plan`` for the full-size arch at
      n_dev = 2, batch 4 x 512, on the paper's V100 preset (fatal unless
      PowerSGD on overlapped ZeRO-1, the JAX package's decision), 3 steps
@@ -160,12 +179,13 @@ The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
 classic ZeRO-1 step's and the classic fp32 step's, the MoE slice's
 overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
-elements) and the hybrid slice's (83,931,552 and 81,920,000); the
-``kernels`` line counts each kernel's launches in the overlapped ZeRO-1
-run that drives it, in the live cells (``experiment_launches``), in the
-adaptive run (``adaptive_launches``), in each MoE run
-(``moe_launches``), in each hybrid run (``hybrid_launches``) and per pod
-step.
+elements), the hybrid slice's (83,931,552 and 81,920,000) and the ssm
+slice's (26,275,896 and 63,056,896); the ``kernels`` line counts each
+kernel's launches in the overlapped ZeRO-1 run that drives it, in the
+live cells (``experiment_launches``), in the adaptive run
+(``adaptive_launches``), in each MoE run (``moe_launches``), in each
+hybrid run (``hybrid_launches``), in each ssm run (``ssm_launches``) and
+per pod step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -202,6 +222,16 @@ LEVEL_SHARE = 1e-4
 #: every kernel, by its launch-count name in ``build.LAUNCHES``
 KERNELS = ("powersgd_encode", "powersgd_decode", "pack_signs",
            "popcount_votes", "qsgd_quantize", "threshold_mask")
+#: the full-width runs that take one more step under the profiler: the
+#: classic ZeRO-1 step of the arch as configured, and the overlapped
+#: steps whose side stream the breakdown measures (``stream_overlap``);
+#: an overlap run and the serial run compared with it (``keep``) take the
+#: same steps, so both or neither are here.  No check reads a breakdown,
+#: and one costs 2-18 s of host time (40-50 s for a zamba2 step, minutes
+#: for an xLSTM step of some 10^5 kernels)
+PROFILED = ("zero1 powersgd", "zero1 overlap powersgd",
+            "classic overlap powersgd", "moe zero1 overlap powersgd",
+            "moe zero1 serial powersgd")
 
 
 def log(msg: str) -> None:
@@ -413,7 +443,7 @@ def kernel_phase(shapes, rank):
                  lambda: kq.quantize(g, norm, levels, u),
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
-        if tag.startswith(("classic", "moe", "hybrid")):  # on no path
+        if tag.startswith(("classic", "moe", "hybrid", "ssm")):  # no path
             # MSTop-K's 1%, from every k-th element (torch.quantile
             # takes at most 2**24)
             t = torch.quantile(g.abs()[::-(-n // 2**24)], 0.99)
@@ -1383,10 +1413,7 @@ def hybrid_phase(buckets: dict, hist: dict, counts: dict) -> dict:
     steps, 1 SignSGD, 1 QSGD; the overlapped ZeRO-1 step 2 PowerSGD steps
     under ``overlap`` and 2 under ``serial``, whose final states and
     metrics must agree bit for bit; the classic fp32 step 1 step
-    uncompressed.  The arch as configured (ZeRO-1 PowerSGD) takes its
-    extra step under the profiler, the others without it (the breakdown
-    of one full-width zamba2 step costs 40-50 s of host time).
-    ``buckets`` holds the layouts' bucket counts
+    uncompressed.  ``buckets`` holds the layouts' bucket counts
     (``hybrid_layouts``); each run's records and launch counts go into
     ``hist`` and ``counts``.  Returns the runs."""
     from repro_torch.configs import base as cfgs
@@ -1395,27 +1422,25 @@ def hybrid_phase(buckets: dict, hist: dict, counts: dict) -> dict:
 
     def psgd(n):
         return {"powersgd_encode": 2 * n, "powersgd_decode": n}
-    runs = {  # name -> (steps, launches per step, schedule, profiled,
-        #               overrides)
-        "hybrid zero1 powersgd": (2, psgd(hz), None, True,
+    runs = {  # name -> (steps, launches per step, schedule, overrides)
+        "hybrid zero1 powersgd": (2, psgd(hz), None,
                                   dict(compression="powersgd")),
         "hybrid zero1 signsgd": (1, {"pack_signs": hz, "popcount_votes": hz},
-                                 None, False, dict(compression="signsgd")),
-        "hybrid zero1 qsgd": (1, {"qsgd_quantize": hz}, None, False,
+                                 None, dict(compression="signsgd")),
+        "hybrid zero1 qsgd": (1, {"qsgd_quantize": hz}, None,
                               dict(compression="qsgd")),
-        "hybrid zero1 overlap powersgd": (2, psgd(ho), "overlap", False,
+        "hybrid zero1 overlap powersgd": (2, psgd(ho), "overlap",
                                           dict(compression="powersgd")),
-        "hybrid zero1 serial powersgd": (2, psgd(ho), "serial", False,
+        "hybrid zero1 serial powersgd": (2, psgd(ho), "serial",
                                          dict(compression="powersgd")),
-        "hybrid classic none": (1, {}, None, False, dict(zero1=False)),
+        "hybrid classic none": (1, {}, None, dict(zero1=False)),
     }
     kept = {}
-    for label, (steps, per_step, schedule, profile, overrides) in \
-            runs.items():
+    for label, (steps, per_step, schedule, overrides) in runs.items():
         hist[label], counts[label] = train_phase(
             label, steps, per_step, 1, schedule,
             arch=cfgs.get(HYBRID_ARCH), keep=kept if schedule else None,
-            profile=profile, **overrides)
+            **overrides)
     if not kept.get("same"):
         raise AssertionError("hybrid: serial and overlap differ at full "
                              "width")
@@ -1425,6 +1450,369 @@ def hybrid_phase(buckets: dict, hist: dict, counts: dict) -> dict:
         f"metrics of {len(kept['metrics'])} steps")
     del kept
     log(f"[hybrid] phase in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+SSM_ARCH = "xlstm-350m"
+#: card against CPU in fp32 (an xLSTM block's forward and gradients; the
+#: chunked mLSTM against the sequential one): max |a - b| <= RTOL * |b| +
+#: SCALE * max|b|, as for the Mamba2 block
+SSM_RTOL, SSM_SCALE = 1e-4, 1e-4
+#: an mLSTM block's forward and backward at batch 4 x 512 must add less
+#: device memory than this (a three-operand einsum contracted left to
+#: right builds a 2 GiB (b, t, h, v, k) tensor a chunk)
+SSM_BLOCK_PEAK = 2 * 2**30
+
+
+def ssm_block_params(arch, ctx, device, gen) -> dict:
+    """Group 0's parameters (names under ``groups.``, sliced) of ``arch``
+    at its widths, drawn as ``Model.init_params`` draws them."""
+    import torch
+
+    from repro_torch.models.model import init_leaf_, leaf_dtype, param_layout
+    p_g = {}
+    for name, shape, init in param_layout(arch):
+        if name.startswith("groups."):
+            t = torch.empty(shape[1:], dtype=leaf_dtype(name, ctx),
+                            device=device)
+            init_leaf_(t, init, gen)
+            p_g[name[len("groups."):]] = t.requires_grad_()
+    return p_g
+
+
+def ssm_reference(device: str = "cuda") -> dict:
+    """On the card: the chunked mLSTM against the sequential oracle at the
+    arch's head shapes (4 heads, q/k 256, v 512, chunk 256, 512 steps from
+    a nonzero carry), outputs and final carries; one full-width mLSTM and
+    one sLSTM block (d_model 1024, batch 1 x 512) forward and gradients on
+    the card against the same code on the CPU, in fp32, from the same
+    parameters and inputs, within ``SSM_RTOL`` and ``SSM_SCALE``; one
+    mLSTM block's forward and backward at batch 4 x 512 in bf16 (the
+    training step's), whose added peak memory must stay under
+    ``SSM_BLOCK_PEAK``.  Returns the printed numbers."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import ShardCtx
+
+    arch = cfgs.get(SSM_ARCH)
+    _, hn, dk, dv = xlstm.mlstm_dims(arch)
+    gen = torch.Generator().manual_seed(5)
+    b, l = 1, 512
+    q, k = (torch.randn(b, l, hn, dk, generator=gen) for _ in range(2))
+    v = torch.randn(b, l, hn, dv, generator=gen)
+    ig = torch.randn(b, l, hn, generator=gen)
+    fg = torch.randn(b, l, hn, generator=gen) + 3.0
+    carry = (torch.randn(b, hn, dv, dk, generator=gen),
+             torch.randn(b, hn, dk, generator=gen),
+             torch.randn(b, hn, generator=gen))
+    args = [t.to(device) for t in (q, k, v, ig, fg)]
+    carry = tuple(t.to(device) for t in carry)
+    with torch.no_grad():
+        y, (C, n, m) = xlstm.mlstm_chunked(*args, arch.ssm.chunk, carry)
+        ry, (rC, rn, rm) = xlstm.mlstm_reference(*args, carry)
+    # the carries are stored under their own stabilisers: compare C exp(m)
+    scale = torch.exp(m - rm)
+    errs = [ssm_close(y, ry, "mlstm_chunked y"),
+            ssm_close(C * scale[..., None, None], rC, "mlstm_chunked C"),
+            ssm_close(n * scale[..., None], rn, "mlstm_chunked n")]
+    out = {"mlstm_chunked_err": max(errs)}
+    log(f"[reference] ssm mlstm_chunked == mlstm_reference on the card (b "
+        f"{b}, l {l}, {hn} heads, q/k {dk}, v {dv}, chunk {arch.ssm.chunk}, "
+        f"from a carry; max err / max {max(errs):.3g})")
+
+    ctx = ShardCtx(compute_dtype=torch.float32)
+    p_g = ssm_block_params(arch, ctx, "cpu", torch.Generator().manual_seed(6))
+    blocks = {"mlstm": (xlstm.mlstm_block_apply,
+                        {k[len("mlstm."):]: v.detach()[0]
+                         for k, v in p_g.items() if k.startswith("mlstm.")}),
+              "slstm": (xlstm.slstm_block_apply,
+                        {k[len("slstm."):]: v.detach()
+                         for k, v in p_g.items() if k.startswith("slstm.")})}
+    x = torch.randn(1, 512, arch.d_model, generator=gen)
+    r = torch.randn(x.shape, generator=gen)
+    for kind, (fn, p0) in blocks.items():
+        res = {}
+        for dev in ("cpu", device):
+            p = {k: v.to(dev).requires_grad_() for k, v in p0.items()}
+            xx = x.to(dev).requires_grad_()
+            yy = fn(p, xx, arch, ctx)
+            grads = torch.autograd.grad((yy * r.to(dev)).sum(),
+                                        (*p.values(), xx))
+            res[dev] = [yy, *grads]
+        names = ["y", *p0, "x"]
+        errs = {nm: ssm_close(a, c, f"{kind} block {nm}")
+                for nm, a, c in zip(names, res[device], res["cpu"])}
+        out[f"{kind}_block_err"] = max(errs.values())
+        log(f"[reference] ssm {kind} block (d_model {arch.d_model}, batch "
+            f"1 x 512): card == CPU in fp32, forward and {len(names) - 1} "
+            f"gradients; max err / max "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+    bf16 = ShardCtx(param_dtype=torch.bfloat16)
+    p_g = ssm_block_params(arch, bf16, device,
+                           torch.Generator(device=device).manual_seed(7))
+    p0 = {k[len("mlstm."):]: v.detach()[0].requires_grad_()
+          for k, v in p_g.items() if k.startswith("mlstm.")}
+    del p_g
+    x = torch.randn(4, 512, arch.d_model, device=device,
+                    dtype=torch.bfloat16).requires_grad_()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    y = xlstm.mlstm_block_apply(p0, x, arch, bf16)
+    grads = torch.autograd.grad(y, (*p0.values(), x), torch.ones_like(y))
+    if device == "cuda":
+        torch.cuda.synchronize()
+        added = torch.cuda.max_memory_allocated() - base
+        out["mlstm_block_peak_gib"] = added / 2**30
+        if added >= SSM_BLOCK_PEAK:
+            raise AssertionError(f"mlstm block: forward and backward added "
+                                 f"{added / 2**30:.2f} GiB")
+        log(f"[reference] ssm mlstm block (bf16, batch 4 x 512) forward "
+            f"and backward: peak {added / 2**30:.3f} GiB above the inputs "
+            f"(limit {SSM_BLOCK_PEAK / 2**30:.0f} GiB)")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("mlstm block: non-finite gradient")
+    return out
+
+
+def ssm_close(got, want, what: str) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    diff = (got - want).abs()
+    scale = want.abs().max().item()
+    if not bool((diff <= SSM_RTOL * want.abs() + SSM_SCALE * scale).all()):
+        raise AssertionError(f"{what}: max |card - CPU| {diff.max().item()}"
+                             f" (largest entry {scale})")
+    return diff.max().item() / max(scale, 1e-30)
+
+
+def ssm_block_syncs(device: str = "cuda") -> None:
+    """One full-width xLSTM group (7 mLSTM blocks, then the sLSTM block;
+    bf16 parameters with the gate weights and biases fp32; batch 4 x 512),
+    forward and backward through ``Model.stage_block`` with
+    ``remat="full"`` (nested), under the sync debug mode "error": fatal if
+    the group synchronises the host."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    arch = dataclasses.replace(cfgs.get(SSM_ARCH),
+                               n_layers=cfgs.get(SSM_ARCH).ssm.slstm_every)
+    ctx = ShardCtx(param_dtype=torch.bfloat16)
+    model = Model(arch, ctx, device="meta")
+    gen = torch.Generator(device=device).manual_seed(0)
+    p_g = ssm_block_params(arch, ctx, device, gen)
+    b, s = 4, 512
+    x = torch.randn(b, s, arch.d_model, generator=gen, device=device,
+                    dtype=torch.bfloat16).requires_grad_()
+    positions = torch.arange(s, device=device).expand(b, s)
+    leaves = (x, *p_g.values())
+    sync = device == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = model.stage_block(p_g, x, positions)
+        grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    finally:
+        if sync:
+            torch.cuda.set_sync_debug_mode("default")
+    if sync:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(g).all()) for g in grads) \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError("ssm group: non-finite output or gradient")
+    log(f"[reference] ssm group ({arch.ssm.slstm_every - 1} mLSTM blocks + "
+        f"1 sLSTM block, d_model {arch.d_model}, batch {b} x {s}): forward "
+        f"and backward with nested remat under the sync debug mode "
+        f"\"error\": no host sync ({ms:.1f} ms, {len(grads)} gradients)")
+
+
+def kernel_profile(fn) -> dict:
+    """Device time (ms) and kernel count of one call of ``fn`` under the
+    profiler, split into GEMMs and the rest, and its three costliest
+    kernels.  The xLSTM profiler ranges are left out: on the device
+    timeline a range is an annotation spanning its kernels and the gaps
+    between them, not a kernel."""
+    import torch
+
+    from repro_torch.models import xlstm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gemm_keys = dict(KERNEL_GROUPS)["matmul"]
+    out = {"ms": 0.0, "gemm_ms": 0.0, "kernels": 0}
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if not us or not str(getattr(ev, "device_type", "")).endswith(
+                "CUDA") or ev.key in (xlstm.MLSTM, xlstm.SLSTM):
+            continue
+        out["ms"] += us / 1e3
+        out["kernels"] += ev.count
+        top.append((us / 1e3, ev.key[:60], ev.count))
+        if any(k in ev.key.lower() for k in gemm_keys):
+            out["gemm_ms"] += us / 1e3
+    out["top"] = sorted(top, reverse=True)[:3]
+    return out
+
+
+#: the sLSTM scan's token steps under the profiler (scaled to 512)
+SSM_PROFILE_STEPS = 64
+
+
+def ssm_profiles() -> dict:
+    """The ssm step is not profiled whole (some 10^5 kernels, minutes of
+    the profiler's own host work): one full-width mLSTM block and
+    ``slstm_scan`` over ``SSM_PROFILE_STEPS`` token steps are, each
+    forward alone and forward plus backward (bf16 parameters, batch 4 x
+    512, the training step's dtypes).  Printed with the per-step device
+    time they scale to: under the nested remat a step runs each block's
+    forward three times and its backward once, the mLSTM 21 times and the
+    sLSTM 3 times a step, the scan over 512 tokens (labelled "scaled", not
+    measured whole)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import ShardCtx
+    arch = cfgs.get(SSM_ARCH)
+    ctx = ShardCtx(param_dtype=torch.bfloat16)
+    p_g = ssm_block_params(arch, ctx, "cuda",
+                           torch.Generator(device="cuda").manual_seed(8))
+    p0 = {k[len("mlstm."):]: v.detach()[0].requires_grad_()
+          for k, v in p_g.items() if k.startswith("mlstm.")}
+    x = torch.randn(4, 512, arch.d_model, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    hn, hd = arch.n_heads, arch.d_model // arch.n_heads
+    gates = torch.randn(4, SSM_PROFILE_STEPS, 4, hn, hd,
+                        device="cuda").requires_grad_()
+    r = p_g["slstm.r_gates"].detach().requires_grad_()
+
+    def mlstm_fwd():
+        return xlstm.mlstm_block_apply(p0, x, arch, ctx)
+
+    def mlstm_both():
+        y = mlstm_fwd()
+        torch.autograd.grad(y, (*p0.values(), x), torch.ones_like(y))
+
+    def slstm_fwd():
+        return xlstm.slstm_scan(gates, r, hn)[0]
+
+    def slstm_both():
+        y = slstm_fwd()
+        torch.autograd.grad(y, (gates, r), torch.ones_like(y))
+    for fn in (mlstm_both, slstm_both):     # warm up: first-call setup
+        fn()
+    # the first profiled kernels of a process carry the tracer's start-up
+    # (an mLSTM forward alone then reads 6.3 ms, with its backward 8.4):
+    # one profile is taken and thrown away
+    kernel_profile(mlstm_fwd)
+    prof = {name: kernel_profile(fn) for name, fn in (
+        ("mlstm fwd", mlstm_fwd), ("mlstm fwd+bwd", mlstm_both),
+        ("slstm fwd", slstm_fwd), ("slstm fwd+bwd", slstm_both))}
+    g = arch.n_layers // arch.ssm.slstm_every
+    n_ml, n_sl = g * (arch.ssm.slstm_every - 1), g
+    tok = 512 / SSM_PROFILE_STEPS
+
+    def per_step(kind, n, scale, key):
+        fwd, both = prof[f"{kind} fwd"][key], prof[f"{kind} fwd+bwd"][key]
+        return n * scale * (3 * fwd + (both - fwd))
+    scaled = {"mlstm_ms": per_step("mlstm", n_ml, 1, "ms"),
+              "mlstm_gemm_ms": per_step("mlstm", n_ml, 1, "gemm_ms"),
+              "mlstm_kernels": per_step("mlstm", n_ml, 1, "kernels"),
+              "slstm_scan_ms": per_step("slstm", n_sl, tok, "ms"),
+              "slstm_scan_kernels": per_step("slstm", n_sl, tok, "kernels")}
+    log(f"[profile] ssm blocks (full width, bf16, batch 4 x 512; sLSTM scan "
+        f"over {SSM_PROFILE_STEPS} token steps): " + json.dumps(prof))
+    log(f"[profile] ssm scaled to one step ({n_ml} mLSTM blocks, {n_sl} "
+        f"sLSTM scans of 512 tokens, three forwards and one backward "
+        f"each; scaled, not measured whole): " + json.dumps(scaled))
+    return {"measured": prof, "scaled": scaled}
+
+
+def ssm_layouts() -> tuple[dict, list]:
+    """The full-size ssm arch's bucket counts (classic ZeRO-1 and
+    overlapped ZeRO-1) and the kernel phase's ssm shapes: the overlapped
+    layout's largest block bucket (in one group's slice) and its largest
+    tail bucket (one vocabulary table)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import bucketing
+    from repro_torch.core.compression.powersgd import matrix_shape
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    from repro_torch.train import overlap
+    arch = cfgs.get(SSM_ARCH)
+    model = Model(arch, ShardCtx(param_dtype=torch.bfloat16), device="meta")
+    ov = overlap.layout_for_model(model, arch.plan.bucket_mb)
+    by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
+    shapes = [(f"ssm overlap {which}", *matrix_shape(n), n)
+              for which, n in (
+                  ("block", max(n for n, r in by_stage if r < ov.n_stages)),
+                  ("tail", max(n for n, r in by_stage
+                               if r == ov.n_stages)))]
+    zero1 = bucketing.layout_for(list(model.parameters()),
+                                 arch.plan.bucket_mb)
+    return {"zero1": zero1.n_buckets, "overlap": ov.layout.n_buckets}, shapes
+
+
+def ssm_phase(buckets: dict, hist: dict, counts: dict) -> dict:
+    """``xlstm-350m`` at full width and depth (3 groups of 7 mLSTM blocks
+    and 1 sLSTM block, d_model 1024, vocab 50,304) on its own plan (DDP,
+    ZeRO-1, ``remat="full"``) through ``train_phase``: ZeRO-1 2 PowerSGD
+    steps, 1 SignSGD and 1 QSGD; the overlapped ZeRO-1 step 2 PowerSGD
+    steps under ``overlap`` and 2 under ``serial``, whose final states
+    and metrics must agree bit for bit; the classic fp32 step 1 step
+    uncompressed.  No run is profiled (``ssm_profiles`` stands in).
+    ``buckets`` holds the layouts' bucket counts (``ssm_layouts``); each
+    run's records and launch counts go into ``hist`` and ``counts``.
+    Returns the runs."""
+    from repro_torch.configs import base as cfgs
+    t0 = time.perf_counter()
+    sz, so = buckets["zero1"], buckets["overlap"]
+
+    def psgd(n):
+        return {"powersgd_encode": 2 * n, "powersgd_decode": n}
+    runs = {  # name -> (steps, launches per step, schedule, overrides)
+        "ssm zero1 powersgd": (2, psgd(sz), None,
+                               dict(compression="powersgd")),
+        "ssm zero1 signsgd": (1, {"pack_signs": sz, "popcount_votes": sz},
+                              None, dict(compression="signsgd")),
+        "ssm zero1 qsgd": (1, {"qsgd_quantize": sz}, None,
+                           dict(compression="qsgd")),
+        "ssm zero1 overlap powersgd": (2, psgd(so), "overlap",
+                                       dict(compression="powersgd")),
+        "ssm zero1 serial powersgd": (2, psgd(so), "serial",
+                                      dict(compression="powersgd")),
+        "ssm classic none": (1, {}, None, dict(zero1=False)),
+    }
+    kept = {}
+    for label, (steps, per_step, schedule, overrides) in runs.items():
+        hist[label], counts[label] = train_phase(
+            label, steps, per_step, 1, schedule, arch=cfgs.get(SSM_ARCH),
+            keep=kept if schedule else None, **overrides)
+    if not kept.get("same"):
+        raise AssertionError("ssm: serial and overlap differ at full width")
+    log(f"[ssm] serial == overlap bit for bit at full width: "
+        f"{len(kept['tensors'])} state tensors ("
+        f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
+        f"metrics of {len(kept['metrics'])} steps")
+    del kept
+    log(f"[ssm] phase in {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1458,8 +1846,7 @@ def flush_order_ok(order, ready, schedule: str) -> bool:
 
 def train_phase(label: str, steps: int, per_step: dict[str, int],
                 accum: int = 1, schedule: "str | None" = None,
-                arch=None, keep: "dict | None" = None, profile: bool = True,
-                **overrides):
+                arch=None, keep: "dict | None" = None, **overrides):
     """Full-width training through the port's entry points, built from the
     plan of ``arch`` (full-size ``tinyllama-1.1b`` unless given) with
     ``overrides``; returns the per-step records and the launch counts of
@@ -1468,10 +1855,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     order of every step is checked against the layout's ``bucket_ready``.
     With ``keep`` (a dict) the final parameters, ZeRO-1 shards,
     compressor states and every step's metrics are copied into it, on the
-    host.  The extra step after the records runs under the profiler
-    unless ``profile`` is false (its breakdown of a full-width zamba2
-    step costs 40-50 s of host time, most of it in PyTorch's parsing of
-    the profiler's events)."""
+    host.  A run named in ``PROFILED`` takes one more step after the
+    records, under the profiler."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -1536,19 +1921,16 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     counts = dict(kbuild.LAUNCHES)
     history = list(trainer.history)
     # one more step under the profiler, kept out of the history and counts
-    tcfg.total_steps = steps + 1
-    if not profile:
-        trainer.run()
-        torch.cuda.synchronize()
-        profiled = trainer.history.pop()
-    else:
+    extra = []
+    if label in PROFILED:
+        tcfg.total_steps = steps + 1
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             trainer.run()
         torch.cuda.synchronize()
-        profiled = trainer.history.pop()
-        breakdown = device_breakdown(prof, profiled["step_s"],
+        extra = [trainer.history.pop()]
+        breakdown = device_breakdown(prof, extra[0]["step_s"],
                                      history[-1]["step_s"])
         if schedule:
             so = stream_overlap(prof)
@@ -1582,7 +1964,7 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         if counts.get(k, 0) != want.get(k, 0):
             raise AssertionError(f"{label}: {k} launched {counts.get(k, 0)} "
                                  f"times, expected {want.get(k, 0)}")
-    for rec in history + [profiled]:
+    for rec in history + extra:
         if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm",
                                                    "moe_aux")):
             raise AssertionError(f"{label}: non-finite metrics {rec}")
@@ -1601,13 +1983,13 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         mine = state_tensors(trainer.state)
         keep["same"] = keep["metrics"] == [
             (r["loss"], r["grad_norm"], r["moe_aux"])
-            for r in history + [profiled]] and len(mine) == len(
+            for r in history + extra] and len(mine) == len(
                 keep["tensors"]) and all(
                     same_bits(a.detach(), b.to(a.device))
                     for a, b in zip(mine, keep["tensors"]))
     elif keep is not None:
         keep["metrics"] = [(r["loss"], r["grad_norm"], r["moe_aux"])
-                           for r in history + [profiled]]
+                           for r in history + extra]
         keep["tensors"] = [t.detach().cpu() for t in state_tensors(
             trainer.state)]
     del trainer, setup, data
@@ -2215,6 +2597,8 @@ def main() -> int:
                             ("classic", torch.float32))}
     hybrid_buckets, hybrid_shapes = hybrid_layouts()
     shapes += hybrid_shapes
+    ssm_buckets, ssm_shapes = ssm_layouts()
+    shapes += ssm_shapes
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -2239,6 +2623,11 @@ def main() -> int:
         hybrid_reference()
         hybrid_block_syncs()
         log(f"[hybrid] reference and block syncs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ssm_reference()
+        ssm_block_syncs()
+        log(f"[ssm] reference and block syncs in "
             f"{time.perf_counter() - t0:.1f} s")
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
         ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
@@ -2347,6 +2736,10 @@ def main() -> int:
         del kept
         log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
         hybrid_runs = hybrid_phase(hybrid_buckets, hist, counts)
+        ssm_runs = ssm_phase(ssm_buckets, hist, counts)
+        t0 = time.perf_counter()
+        ssm_profiles()
+        log(f"[ssm] block profiles in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         hist["adaptive powersgd"], counts["adaptive powersgd"] = \
             adaptive_phase(hist, ovs["zero1"].layout)
@@ -2427,6 +2820,8 @@ def main() -> int:
                              for label in moe_runs},
             "hybrid_launches": {label: counts[label].get(name, 0)
                                 for label in hybrid_runs},
+            "ssm_launches": {label: counts[label].get(name, 0)
+                             for label in ssm_runs},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

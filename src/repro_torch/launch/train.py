@@ -3,8 +3,8 @@
 Runs the port's DDP step as the arch configures it (``tinyllama-1.1b``:
 ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
 ``--device cpu``.  ``--arch`` takes every registered arch: the dense,
-MoE and hybrid (``zamba2-2.7b``) families train; one whose family the
-port does not build yet (``ssm``, ``audio``, ``vlm``) fails at
+MoE, hybrid (``zamba2-2.7b``) and ssm (``xlstm-350m``) families train; one
+whose family the port does not build yet (``audio``, ``vlm``) fails at
 ``train_step.build`` with the family named.  An arch configured for
 FSDP runs only with ``--overlap`` or ``--adaptive``, which force
 ``dp_mode="ddp"`` and say so, as in the JAX package.

@@ -1,7 +1,7 @@
-"""The decoder as an ``nn.Module``: the dense, MoE and hybrid families of
-``repro.models.model.Model`` (init and loss).  Counterpart of those
-families at tensor-parallel degree 1; ``ssm``, ``audio`` and ``vlm``
-raise ``NotImplementedError``.
+"""The decoder as an ``nn.Module``: the dense, MoE, hybrid and ssm families
+of ``repro.models.model.Model`` (init and loss).  Counterpart of those
+families at tensor-parallel degree 1; ``audio`` and ``vlm`` raise
+``NotImplementedError``.
 
 The parameters are stored as the JAX package stores them: one stacked
 leaf per block weight, weights laid out ``(d_in, d_out)``, under the JAX
@@ -36,8 +36,23 @@ A group runs the shared dense block with ``w + a @ b`` (rank
 ``attn.wq``, ``mlp.gate`` and ``mlp.up``, then its ``attn_every`` Mamba2
 blocks (``models.mamba2``).  ``lora.*.b`` starts at zero.
 
-Whatever the parameter dtype, the MoE ``router`` and ``shared_gate`` and
-the Mamba2 ``A_log``, ``D`` and ``dt_bias`` are fp32 (``leaf_dtype``).
+The ssm family (xLSTM) stacks ``G = n_layers // slstm_every`` groups
+under ``groups.``, each ``slstm_every - 1`` mLSTM blocks then one sLSTM
+block (``models.xlstm``), with no positional input (``rope="none"``):
+
+    embed.table, final_norm.scale,
+    groups.mlstm.{b_if, conv, ln, norm, out.w, up_v.w, up_z.w, w_if, wk,
+                  wq}                     (G, slstm_every - 1, ...)
+    groups.slstm.{b_gates, conv, ffn.down, ffn.up, ln, ln2, norm,
+                  r_gates, w_gates}       (G, ...)
+    unembed.table
+
+``b_if`` starts at zeros then ``linspace(3, 6)``, ``b_gates`` at zeros with
+3.0 on the forget gates.
+
+Whatever the parameter dtype, the MoE ``router`` and ``shared_gate``, the
+Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the xLSTM ``b_if``, ``w_if``,
+``b_gates``, ``r_gates`` and ``w_gates`` are fp32 (``leaf_dtype``).
 
 ``parameters()`` therefore yields the leaves in the order in which the JAX
 package ravels its gradient into buckets, which PowerSGD depends on.  The
@@ -60,6 +75,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models import xlstm
 from repro_torch.models.layers import (ShardCtx, embedding_lookup,
                                        trunc_normal_)
 
@@ -68,7 +84,7 @@ SHARED_PREFIX = "shared."
 #: the families the port builds, and the prefix of each one's stacked
 #: leaves (the JAX package's ``params`` key)
 STACK_PREFIX = {"dense": BLOCK_PREFIX, "moe": BLOCK_PREFIX,
-                "hybrid": "groups."}
+                "hybrid": "groups.", "ssm": "groups."}
 FAMILIES = tuple(STACK_PREFIX)
 #: the rank of the zamba2 shared block's per-group LoRA adapters
 ZAMBA_LORA_RANK = 64
@@ -77,7 +93,9 @@ LORA_TARGETS = {"attn.wq.w": "wq", "mlp.gate.w": "gate", "mlp.up.w": "up"}
 #: the leaves kept in fp32 whatever the parameter dtype
 FP32_LEAVES = frozenset(
     [BLOCK_PREFIX + n for n in moe_mod.FP32_LEAVES]
-    + ["groups.mamba." + n for n in mamba2.FP32_LEAVES])
+    + ["groups.mamba." + n for n in mamba2.FP32_LEAVES]
+    + ["groups.mlstm." + n for n in xlstm.MLSTM_FP32_LEAVES]
+    + ["groups.slstm." + n for n in xlstm.SLSTM_FP32_LEAVES])
 
 
 def _mlp_layout(prefix: str, lead: tuple, d: int, d_ff: int) -> list:
@@ -137,11 +155,21 @@ def _hybrid_layout(cfg) -> list:
     return out + _mlp_layout(SHARED_PREFIX + "mlp.", (), d, cfg.d_ff)
 
 
+def _xlstm_layout(cfg) -> list:
+    """The xLSTM groups: per group ``slstm_every - 1`` mLSTM blocks and
+    one sLSTM block, in leaf order."""
+    g = cfg.n_layers // cfg.ssm.slstm_every
+    return xlstm.mlstm_layout(cfg, (g, cfg.ssm.slstm_every - 1),
+                              "groups.mlstm.") \
+        + xlstm.slstm_layout(cfg, (g,), "groups.slstm.")
+
+
 def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
                                     "float | str | None"]]:
     """(name, shape, init) of every leaf, in leaf order.  ``init`` is a
     truncated-normal std, None for ones, ``"zeros"``, or the name of a
-    Mamba2 draw (``mamba2.param_layout``)."""
+    Mamba2 or xLSTM draw (``mamba2.param_layout``,
+    ``xlstm.mlstm_layout``, ``xlstm.slstm_layout``)."""
     d = cfg.d_model
     io = [("embed.table", (cfg.vocab, d), 0.02),
           ("final_norm.scale", (d,), None)]
@@ -149,6 +177,8 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
         else [("unembed.table", (cfg.vocab, d), 0.02)]
     if cfg.family == "hybrid":
         return io + _hybrid_layout(cfg) + tail
+    if cfg.family == "ssm":
+        return io + _xlstm_layout(cfg) + tail
     out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,))
     if cfg.family == "moe":
         out += _moe_layout(cfg)
@@ -159,8 +189,8 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
 
 def leaf_dtype(name: str, ctx: ShardCtx) -> torch.dtype:
     """A leaf's storage dtype: fp32 for ``FP32_LEAVES`` (the MoE router
-    and shared-expert gate, the Mamba2 ``A_log``, ``D`` and ``dt_bias``),
-    ``ctx.param_dtype`` otherwise."""
+    and shared-expert gate, the Mamba2 ``A_log``, ``D`` and ``dt_bias``,
+    the xLSTM gate weights and biases), ``ctx.param_dtype`` otherwise."""
     return torch.float32 if name in FP32_LEAVES else ctx.param_dtype
 
 
@@ -175,6 +205,10 @@ def init_leaf_(p: torch.Tensor, init: "float | str | None",
         p.copy_(mamba2.a_log_init(p.shape[-1]).expand(p.shape))
     elif init == "dt_bias":
         mamba2.dt_bias_init_(p, generator)
+    elif init == "b_if":
+        p.copy_(xlstm.b_if_init(p.shape[-1] // 2).expand(p.shape))
+    elif init == "b_gates":
+        p.copy_(xlstm.b_gates_init(p.shape[-1] // 4).expand(p.shape))
     else:
         trunc_normal_(p, init, generator)
 
@@ -195,7 +229,9 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
                 f"(the port has {', '.join(FAMILIES)})")
-        if cfg.rope != "rope":
+        # the ssm family has no positional input: the JAX package adds
+        # positions under rope="none" only for the audio family
+        if cfg.rope != ("none" if cfg.family == "ssm" else "rope"):
             raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r}")
         if cfg.plan.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.plan.remat!r}")
@@ -255,9 +291,12 @@ class Model(nn.Module):
 
     @property
     def n_stages(self) -> int:
-        """Slices of the stacked leaves: layers, or zamba2 groups."""
+        """Slices of the stacked leaves: layers, or zamba2 or xLSTM
+        groups."""
         if self.cfg.family == "hybrid":
             return self.cfg.n_layers // self.cfg.ssm.attn_every
+        if self.cfg.family == "ssm":
+            return self.cfg.n_layers // self.cfg.ssm.slstm_every
         return self.cfg.n_layers
 
     def _remat(self) -> bool:
@@ -286,17 +325,36 @@ class Model(nn.Module):
                 else mamba2.mamba_block_apply(*args)
         return x
 
+    def _xlstm_group_apply(self, p_g: dict, x: torch.Tensor) -> torch.Tensor:
+        """One xLSTM group: its mLSTM blocks, then its sLSTM block, each
+        recomputed in the backward pass under ``remat="full"``."""
+        cfg, ctx = self.cfg, self.ctx
+        remat = self._remat()
+        inner = [(name[len("mlstm."):], p.unbind(0))
+                 for name, p in p_g.items() if name.startswith("mlstm.")]
+        blocks = [(xlstm.mlstm_block_apply, {name: p[i] for name, p in inner})
+                  for i in range(cfg.ssm.slstm_every - 1)]
+        blocks.append((xlstm.slstm_block_apply,
+                       {name[len("slstm."):]: p for name, p in p_g.items()
+                        if name.startswith("slstm.")}))
+        for fn, p in blocks:
+            x = checkpoint(fn, p, x, cfg, ctx, use_reentrant=False) \
+                if remat else fn(p, x, cfg, ctx)
+        return x
+
     def stage_block(self, p_l: dict, x: torch.Tensor,
                     positions: torch.Tensor, shared: "dict | None" = None):
         """One stage on one slice of the stacked parameters (``p_l``:
         names under ``stack_prefix`` -> that slice): a block, or for the
         hybrid family a group, which also reads ``shared`` (names under
-        ``shared.`` -> the shared block's parameters).  Recomputed in the
-        backward pass when ``remat="full"``.  Returns the stage's output,
-        and for the MoE family (``has_aux``) ``(output, load-balancing
-        loss)``."""
+        ``shared.`` -> the shared block's parameters), or for the ssm
+        family an xLSTM group.  Recomputed in the backward pass when
+        ``remat="full"``.  Returns the stage's output, and for the MoE
+        family (``has_aux``) ``(output, load-balancing loss)``."""
         if self.cfg.family == "hybrid":
             fn, args = self._group_apply, (p_l, shared, x, positions)
+        elif self.cfg.family == "ssm":
+            fn, args = self._xlstm_group_apply, (p_l, x)
         else:
             fn = moe_mod.moe_block_apply if self.has_aux \
                 else tf.dense_block_apply

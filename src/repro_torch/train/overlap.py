@@ -55,8 +55,12 @@ sit between ``final_norm`` and ``shared`` in the leaf order: the layout
 picks the stack by its prefix, wherever it sits, and the tail is the
 rest in parameter order.  Every group reads the shared block; its
 gradient is summed over the groups' backwards and flushed with the tail.
+The ssm family's stage is an xLSTM group (its mLSTM blocks and its sLSTM
+block), whose leaves sit between ``final_norm`` and ``unembed``; it has
+no shared leaves, so its tail is the embedding, the final norm and the
+unembedding, as in the dense family.
 
-Supported: the dense, MoE and hybrid families (the ones the port has),
+Supported: the dense, MoE, hybrid and ssm families (the ones the port has),
 ZeRO-1 through ``train_step.zero1_apply`` on the ordered leaves, and
 ``accum > 1`` (microbatches 0..N-2 run ``raw`` into an fp32 sum; each
 bucket is flushed once, during the final microbatch's backward).
@@ -80,7 +84,8 @@ from repro_torch.parallel import commplan as cp
 
 #: families whose training stack is a single block collection, and its
 #: parameter prefix (the JAX package's ``params`` key).
-_STACK_KEYS = {"dense": "blocks", "moe": "blocks", "hybrid": "groups"}
+_STACK_KEYS = {"dense": "blocks", "moe": "blocks", "hybrid": "groups",
+               "ssm": "groups"}
 
 
 # --------------------------------------------------------------------------

@@ -24,8 +24,9 @@ The MoE family adds its load-balancing loss to the differentiated loss
 as the JAX package does, ``MOE_AUX_COEF * moe_aux / p_fsdp``, and every
 step reports ``moe_aux`` (0 for the other families).  Under ZeRO-1 the
 fp32 leaves (the MoE router and shared gate, the Mamba2 ``A_log``, ``D``
-and ``dt_bias``) ride the bf16 buckets and the fp32 master, rounded
-through bf16 as the JAX package's majority-dtype buckets round them.
+and ``dt_bias``, the xLSTM gate weights and biases) ride the bf16 buckets
+and the fp32 master, rounded through bf16 as the JAX package's
+majority-dtype buckets round them.
 Nothing here depends on where a family's stacked leaves sit in the leaf
 order: the classic step ravels the parameters in that order, whatever it
 is.

@@ -6,10 +6,10 @@ JAX package's (``repro.configs``, ``repro.models.registry``).
 * ``param_count`` and ``active_param_count`` equal JAX's exactly at full
   size for every arch the port builds (counted on the ``meta`` device),
   and ``model_flops`` equals JAX's.
-* The other three families raise ``NotImplementedError`` naming the family
+* The other two families raise ``NotImplementedError`` naming the family
   from ``Model``, ``param_count`` and ``train_step.build``.
 * ``adaptive.controller``'s parameter count goes through the registry, so
-  ``resolve_plan`` runs for the MoE and hybrid archs (they raised
+  ``resolve_plan`` runs for the MoE, hybrid and ssm archs (they raised
   before).
 """
 import dataclasses
@@ -35,10 +35,10 @@ COUNTS = {
     "qwen2-moe-a2.7b": (14_315_636_736, 2_689_026_048),
     "arctic-480b": (476_850_275_328, 15_584_314_368),
     "zamba2-2.7b": (2_440_081_568, 2_440_081_568),
+    "xlstm-350m": (314_143_912, 314_143_912),
 }
 #: the families the port does not build yet
-NOT_PORTED = {"qwen2-vl-7b": "vlm", "seamless-m4t-medium": "audio",
-              "xlstm-350m": "ssm"}
+NOT_PORTED = {"qwen2-vl-7b": "vlm", "seamless-m4t-medium": "audio"}
 
 
 def test_every_arch_is_registered():
@@ -106,10 +106,10 @@ def test_unported_families_raise_naming_the_family(name):
 def test_controller_param_count_goes_through_the_registry():
     """``_param_count`` built ``Model`` itself before, so it already gave
     these numbers for the dense archs; that it equals the registry's for
-    the MoE and hybrid archs too is what ``resolve_plan`` on them
+    the MoE, hybrid and ssm archs too is what ``resolve_plan`` on them
     needs."""
     from repro_torch.adaptive import controller as actl
     for name, (total, _) in COUNTS.items():
         assert actl._param_count(tcfgs.get(name)) == total
-    with pytest.raises(NotImplementedError, match="'ssm'"):
-        actl._param_count(tcfgs.get("xlstm-350m"))
+    assert actl._param_count(tcfgs.get("xlstm-350m")) == 314_143_912 == \
+        jcfgs.get("xlstm-350m").param_count()

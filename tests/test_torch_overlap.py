@@ -807,8 +807,8 @@ def test_build_runs_the_overlapped_step(world):
     with pytest.raises(ValueError, match="FSDP"):
         overlap.check_supported(arch, dataclasses.replace(
             arch.plan, dp_mode="fsdp"))
-    with pytest.raises(NotImplementedError, match="ssm"):
-        overlap.check_supported(dataclasses.replace(arch, family="ssm"),
+    with pytest.raises(NotImplementedError, match="audio"):
+        overlap.check_supported(dataclasses.replace(arch, family="audio"),
                                 arch.plan)
     assert overlap.supports(arch, arch.plan) == (True, "")
     with pytest.raises(ValueError, match="schedule"):
