@@ -64,7 +64,12 @@ Phases, each fatal on failure:
      at batch 4 x 512 held under 2 GiB of added memory
      (``ssm_reference``); one full-width xLSTM group (7 mLSTM blocks and
      the sLSTM block) forward and backward with nested remat under the
-     sync debug mode "error" (``ssm_block_syncs``);
+     sync debug mode "error" (``ssm_block_syncs``); one full-width
+     encoder block and one decoder block over a full-width memory,
+     forward and gradients (the memory's included) on the card against
+     the CPU in fp32 (``audio_reference``); one full-width decoder block
+     forward and backward with remat under the sync debug mode "error"
+     (``audio_block_syncs``);
   6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -109,7 +114,8 @@ Phases, each fatal on failure:
      the same checks as above, with finite ``moe_aux``, and the MoE
      routing, dispatch and combine as a layer of their own in the
      overlapped PowerSGD run's profile.  Then the hybrid slice
-     (``hybrid_phase``): ``zamba2-2.7b`` at full width and depth (54 Mamba2 blocks in 9 groups, d_model
+     (``family_phase("hybrid", ...)``): ``zamba2-2.7b`` at full width and
+     depth (54 Mamba2 blocks in 9 groups, d_model
      2560, d_inner 5120, 80 SSD heads of 64, state 64, chunk 256, vocab
      32,000; 2,440,081,568 parameters) on its own plan (DDP, ZeRO-1,
      ``remat="full"``): ZeRO-1 (187 bf16 buckets) 2 PowerSGD steps, 1
@@ -118,7 +124,8 @@ Phases, each fatal on failure:
      must agree bit for bit; the classic fp32 step 1 step uncompressed;
      the same checks as above (no run profiled: the breakdown of one
      zamba2 step costs 40-50 s of host time).  Then
-     the ssm slice (``ssm_phase``): ``xlstm-350m`` at full width and depth
+     the ssm slice (``family_phase("ssm", ...)``): ``xlstm-350m`` at full
+     width and depth
      (3 groups of 7 mLSTM blocks and 1 sLSTM block, d_model 1024, 4
      heads, vocab 50,304; 314,143,912 parameters) on its own plan (DDP,
      ZeRO-1, ``remat="full"``): ZeRO-1 2 PowerSGD steps, 1 SignSGD and
@@ -126,9 +133,21 @@ Phases, each fatal on failure:
      the overlapped ZeRO-1 step 2 PowerSGD under ``overlap`` and 2 under
      ``serial``, which must agree bit for bit; the classic fp32 step 1
      step uncompressed; the same checks, no run profiled (a step is some
-     10^5 kernels); then ``ssm_profiles``: one mLSTM block and the sLSTM
-     scan over 64 tokens profiled, forward and forward plus backward,
-     and scaled to one step.  Then the
+     10^5 kernels).  Then the audio slice (``family_phase("audio",
+     ...)``): ``seamless-m4t-medium`` at full width and depth (12 encoder
+     and 12 decoder blocks, d_model 1024, 16 heads, d_ff 4096, two
+     untied vocabulary tables of 256,206; 877,094,912 parameters) on its
+     own plan (DDP, ZeRO-1, ``remat="full"``), each batch with a seeded
+     fp32 ``enc_embeds`` (``with_frames``): ZeRO-1 (67 bf16 buckets) 2
+     PowerSGD steps, 1 SignSGD and 1 QSGD; the overlapped ZeRO-1 step (24
+     leaf-aligned buckets, the decoder's stages first, then the
+     encoder's) 2 PowerSGD under ``overlap`` and 2 under ``serial``,
+     which must agree bit for bit; the classic fp32 step 1 step
+     uncompressed; the same checks, with the overlap and serial runs
+     profiled (the cross-attention, the GELU MLPs and the loss head as
+     layers of their own).  Then ``ssm_profiles``: one mLSTM block and
+     the sLSTM scan over 64 tokens profiled, forward and forward plus
+     backward, and scaled to one step.  Then the
      adaptive controller: ``resolve_plan`` for the full-size arch at
      n_dev = 2, batch 4 x 512, on the paper's V100 preset (fatal unless
      PowerSGD on overlapped ZeRO-1, the JAX package's decision), 3 steps
@@ -179,13 +198,14 @@ The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
 classic ZeRO-1 step's and the classic fp32 step's, the MoE slice's
 overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
-elements), the hybrid slice's (83,931,552 and 81,920,000) and the ssm
-slice's (26,275,896 and 63,056,896); the ``kernels`` line counts each
-kernel's launches in the overlapped ZeRO-1 run that drives it, in the
-live cells (``experiment_launches``), in the adaptive run
-(``adaptive_launches``), in each MoE run (``moe_launches``), in each
-hybrid run (``hybrid_launches``), in each ssm run (``ssm_launches``) and
-per pod step.
+elements), the hybrid slice's (83,931,552 and 81,920,000), the ssm
+slice's (26,275,896 and 63,056,896) and the audio slice's (16,781,312
+and 271,794,176); the ``kernels`` line counts each kernel's launches in
+the overlapped ZeRO-1 run that drives it, in the live cells
+(``experiment_launches``), in the adaptive run (``adaptive_launches``),
+in each MoE run (``moe_launches``), in each hybrid run
+(``hybrid_launches``), in each ssm run (``ssm_launches``), in each audio
+run (``audio_launches``) and per pod step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -231,7 +251,8 @@ KERNELS = ("powersgd_encode", "powersgd_decode", "pack_signs",
 #: for an xLSTM step of some 10^5 kernels)
 PROFILED = ("zero1 powersgd", "zero1 overlap powersgd",
             "classic overlap powersgd", "moe zero1 overlap powersgd",
-            "moe zero1 serial powersgd")
+            "moe zero1 serial powersgd", "audio zero1 overlap powersgd",
+            "audio zero1 serial powersgd")
 
 
 def log(msg: str) -> None:
@@ -443,7 +464,8 @@ def kernel_phase(shapes, rank):
                  lambda: kq.quantize(g, norm, levels, u),
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
-        if tag.startswith(("classic", "moe", "hybrid", "ssm")):  # no path
+        if tag.startswith(("classic", "moe", "hybrid", "ssm",
+                           "audio")):                         # no path
             # MSTop-K's 1%, from every k-th element (torch.quantile
             # takes at most 2**24)
             t = torch.quantile(g.abs()[::-(-n // 2**24)], 0.99)
@@ -770,17 +792,26 @@ KERNEL_GROUPS = (
 
 #: the layers of the kernels launched inside a model's profiler ranges and
 #: by the backward of the operators run there: the MoE routing, dispatch
-#: and combine (``models.moe.DISPATCH`` and ``COMBINE``), and the Mamba2
-#: SSD scan and causal convolution (``models.mamba2.SSD`` and ``CONV``)
+#: and combine (``models.moe.DISPATCH`` and ``COMBINE``), the Mamba2
+#: SSD scan and causal convolution (``models.mamba2.SSD`` and ``CONV``),
+#: the enc-dec cross-attention (``models.encdec.CROSS``) and GELU MLPs
+#: (``models.transformer.GELU_MLP``), and every family's loss head, one
+#: chunk at a time (``models.transformer.LM_LOSS``)
 MOE_LAYER = "moe dispatch and combine"
 MAMBA_LAYER = "mamba ssd and conv"
+CROSS_LAYER = "cross-attention"
+GELU_LAYER = "gelu mlp"
+LOSS_LAYER = "loss head"
 
 
 def ranged_layers() -> dict:
-    from repro_torch.models import mamba2
+    from repro_torch.models import encdec, mamba2
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
     return {MOE_LAYER: (moe_mod.DISPATCH, moe_mod.COMBINE),
-            MAMBA_LAYER: (mamba2.SSD, mamba2.CONV)}
+            MAMBA_LAYER: (mamba2.SSD, mamba2.CONV),
+            CROSS_LAYER: (encdec.CROSS,), GELU_LAYER: (tf.GELU_MLP,),
+            LOSS_LAYER: (tf.LM_LOSS,)}
 
 
 def ranged_kernels(prof, layers: dict) -> dict:
@@ -837,7 +868,8 @@ def device_breakdown(prof, profiled_s: float, step_s: float) -> dict:
     own wall time, profiler cost included, is ``profiled_s``.  The MoE
     routing, dispatch and combine and the Mamba2 scan and convolution
     (``ranged_kernels``) are layers of their own, ``MOE_LAYER`` and
-    ``MAMBA_LAYER``."""
+    ``MAMBA_LAYER``, and so are the cross-attention, the GELU MLPs and
+    the loss head (``CROSS_LAYER``, ``GELU_LAYER``, ``LOSS_LAYER``)."""
     layers = ranged_layers()
     ranges = {r for rs in layers.values() for r in rs}
     groups: dict[str, float] = {}
@@ -1237,20 +1269,21 @@ def moe_block_syncs() -> None:
 
 
 HYBRID_ARCH = "zamba2-2.7b"
-#: card against CPU in fp32 (the Mamba2 block's forward and gradients; the
-#: chunked SSD against the sequential one): max |a - b| <= RTOL * |b| +
-#: SCALE * max|b|.  The decays amplify the matmuls' rounding of dt, B and
-#: C: the CPU tests measured 6.4e-5 of the largest gradient between two
-#: fp32 evaluations (``tests/test_torch_mamba2.py``)
-HYBRID_RTOL, HYBRID_SCALE = 1e-4, 1e-4
+#: card against CPU in fp32 (the Mamba2, xLSTM, encoder and decoder
+#: blocks' forward and gradients; the chunked SSD and mLSTM against the
+#: sequential ones): max |a - b| <= RTOL * |b| + SCALE * max|b|.  The
+#: Mamba2 decays amplify the matmuls' rounding of dt, B and C: the CPU
+#: tests measured 6.4e-5 of the largest gradient between two fp32
+#: evaluations (``tests/test_torch_mamba2.py``)
+CARD_RTOL, CARD_SCALE = 1e-4, 1e-4
 
 
-def hybrid_close(got, want, what: str) -> float:
+def card_close(got, want, what: str) -> float:
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
     diff = (got - want).abs()
     scale = want.abs().max().item()
-    if not bool((diff <= HYBRID_RTOL * want.abs()
-                 + HYBRID_SCALE * scale).all()):
+    if not bool((diff <= CARD_RTOL * want.abs()
+                 + CARD_SCALE * scale).all()):
         raise AssertionError(f"{what}: max |card - CPU| {diff.max().item()}"
                              f" (largest entry {scale})")
     return diff.max().item() / max(scale, 1e-30)
@@ -1286,7 +1319,7 @@ def hybrid_reference() -> None:
     one full-width Mamba2 block (d_model 2560, d_inner 5120, batch 1 x 512:
     two chunks) forward and gradients on the card against the same code
     on the CPU, in fp32, from the same parameters and inputs, within
-    ``HYBRID_RTOL`` and ``HYBRID_SCALE``."""
+    ``CARD_RTOL`` and ``CARD_SCALE``."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -1307,8 +1340,8 @@ def hybrid_reference() -> None:
     with torch.no_grad():
         y, hf = mamba2.ssd_chunked(*args, sc.chunk, h0=h0.cuda())
         ry, rh = mamba2.ssd_reference(*args, h0=h0.cuda())
-    errs = [hybrid_close(y, ry, "ssd_chunked y"),
-            hybrid_close(hf, rh, "ssd_chunked h")]
+    errs = [card_close(y, ry, "ssd_chunked y"),
+            card_close(hf, rh, "ssd_chunked h")]
     log(f"[reference] hybrid ssd_chunked == ssd_reference on the card "
         f"(b {b}, l {l}, {h} heads of {hd}, state {n}, chunk {sc.chunk}; "
         f"max err / max {max(errs):.3g})")
@@ -1329,7 +1362,7 @@ def hybrid_reference() -> None:
                                     (*p.values(), xx))
         out[dev] = [yy, *grads]
     names = ["y", *p0, "x"]
-    errs = {nm: hybrid_close(a, c, f"mamba block {nm}")
+    errs = {nm: card_close(a, c, f"mamba block {nm}")
             for nm, a, c in zip(names, out["cuda"], out["cpu"])}
     log(f"[reference] hybrid mamba block (d_model {arch.d_model}, d_inner "
         f"{sc.expand * arch.d_model}, batch 1 x 512): card == CPU in fp32, "
@@ -1378,86 +1411,7 @@ def hybrid_block_syncs() -> None:
         f"\"error\": no host sync ({ms:.1f} ms, {len(grads)} gradients)")
 
 
-def hybrid_layouts() -> tuple[dict, list]:
-    """The full-size hybrid arch's bucket counts (classic ZeRO-1 and
-    overlapped ZeRO-1, from the layouts on the ``meta`` device) and the
-    kernel phase's hybrid shapes: the overlapped layout's largest block
-    bucket (one group's slice) and its largest tail bucket (one
-    vocabulary table)."""
-    import torch
-
-    from repro_torch.configs import base as cfgs
-    from repro_torch.core import bucketing
-    from repro_torch.core.compression.powersgd import matrix_shape
-    from repro_torch.models.layers import ShardCtx
-    from repro_torch.models.model import Model
-    from repro_torch.train import overlap
-    arch = cfgs.get(HYBRID_ARCH)
-    model = Model(arch, ShardCtx(param_dtype=torch.bfloat16), device="meta")
-    ov = overlap.layout_for_model(model, arch.plan.bucket_mb)
-    by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
-    shapes = [(f"hybrid overlap {which}", *matrix_shape(n), n)
-              for which, n in (
-                  ("block", max(n for n, r in by_stage if r < ov.n_stages)),
-                  ("tail", max(n for n, r in by_stage
-                               if r == ov.n_stages)))]
-    zero1 = bucketing.layout_for(list(model.parameters()),
-                                 arch.plan.bucket_mb)
-    return {"zero1": zero1.n_buckets, "overlap": ov.layout.n_buckets}, shapes
-
-
-def hybrid_phase(buckets: dict, hist: dict, counts: dict) -> dict:
-    """``zamba2-2.7b`` at full width and depth (54 Mamba2 blocks in 9
-    groups, the shared block with per-group LoRA) on its own plan (DDP,
-    ZeRO-1, ``remat="full"``) through ``train_phase``: ZeRO-1 2 PowerSGD
-    steps, 1 SignSGD, 1 QSGD; the overlapped ZeRO-1 step 2 PowerSGD steps
-    under ``overlap`` and 2 under ``serial``, whose final states and
-    metrics must agree bit for bit; the classic fp32 step 1 step
-    uncompressed.  ``buckets`` holds the layouts' bucket counts
-    (``hybrid_layouts``); each run's records and launch counts go into
-    ``hist`` and ``counts``.  Returns the runs."""
-    from repro_torch.configs import base as cfgs
-    t0 = time.perf_counter()
-    hz, ho = buckets["zero1"], buckets["overlap"]
-
-    def psgd(n):
-        return {"powersgd_encode": 2 * n, "powersgd_decode": n}
-    runs = {  # name -> (steps, launches per step, schedule, overrides)
-        "hybrid zero1 powersgd": (2, psgd(hz), None,
-                                  dict(compression="powersgd")),
-        "hybrid zero1 signsgd": (1, {"pack_signs": hz, "popcount_votes": hz},
-                                 None, dict(compression="signsgd")),
-        "hybrid zero1 qsgd": (1, {"qsgd_quantize": hz}, None,
-                              dict(compression="qsgd")),
-        "hybrid zero1 overlap powersgd": (2, psgd(ho), "overlap",
-                                          dict(compression="powersgd")),
-        "hybrid zero1 serial powersgd": (2, psgd(ho), "serial",
-                                         dict(compression="powersgd")),
-        "hybrid classic none": (1, {}, None, dict(zero1=False)),
-    }
-    kept = {}
-    for label, (steps, per_step, schedule, overrides) in runs.items():
-        hist[label], counts[label] = train_phase(
-            label, steps, per_step, 1, schedule,
-            arch=cfgs.get(HYBRID_ARCH), keep=kept if schedule else None,
-            **overrides)
-    if not kept.get("same"):
-        raise AssertionError("hybrid: serial and overlap differ at full "
-                             "width")
-    log(f"[hybrid] serial == overlap bit for bit at full width: "
-        f"{len(kept['tensors'])} state tensors ("
-        f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
-        f"metrics of {len(kept['metrics'])} steps")
-    del kept
-    log(f"[hybrid] phase in {time.perf_counter() - t0:.1f} s")
-    return runs
-
-
 SSM_ARCH = "xlstm-350m"
-#: card against CPU in fp32 (an xLSTM block's forward and gradients; the
-#: chunked mLSTM against the sequential one): max |a - b| <= RTOL * |b| +
-#: SCALE * max|b|, as for the Mamba2 block
-SSM_RTOL, SSM_SCALE = 1e-4, 1e-4
 #: an mLSTM block's forward and backward at batch 4 x 512 must add less
 #: device memory than this (a three-operand einsum contracted left to
 #: right builds a 2 GiB (b, t, h, v, k) tensor a chunk)
@@ -1486,7 +1440,7 @@ def ssm_reference(device: str = "cuda") -> dict:
     a nonzero carry), outputs and final carries; one full-width mLSTM and
     one sLSTM block (d_model 1024, batch 1 x 512) forward and gradients on
     the card against the same code on the CPU, in fp32, from the same
-    parameters and inputs, within ``SSM_RTOL`` and ``SSM_SCALE``; one
+    parameters and inputs, within ``CARD_RTOL`` and ``CARD_SCALE``; one
     mLSTM block's forward and backward at batch 4 x 512 in bf16 (the
     training step's), whose added peak memory must stay under
     ``SSM_BLOCK_PEAK``.  Returns the printed numbers."""
@@ -1514,9 +1468,9 @@ def ssm_reference(device: str = "cuda") -> dict:
         ry, (rC, rn, rm) = xlstm.mlstm_reference(*args, carry)
     # the carries are stored under their own stabilisers: compare C exp(m)
     scale = torch.exp(m - rm)
-    errs = [ssm_close(y, ry, "mlstm_chunked y"),
-            ssm_close(C * scale[..., None, None], rC, "mlstm_chunked C"),
-            ssm_close(n * scale[..., None], rn, "mlstm_chunked n")]
+    errs = [card_close(y, ry, "mlstm_chunked y"),
+            card_close(C * scale[..., None, None], rC, "mlstm_chunked C"),
+            card_close(n * scale[..., None], rn, "mlstm_chunked n")]
     out = {"mlstm_chunked_err": max(errs)}
     log(f"[reference] ssm mlstm_chunked == mlstm_reference on the card (b "
         f"{b}, l {l}, {hn} heads, q/k {dk}, v {dv}, chunk {arch.ssm.chunk}, "
@@ -1542,7 +1496,7 @@ def ssm_reference(device: str = "cuda") -> dict:
                                         (*p.values(), xx))
             res[dev] = [yy, *grads]
         names = ["y", *p0, "x"]
-        errs = {nm: ssm_close(a, c, f"{kind} block {nm}")
+        errs = {nm: card_close(a, c, f"{kind} block {nm}")
                 for nm, a, c in zip(names, res[device], res["cpu"])}
         out[f"{kind}_block_err"] = max(errs.values())
         log(f"[reference] ssm {kind} block (d_model {arch.d_model}, batch "
@@ -1577,16 +1531,6 @@ def ssm_reference(device: str = "cuda") -> dict:
     if not all(bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("mlstm block: non-finite gradient")
     return out
-
-
-def ssm_close(got, want, what: str) -> float:
-    got, want = got.detach().float().cpu(), want.detach().float().cpu()
-    diff = (got - want).abs()
-    scale = want.abs().max().item()
-    if not bool((diff <= SSM_RTOL * want.abs() + SSM_SCALE * scale).all()):
-        raise AssertionError(f"{what}: max |card - CPU| {diff.max().item()}"
-                             f" (largest entry {scale})")
-    return diff.max().item() / max(scale, 1e-30)
 
 
 def ssm_block_syncs(device: str = "cuda") -> None:
@@ -1743,11 +1687,147 @@ def ssm_profiles() -> dict:
     return {"measured": prof, "scaled": scaled}
 
 
-def ssm_layouts() -> tuple[dict, list]:
-    """The full-size ssm arch's bucket counts (classic ZeRO-1 and
-    overlapped ZeRO-1) and the kernel phase's ssm shapes: the overlapped
-    layout's largest block bucket (in one group's slice) and its largest
-    tail bucket (one vocabulary table)."""
+AUDIO_ARCH = "seamless-m4t-medium"
+#: the families whose arch runs at full width and depth through
+#: ``family_phase``: (tag, arch)
+FAMILY_PHASES = (("hybrid", HYBRID_ARCH), ("ssm", SSM_ARCH),
+                 ("audio", AUDIO_ARCH))
+
+
+def with_frames(arch, batch: dict, seed: int) -> dict:
+    """``batch`` and, for the audio family, its ``enc_embeds``: the
+    stubbed frontend's frames, a standard normal ``(B, S, d_model)`` in
+    fp32 from ``seed``, the encoder as long as the decoder."""
+    import torch
+    if arch.family != "audio":
+        return batch
+    b, s = batch["tokens"].shape
+    gen = torch.Generator().manual_seed(seed)
+    return {**batch, "enc_embeds": torch.randn(b, s, arch.d_model,
+                                               generator=gen)}
+
+
+def audio_block_params(arch, ctx, device, gen) -> dict:
+    """Layer 0's parameters of each stack (``"enc"`` and ``"dec"``: names
+    under ``enc_blocks.`` and ``dec_blocks.``, sliced) of ``arch`` at its
+    widths, drawn as ``Model.init_params`` draws them."""
+    import torch
+
+    from repro_torch.models.model import (DEC_PREFIX, ENC_PREFIX, init_leaf_,
+                                          leaf_dtype, param_layout)
+    out = {"enc": {}, "dec": {}}
+    for name, shape, init in param_layout(arch):
+        for kind, pre in (("enc", ENC_PREFIX), ("dec", DEC_PREFIX)):
+            if name.startswith(pre):
+                t = torch.empty(shape[1:], dtype=leaf_dtype(name, ctx),
+                                device=device)
+                init_leaf_(t, init, gen)
+                out[kind][name[len(pre):]] = t.requires_grad_()
+    return out
+
+
+def audio_reference(device: str = "cuda") -> dict:
+    """One full-width encoder block and one decoder block over a
+    full-width memory (d_model 1024, 16 heads of 64, d_ff 4096; batch 1 x
+    512 tokens over 512 frames), forward and the gradients of every
+    parameter, the input and, for the decoder, the memory, on the card
+    against the same code on the CPU, in fp32, from the same parameters
+    and inputs, within ``CARD_RTOL`` and ``CARD_SCALE``.  Returns each
+    block's largest error over its largest entry."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import ShardCtx
+    arch = cfgs.get(AUDIO_ARCH)
+    ctx = ShardCtx(compute_dtype=torch.float32)
+    params = audio_block_params(arch, ctx, "cpu",
+                                torch.Generator().manual_seed(9))
+    gen = torch.Generator().manual_seed(10)
+    x, mem, r = (torch.randn(1, 512, arch.d_model, generator=gen)
+                 for _ in range(3))
+    positions = torch.arange(512).expand(1, 512)
+    out = {}
+    for kind in ("enc", "dec"):
+        res = {}
+        for dev in ("cpu", device):
+            p = {k: v.detach().to(dev).requires_grad_()
+                 for k, v in params[kind].items()}
+            xx, mm = (t.to(dev).requires_grad_() for t in (x, mem))
+            pos = positions.to(dev)
+            if kind == "enc":
+                y = encdec.enc_block_apply(p, xx, pos, arch, ctx)
+                wrt = (*p.values(), xx)
+            else:
+                y = encdec.dec_block_apply(p, xx, mm, pos, arch, ctx)
+                wrt = (*p.values(), xx, mm)
+            res[dev] = [y, *torch.autograd.grad((y * r.to(dev)).sum(), wrt)]
+        names = ["y", *params[kind], "x"] + (["memory"] if kind == "dec"
+                                            else [])
+        errs = {nm: card_close(a, c, f"{kind} block {nm}")
+                for nm, a, c in zip(names, res[device], res["cpu"])}
+        out[f"{kind}_block_err"] = max(errs.values())
+        log(f"[reference] audio {kind} block (d_model {arch.d_model}, "
+            f"batch 1 x 512): card == CPU in fp32, forward and "
+            f"{len(names) - 1} gradients; max err / max "
+            + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+    return out
+
+
+def audio_block_syncs(device: str = "cuda") -> None:
+    """One full-width decoder block (bf16 parameters; batch 4 x 512 over a
+    memory of 512 frames), forward and backward through
+    ``Model.stage_block`` with ``remat="full"``, the memory an input of
+    the recomputation, under the sync debug mode "error": fatal if the
+    block synchronises the host or a gradient (the memory's included) is
+    not finite."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    arch = cfgs.get(AUDIO_ARCH)
+    ctx = ShardCtx(param_dtype=torch.bfloat16)
+    model = Model(arch, ctx, device="meta")
+    gen = torch.Generator(device=device).manual_seed(0)
+    p = audio_block_params(arch, ctx, device, gen)["dec"]
+    b, s = 4, 512
+    x, mem = (torch.randn(b, s, arch.d_model, generator=gen, device=device,
+                          dtype=torch.bfloat16).requires_grad_()
+              for _ in range(2))
+    positions = torch.arange(s, device=device).expand(b, s)
+    leaves = (x, mem, *p.values())
+    sync = device == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = model.stage_block(p, x, positions, memory=mem)
+        grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    finally:
+        if sync:
+            torch.cuda.set_sync_debug_mode("default")
+    if sync:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not all(bool(torch.isfinite(g).all()) for g in grads) \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError("audio decoder block: non-finite output or "
+                             "gradient")
+    log(f"[reference] audio decoder block (d_model {arch.d_model}, batch "
+        f"{b} x {s} over {s} frames): forward and backward with remat under "
+        f"the sync debug mode \"error\": no host sync ({ms:.1f} ms, "
+        f"{len(grads)} gradients, the memory's among them)")
+
+
+def family_layouts(tag: str, name: str) -> tuple[dict, list]:
+    """The full-size arch ``name``'s bucket counts (classic ZeRO-1 and
+    overlapped ZeRO-1, from the layouts on the ``meta`` device) and the
+    kernel phase's shapes for it, tagged ``tag``: the overlapped layout's
+    largest block bucket (in one stage's slice) and its largest tail
+    bucket (one vocabulary table)."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -1756,11 +1836,11 @@ def ssm_layouts() -> tuple[dict, list]:
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
     from repro_torch.train import overlap
-    arch = cfgs.get(SSM_ARCH)
+    arch = cfgs.get(name)
     model = Model(arch, ShardCtx(param_dtype=torch.bfloat16), device="meta")
     ov = overlap.layout_for_model(model, arch.plan.bucket_mb)
     by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
-    shapes = [(f"ssm overlap {which}", *matrix_shape(n), n)
+    shapes = [(f"{tag} overlap {which}", *matrix_shape(n), n)
               for which, n in (
                   ("block", max(n for n, r in by_stage if r < ov.n_stages)),
                   ("tail", max(n for n, r in by_stage
@@ -1770,49 +1850,49 @@ def ssm_layouts() -> tuple[dict, list]:
     return {"zero1": zero1.n_buckets, "overlap": ov.layout.n_buckets}, shapes
 
 
-def ssm_phase(buckets: dict, hist: dict, counts: dict) -> dict:
-    """``xlstm-350m`` at full width and depth (3 groups of 7 mLSTM blocks
-    and 1 sLSTM block, d_model 1024, vocab 50,304) on its own plan (DDP,
-    ZeRO-1, ``remat="full"``) through ``train_phase``: ZeRO-1 2 PowerSGD
-    steps, 1 SignSGD and 1 QSGD; the overlapped ZeRO-1 step 2 PowerSGD
-    steps under ``overlap`` and 2 under ``serial``, whose final states
-    and metrics must agree bit for bit; the classic fp32 step 1 step
-    uncompressed.  No run is profiled (``ssm_profiles`` stands in).
-    ``buckets`` holds the layouts' bucket counts (``ssm_layouts``); each
-    run's records and launch counts go into ``hist`` and ``counts``.
-    Returns the runs."""
+def family_phase(tag: str, name: str, buckets: dict, hist: dict,
+                 counts: dict) -> dict:
+    """The arch ``name`` at full width and depth on its own plan (DDP,
+    ZeRO-1, ``remat="full"``) through ``train_phase``, each run labelled
+    ``tag``: ZeRO-1 2 PowerSGD steps, 1 SignSGD and 1 QSGD; the
+    overlapped ZeRO-1 step 2 PowerSGD steps under ``overlap`` and 2 under
+    ``serial``, whose final states and metrics must agree bit for bit;
+    the classic fp32 step 1 step uncompressed.  ``buckets`` holds the
+    layouts' bucket counts (``family_layouts``); each run's records and
+    launch counts go into ``hist`` and ``counts``.  Returns the runs."""
     from repro_torch.configs import base as cfgs
     t0 = time.perf_counter()
-    sz, so = buckets["zero1"], buckets["overlap"]
+    nz, no = buckets["zero1"], buckets["overlap"]
 
     def psgd(n):
         return {"powersgd_encode": 2 * n, "powersgd_decode": n}
     runs = {  # name -> (steps, launches per step, schedule, overrides)
-        "ssm zero1 powersgd": (2, psgd(sz), None,
-                               dict(compression="powersgd")),
-        "ssm zero1 signsgd": (1, {"pack_signs": sz, "popcount_votes": sz},
-                              None, dict(compression="signsgd")),
-        "ssm zero1 qsgd": (1, {"qsgd_quantize": sz}, None,
-                           dict(compression="qsgd")),
-        "ssm zero1 overlap powersgd": (2, psgd(so), "overlap",
-                                       dict(compression="powersgd")),
-        "ssm zero1 serial powersgd": (2, psgd(so), "serial",
-                                      dict(compression="powersgd")),
-        "ssm classic none": (1, {}, None, dict(zero1=False)),
+        f"{tag} zero1 powersgd": (2, psgd(nz), None,
+                                  dict(compression="powersgd")),
+        f"{tag} zero1 signsgd": (1, {"pack_signs": nz, "popcount_votes": nz},
+                                 None, dict(compression="signsgd")),
+        f"{tag} zero1 qsgd": (1, {"qsgd_quantize": nz}, None,
+                              dict(compression="qsgd")),
+        f"{tag} zero1 overlap powersgd": (2, psgd(no), "overlap",
+                                          dict(compression="powersgd")),
+        f"{tag} zero1 serial powersgd": (2, psgd(no), "serial",
+                                         dict(compression="powersgd")),
+        f"{tag} classic none": (1, {}, None, dict(zero1=False)),
     }
     kept = {}
     for label, (steps, per_step, schedule, overrides) in runs.items():
         hist[label], counts[label] = train_phase(
-            label, steps, per_step, 1, schedule, arch=cfgs.get(SSM_ARCH),
+            label, steps, per_step, 1, schedule, arch=cfgs.get(name),
             keep=kept if schedule else None, **overrides)
     if not kept.get("same"):
-        raise AssertionError("ssm: serial and overlap differ at full width")
-    log(f"[ssm] serial == overlap bit for bit at full width: "
+        raise AssertionError(f"{tag}: serial and overlap differ at full "
+                             f"width")
+    log(f"[{tag}] serial == overlap bit for bit at full width: "
         f"{len(kept['tensors'])} state tensors ("
         f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
         f"metrics of {len(kept['metrics'])} steps")
     del kept
-    log(f"[ssm] phase in {time.perf_counter() - t0:.1f} s")
+    log(f"[{tag}] phase in {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1879,7 +1959,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     setup.agg_cfg = dataclasses.replace(setup.agg_cfg,
                                         compress_axes=("data",), raw_axes=())
     dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
-    data = (batch_at(dcfg, s) for s in range(steps + 1))
+    data = (with_frames(arch, batch_at(dcfg, s), s)
+            for s in range(steps + 1))
     tcfg = TrainerConfig(total_steps=steps, log_every=1, accum=accum,
                          schedule=ScheduleConfig(peak_lr=3e-4,
                                                  warmup_steps=1,
@@ -1953,7 +2034,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         # one more step, outside the records, to see where the host waits
         def one_step():
             trainer.state, _ = trainer.step_fn(
-                trainer.state, batch_at(dcfg, steps + 1), 3e-4)
+                trainer.state,
+                with_frames(arch, batch_at(dcfg, steps + 1), steps + 1), 3e-4)
         syncs = host_syncs(one_step)
         torch.cuda.synchronize()
         log(f"[train] {label}: one more step under the sync debug mode "
@@ -2595,10 +2677,10 @@ def main() -> int:
                                    moe.plan.bucket_mb)
         for name, dtype in (("zero1", torch.bfloat16),
                             ("classic", torch.float32))}
-    hybrid_buckets, hybrid_shapes = hybrid_layouts()
-    shapes += hybrid_shapes
-    ssm_buckets, ssm_shapes = ssm_layouts()
-    shapes += ssm_shapes
+    family_buckets = {}
+    for tag, name in FAMILY_PHASES:
+        family_buckets[tag], more = family_layouts(tag, name)
+        shapes += more
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -2628,6 +2710,11 @@ def main() -> int:
         ssm_reference()
         ssm_block_syncs()
         log(f"[ssm] reference and block syncs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        audio_reference()
+        audio_block_syncs()
+        log(f"[audio] reference and block syncs in "
             f"{time.perf_counter() - t0:.1f} s")
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
         ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
@@ -2735,8 +2822,9 @@ def main() -> int:
             f"metrics of {len(kept['metrics'])} steps")
         del kept
         log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
-        hybrid_runs = hybrid_phase(hybrid_buckets, hist, counts)
-        ssm_runs = ssm_phase(ssm_buckets, hist, counts)
+        family_runs = {tag: family_phase(tag, name, family_buckets[tag],
+                                         hist, counts)
+                       for tag, name in FAMILY_PHASES}
         t0 = time.perf_counter()
         ssm_profiles()
         log(f"[ssm] block profiles in {time.perf_counter() - t0:.1f} s")
@@ -2818,10 +2906,9 @@ def main() -> int:
             "adaptive_launches": counts["adaptive powersgd"].get(name, 0),
             "moe_launches": {label: counts[label].get(name, 0)
                              for label in moe_runs},
-            "hybrid_launches": {label: counts[label].get(name, 0)
-                                for label in hybrid_runs},
-            "ssm_launches": {label: counts[label].get(name, 0)
-                             for label in ssm_runs},
+            **{f"{tag}_launches": {label: counts[label].get(name, 0)
+                                   for label in runs}
+               for tag, runs in family_runs.items()},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -3,8 +3,11 @@
 Runs the port's DDP step as the arch configures it (``tinyllama-1.1b``:
 ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
 ``--device cpu``.  ``--arch`` takes every registered arch: the dense,
-MoE, hybrid (``zamba2-2.7b``) and ssm (``xlstm-350m``) families train; one
-whose family the port does not build yet (``audio``, ``vlm``) fails at
+MoE, hybrid (``zamba2-2.7b``) and ssm (``xlstm-350m``) families train;
+the audio family (``seamless-m4t-medium``) builds, but its step reads
+``enc_embeds``, which the data pipeline does not yield (nor does the JAX
+package's), so its first step raises a ``KeyError`` naming it; the vlm
+family, which the port does not build yet, fails at
 ``train_step.build`` with the family named.  An arch configured for
 FSDP runs only with ``--overlap`` or ``--adaptive``, which force
 ``dp_mode="ddp"`` and say so, as in the JAX package.

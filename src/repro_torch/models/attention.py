@@ -1,4 +1,4 @@
-"""Causal grouped-query attention in plain PyTorch.
+"""Grouped-query attention in plain PyTorch, causal or not.
 
 Counterpart of ``repro.models.attention.chunked_attention``, which is plain
 JAX, not a Pallas kernel.  Scores, softmax and the weighted sum run in fp32
@@ -10,25 +10,40 @@ and equal up to rounding beyond.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KVh, hd) with KVh | H; positions:
-    (B, S).  Key j is visible to query i when its position is <= i's."""
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_positions: Optional[torch.Tensor] = None,
+              k_positions: Optional[torch.Tensor] = None, *,
+              causal: bool) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KVh, hd) with KVh | H.  With
+    ``causal`` key j is visible to query i when its position (``k_positions``
+    (B, Sk)) is <= i's (``q_positions`` (B, Sq)); without, every key is and
+    the positions are not read (the JAX package's mask for unpadded keys:
+    the encoder's self-attention and the decoder's cross-attention)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.float().reshape(b, sq, kvh, h // kvh, hd) * hd ** -0.5
     s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.float())
-    mask = positions[:, None, None, None, :] \
-        <= positions[:, :, None, None, None]
-    s = s.masked_fill(~mask, NEG_INF)
+    if causal:
+        mask = k_positions[:, None, None, None, :] \
+            <= q_positions[:, :, None, None, None]
+        s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     den = p.sum(dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.float())
     out = out / den.clamp(min=1e-30)[..., None]
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Self-attention of a decoder: q, k, v over the same (B, S)
+    ``positions``, each key visible to the queries at or after it."""
+    return attention(q, k, v, positions, positions, causal=True)

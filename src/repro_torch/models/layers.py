@@ -66,6 +66,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute positions (...) -> (..., d) fp32 ``[sin | cos]`` over
+    ``d // 2`` frequencies ``1 / 10000^(i / (d // 2))``: the enc-dec
+    family's positional input under ``rope="none"``."""
+    half = d // 2
+    freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                            device=positions.device) / half))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, ctx: ShardCtx,
                      vocab: int) -> torch.Tensor:
     """ids: (B, S) -> (B, S, d) in the compute dtype."""

@@ -1,6 +1,6 @@
-"""The decoder as an ``nn.Module``: the dense, MoE, hybrid and ssm families
-of ``repro.models.model.Model`` (init and loss).  Counterpart of those
-families at tensor-parallel degree 1; ``audio`` and ``vlm`` raise
+"""The model as an ``nn.Module``: the dense, MoE, hybrid, ssm and audio
+families of ``repro.models.model.Model`` (init and loss).  Counterpart of
+those families at tensor-parallel degree 1; ``vlm`` raises
 ``NotImplementedError``.
 
 The parameters are stored as the JAX package stores them: one stacked
@@ -50,6 +50,21 @@ block (``models.xlstm``), with no positional input (``rope="none"``):
 ``b_if`` starts at zeros then ``linspace(3, 6)``, ``b_gates`` at zeros with
 3.0 on the forget gates.
 
+The audio family (seamless) is an encoder of ``encdec.enc_layers``
+blocks and a decoder of ``n_layers`` blocks (``models.encdec``), whose
+cross-attention reads the encoder's normed output (the memory):
+
+    dec_blocks.{cross.{wk,wo,wq,wv}.w, ln1, ln2, ln3, mlp.{fc1,fc2}.w,
+                self.{wk,wo,wq,wv}.w}     (n_layers, ...)
+    embed.table,
+    enc_blocks.{attn.{wk,wo,wq,wv}.w, ln1, ln2, mlp.{fc1,fc2}.w}
+                                          (enc_layers, ...)
+    enc_norm.scale, final_norm.scale, unembed.table
+
+(each norm a ``.scale``).  Its ``loss`` reads ``batch["enc_embeds"]``, the
+stubbed speech frontend's ``(B, S_enc, d_model)`` frame embeddings; both
+stacks' inputs take sinusoidal positions (``rope="none"``).
+
 Whatever the parameter dtype, the MoE ``router`` and ``shared_gate``, the
 Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the xLSTM ``b_if``, ``w_if``,
 ``b_gates``, ``r_gates`` and ``w_gates`` are fp32 (``leaf_dtype``).
@@ -61,7 +76,11 @@ recomputes each stage (a block, or a group) in the backward pass, and
 inside a group each block again, as the JAX package nests its remat.
 ``loss`` is three stages (``stage_embed``, ``stage_block`` per layer or
 group, ``stage_loss``), which the overlapped step
-(``repro_torch.train.overlap``) runs one autograd graph at a time.
+(``repro_torch.train.overlap``) runs one autograd graph at a time; the
+audio family's encoder adds ``stage_encoder_in``, a ``stage_block`` per
+encoder block and ``stage_memory`` before them.  ``stacks`` lists the
+stacked collections in backward-completion order: one for every family
+but audio, whose decoder's gradients are final before its encoder's.
 """
 from __future__ import annotations
 
@@ -72,20 +91,22 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models import mamba2
+from repro_torch.models import encdec, mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm
-from repro_torch.models.layers import (ShardCtx, embedding_lookup,
-                                       trunc_normal_)
+from repro_torch.models.layers import (ShardCtx, embedding_lookup, rmsnorm,
+                                       sinusoidal_positions, trunc_normal_)
 
 BLOCK_PREFIX = "blocks."
 SHARED_PREFIX = "shared."
-#: the families the port builds, and the prefix of each one's stacked
+DEC_PREFIX, ENC_PREFIX = "dec_blocks.", "enc_blocks."
+#: the single-stack families, and the prefix of each one's stacked
 #: leaves (the JAX package's ``params`` key)
 STACK_PREFIX = {"dense": BLOCK_PREFIX, "moe": BLOCK_PREFIX,
                 "hybrid": "groups.", "ssm": "groups."}
-FAMILIES = tuple(STACK_PREFIX)
+#: the families the port builds
+FAMILIES = (*STACK_PREFIX, "audio")
 #: the rank of the zamba2 shared block's per-group LoRA adapters
 ZAMBA_LORA_RANK = 64
 #: shared-block weight -> the LoRA adapter patched into it in every group
@@ -179,6 +200,10 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
         return io + _hybrid_layout(cfg) + tail
     if cfg.family == "ssm":
         return io + _xlstm_layout(cfg) + tail
+    if cfg.family == "audio":
+        return encdec.dec_layout(cfg, (cfg.n_layers,), DEC_PREFIX) + io[:1] \
+            + encdec.enc_layout(cfg, (cfg.encdec.enc_layers,), ENC_PREFIX) \
+            + [("enc_norm.scale", (d,), None)] + io[1:] + tail
     out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,))
     if cfg.family == "moe":
         out += _moe_layout(cfg)
@@ -229,9 +254,10 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported yet "
                 f"(the port has {', '.join(FAMILIES)})")
-        # the ssm family has no positional input: the JAX package adds
-        # positions under rope="none" only for the audio family
-        if cfg.rope != ("none" if cfg.family == "ssm" else "rope"):
+        # the ssm family has no positional input; the audio family adds
+        # sinusoidal positions to its embeddings under rope="none"
+        if cfg.rope != ("none" if cfg.family in ("ssm", "audio")
+                        else "rope"):
             raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r}")
         if cfg.plan.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.plan.remat!r}")
@@ -276,8 +302,30 @@ class Model(nn.Module):
     # ---- autograd graph, the overlapped step one graph per stage ----------
     def stage_embed(self, table: torch.Tensor, tokens: torch.Tensor
                     ) -> torch.Tensor:
-        """tokens (B, S) -> the first block's input (B, S, d)."""
-        return embedding_lookup(table, tokens, self.ctx, self.cfg.vocab)
+        """tokens (B, S) -> the first block's input (B, S, d); the audio
+        family's decoder adds its sinusoidal positions."""
+        x = embedding_lookup(table, tokens, self.ctx, self.cfg.vocab)
+        if self.cfg.family == "audio":
+            x = self._add_positions(x)
+        return x
+
+    def _add_positions(self, x: torch.Tensor) -> torch.Tensor:
+        """``x + sinusoidal_positions`` cast to ``x``'s dtype first, as
+        the JAX package rounds them."""
+        pos = torch.arange(x.shape[1], device=x.device)
+        return x + sinusoidal_positions(pos, self.cfg.d_model).to(x.dtype)
+
+    def stage_encoder_in(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The audio family's frame embeddings (B, S_enc, d) -> the first
+        encoder block's input: cast to the compute dtype, plus the
+        sinusoidal positions."""
+        return self._add_positions(enc_embeds.to(self.ctx.compute_dtype))
+
+    def stage_memory(self, enc_norm: torch.Tensor, x: torch.Tensor
+                     ) -> torch.Tensor:
+        """The last encoder block's output -> the memory every decoder
+        block's cross-attention reads (``enc_norm``)."""
+        return rmsnorm(enc_norm, x, self.cfg.norm_eps)
 
     @property
     def has_aux(self) -> bool:
@@ -288,6 +336,16 @@ class Model(nn.Module):
     def stack_prefix(self) -> str:
         """The prefix of the stacked leaves: ``blocks.`` or ``groups.``."""
         return STACK_PREFIX[self.cfg.family]
+
+    @property
+    def stacks(self) -> tuple[tuple[str, int], ...]:
+        """(prefix, stages) of each stacked collection, in the order in
+        which the backward completes them: the decoder's then the
+        encoder's for the audio family, the one stack otherwise."""
+        if self.cfg.family == "audio":
+            return ((DEC_PREFIX, self.cfg.n_layers),
+                    (ENC_PREFIX, self.cfg.encdec.enc_layers))
+        return ((self.stack_prefix, self.n_stages),)
 
     @property
     def n_stages(self) -> int:
@@ -343,18 +401,28 @@ class Model(nn.Module):
         return x
 
     def stage_block(self, p_l: dict, x: torch.Tensor,
-                    positions: torch.Tensor, shared: "dict | None" = None):
+                    positions: torch.Tensor, shared: "dict | None" = None,
+                    memory: "torch.Tensor | None" = None):
         """One stage on one slice of the stacked parameters (``p_l``:
-        names under ``stack_prefix`` -> that slice): a block, or for the
+        names under the stack's prefix -> that slice): a block, or for the
         hybrid family a group, which also reads ``shared`` (names under
         ``shared.`` -> the shared block's parameters), or for the ssm
-        family an xLSTM group.  Recomputed in the backward pass when
-        ``remat="full"``.  Returns the stage's output, and for the MoE
-        family (``has_aux``) ``(output, load-balancing loss)``."""
+        family an xLSTM group; for the audio family an encoder block, or
+        with ``memory`` (B, S_enc, d) a decoder block.  Recomputed in the
+        backward pass when ``remat="full"``, with ``memory`` an input of
+        the recomputation, so its gradient flows.  Returns the stage's
+        output, and for the MoE family (``has_aux``) ``(output,
+        load-balancing loss)``."""
         if self.cfg.family == "hybrid":
             fn, args = self._group_apply, (p_l, shared, x, positions)
         elif self.cfg.family == "ssm":
             fn, args = self._xlstm_group_apply, (p_l, x)
+        elif memory is not None:
+            fn = encdec.dec_block_apply
+            args = (p_l, x, memory, positions, self.cfg, self.ctx)
+        elif self.cfg.family == "audio":
+            fn = encdec.enc_block_apply
+            args = (p_l, x, positions, self.cfg, self.ctx)
         else:
             fn = moe_mod.moe_block_apply if self.has_aux \
                 else tf.dense_block_apply
@@ -372,12 +440,30 @@ class Model(nn.Module):
         return tf.lm_loss(final_scale, table, x, labels, self.cfg, self.ctx,
                           xent_chunk)
 
-    def block_params(self) -> list[tuple[str, torch.Tensor]]:
-        """(name under ``stack_prefix``, stacked ``(n_stages, ...)``
-        parameter) in leaf order."""
-        pre = self.stack_prefix
+    def block_params(self, prefix: "str | None" = None
+                     ) -> list[tuple[str, torch.Tensor]]:
+        """(name under ``prefix``, stacked ``(stages, ...)`` parameter) in
+        leaf order, of the stack under ``prefix`` (``stack_prefix`` unless
+        given)."""
+        pre = prefix or self.stack_prefix
         return [(name[len(pre):], p) for name, p in self.named_parameters()
                 if name.startswith(pre)]
+
+    def _slices(self, prefix: str) -> list[dict]:
+        """Per stage, names under ``prefix`` -> that stage's slice."""
+        stacked = [(name, p.unbind(0))
+                   for name, p in self.block_params(prefix)]
+        return [{name: slices[i] for name, slices in stacked}
+                for i in range(len(stacked[0][1]))]
+
+    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The audio family's encoder: frame embeddings (B, S_enc, d) ->
+        the memory (B, S_enc, d)."""
+        x = self.stage_encoder_in(enc_embeds)
+        positions = positions_of(x[..., 0])
+        for p_l in self._slices(ENC_PREFIX):
+            x = self.stage_block(p_l, x, positions)
+        return self.stage_memory(self.enc_norm.scale, x)
 
     def shared_params(self) -> dict[str, torch.Tensor]:
         """name under ``shared.`` -> the hybrid family's shared block
@@ -388,19 +474,19 @@ class Model(nn.Module):
 
     def loss(self, batch: dict, xent_chunk: int = 1024
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """batch: ``tokens`` and ``labels`` (B, S) on the model's device.
-        Returns (local loss sum, local token count, the load-balancing
-        loss averaged over the layers: 0 but for the MoE family)."""
+        """batch: ``tokens`` and ``labels`` (B, S) on the model's device,
+        and for the audio family ``enc_embeds`` (B, S_enc, d).  Returns
+        (local loss sum, local token count, the load-balancing loss
+        averaged over the layers: 0 but for the MoE family)."""
         tokens, labels = batch["tokens"], batch["labels"]
+        memory = self.encode(batch["enc_embeds"]) \
+            if self.cfg.family == "audio" else None
         x = self.stage_embed(self.embed.table, tokens)
         positions = positions_of(tokens)
-        stacked = [(name, p.unbind(0)) for name, p in self.block_params()]
         shared = self.shared_params()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in range(self.n_stages):
-            x = self.stage_block({name: slices[layer]
-                                  for name, slices in stacked}, x, positions,
-                                 shared)
+        for p_l in self._slices(self.stacks[0][0]):
+            x = self.stage_block(p_l, x, positions, shared, memory)
             if self.has_aux:
                 x, a = x
                 aux = aux + a

@@ -2,7 +2,11 @@
 and the chunked LM loss.  Counterpart of the dense-family parts of
 ``repro.models.transformer`` at tensor-parallel degree 1, qk-norm
 included (``cfg.qk_norm``: an RMSNorm over ``head_dim`` of each q and k
-head after the projection, before the rotation, as qwen3 has it).
+head after the projection, before the rotation, as qwen3 has it).  The
+enc-dec family (``repro_torch.models.encdec``) reads the attention
+without the rotation (``rope="none"``) and, in its encoder, without the
+causal mask, and the two-matrix GELU MLP.  The GELU MLP and each chunk of
+the loss run inside the profiler ranges ``GELU_MLP`` and ``LM_LOSS``.
 
 A block's parameters arrive as a dict keyed by their names under
 ``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
@@ -12,11 +16,15 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import causal_attention
+from repro_torch.models.attention import attention
 from repro_torch.models.layers import (ShardCtx, apply_rope, linear, rmsnorm,
                                        unembed_logits, vocab_parallel_xent)
+
+#: the profiler ranges around the GELU MLP and one chunk of the loss head
+GELU_MLP, LM_LOSS = "mlp.gelu", "lm_loss.chunk"
 
 
 def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
@@ -28,22 +36,36 @@ def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
     return linear(p[prefix + "down.w"], F.silu(g) * u, ctx)
 
 
+def gelu_mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The two-matrix MLP of the enc-dec blocks,
+    ``mlp.fc2(gelu(mlp.fc1(x)))``, with the tanh form of the GELU:
+    ``jax.nn.gelu``'s default."""
+    with record_function(GELU_MLP):
+        h = F.gelu(linear(p["mlp.fc1.w"], x, ctx), approximate="tanh")
+        return linear(p["mlp.fc2.w"], h, ctx)
+
+
 def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
-               ctx: ShardCtx) -> torch.Tensor:
+               ctx: ShardCtx, causal: bool = True,
+               prefix: str = "attn.") -> torch.Tensor:
     """x: the pre-normed (B, S, d) input; returns the attention output
-    (the caller adds the residual)."""
+    (the caller adds the residual) of the weights ``p[prefix + ...]``.
+    q and k are rotated unless ``cfg.rope == "none"``; ``causal=False``
+    lets every query see every key."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = linear(p["attn.wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
-    k = linear(p["attn.wk.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(p["attn.wv.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(p[prefix + "wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
+    k = linear(p[prefix + "wk.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(p[prefix + "wv.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rmsnorm(p["attn.q_norm.scale"], q, cfg.norm_eps)
-        k = rmsnorm(p["attn.k_norm.scale"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    out = causal_attention(q, k, v, positions)
-    return linear(p["attn.wo.w"], out.reshape(b, s, cfg.n_heads * hd), ctx)
+        q = rmsnorm(p[prefix + "q_norm.scale"], q, cfg.norm_eps)
+        k = rmsnorm(p[prefix + "k_norm.scale"], k, cfg.norm_eps)
+    if cfg.rope != "none":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = attention(q, k, v, positions, positions, causal=causal)
+    return linear(p[prefix + "wo.w"], out.reshape(b, s, cfg.n_heads * hd),
+                  ctx)
 
 
 def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -55,9 +77,10 @@ def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 def _chunk_loss(table: torch.Tensor, xb: torch.Tensor, lb: torch.Tensor,
                 ctx: ShardCtx) -> torch.Tensor:
-    logits = unembed_logits(table, xb, ctx)
-    per_tok = vocab_parallel_xent(logits, lb.clamp(min=0))
-    return (per_tok * (lb >= 0)).sum()
+    with record_function(LM_LOSS):
+        logits = unembed_logits(table, xb, ctx)
+        per_tok = vocab_parallel_xent(logits, lb.clamp(min=0))
+        return (per_tok * (lb >= 0)).sum()
 
 
 def lm_loss(final_scale: torch.Tensor, table: torch.Tensor, x: torch.Tensor,

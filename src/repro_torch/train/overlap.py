@@ -60,13 +60,20 @@ block), whose leaves sit between ``final_norm`` and ``unembed``; it has
 no shared leaves, so its tail is the embedding, the final norm and the
 unembedding, as in the dense family.
 
-Supported: the dense, MoE, hybrid and ssm families (the ones the port has),
-ZeRO-1 through ``train_step.zero1_apply`` on the ordered leaves, and
-``accum > 1`` (microbatches 0..N-2 run ``raw`` into an fp32 sum; each
-bucket is flushed once, during the final microbatch's backward).
-``OverlapLayout.stacks`` is a tuple so that the enc-dec family's two
-stacks can plug in with its slice; FSDP is refused, as in the JAX
-package.
+The audio family has two stacks (``Model.stacks``): the decoder's blocks
+are stages ``0..L_dec-1`` and the encoder's are the stages after them,
+the order in which the backward completes them.  Every decoder block
+reads the encoder's memory as a detached input of its own graph; the
+backward sums the memory's gradient over the decoder blocks, takes it
+through ``enc_norm``, then runs the encoder blocks in reverse
+(``_backward_encdec``).  Its tail is the embedding, ``enc_norm``, the
+final norm and the unembedding.
+
+Supported: the dense, MoE, hybrid, ssm and audio families (the ones the
+port has), ZeRO-1 through ``train_step.zero1_apply`` on the ordered
+leaves, and ``accum > 1`` (microbatches 0..N-2 run ``raw`` into an fp32
+sum; each bucket is flushed once, during the final microbatch's
+backward).  FSDP is refused, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -79,13 +86,8 @@ import torch
 
 from repro_torch.core import aggregator as agg_mod
 from repro_torch.core import bucketing
-from repro_torch.models.model import positions_of
+from repro_torch.models.model import FAMILIES, positions_of
 from repro_torch.parallel import commplan as cp
-
-#: families whose training stack is a single block collection, and its
-#: parameter prefix (the JAX package's ``params`` key).
-_STACK_KEYS = {"dense": "blocks", "moe": "blocks", "hybrid": "groups",
-               "ssm": "groups"}
 
 
 # --------------------------------------------------------------------------
@@ -97,7 +99,7 @@ def supports(arch, plan) -> tuple[bool, str]:
         return False, ("overlap interleaves DDP bucket collectives; FSDP's "
                        "per-layer reduce-scatter already overlaps via the "
                        "all_gather AD transpose")
-    if arch.family not in _STACK_KEYS:
+    if arch.family not in FAMILIES:
         return False, f"family {arch.family!r} is not ported yet"
     return True, ""
 
@@ -105,10 +107,10 @@ def supports(arch, plan) -> tuple[bool, str]:
 def check_supported(arch, plan) -> None:
     """Raises ``NotImplementedError`` for a family the port does not have
     yet and ``ValueError`` for a plan the segmented step cannot run."""
-    if arch.family not in _STACK_KEYS:
+    if arch.family not in FAMILIES:
         raise NotImplementedError(
             f"plan.overlap for {arch.name}: the {arch.family!r} family is "
-            f"not ported yet (the port has {', '.join(_STACK_KEYS)})")
+            f"not ported yet (the port has {', '.join(FAMILIES)})")
     ok, why = supports(arch, plan)
     if not ok:
         raise ValueError(f"plan.overlap unsupported for {arch.name}: {why}")
@@ -153,9 +155,10 @@ class StackSeg:
 class OverlapLayout:
     """Leaf-aligned bucket layout over backward-completion-ordered leaves.
 
-    Leaf order: the stack's last block's leaves first, block 0's next to
-    last; then the tail (every parameter outside the stack, in parameter
-    order: embedding, final norm, the hybrid family's shared block,
+    Leaf order, stack by stack (``Model.stacks``): its last block's leaves
+    first, block 0's last; then the tail (every parameter outside the
+    stacks, in parameter order: embedding, the audio family's
+    ``enc_norm``, final norm, the hybrid family's shared block,
     unembedding).  Stage ``s`` is one block's (or group's) backward; stage
     ``n_stages`` is the tail, final only once the whole backward,
     embedding included, has run.
@@ -184,18 +187,25 @@ class OverlapLayout:
 def layout_for_model(model, bucket_mb: float) -> OverlapLayout:
     """The overlap layout of a ``Model`` (any device, ``meta`` included:
     only shapes and dtypes are read)."""
-    params = list(model.parameters())
-    key = _STACK_KEYS[model.cfg.family]
-    # the stack picked by its key, wherever it sits in the leaf order (the
-    # hybrid family's groups sit between final_norm and shared), as the
-    # JAX package's _split_params picks it
-    stack = tuple(i for i, (name, _) in enumerate(model.named_parameters())
-                  if name.startswith(key + "."))
-    rest = tuple(i for i in range(len(params)) if i not in stack)
-    n_layers = params[stack[0]].shape[0]
-    per_layer = [math.prod(params[i].shape[1:]) for i in stack]
-    segs = (StackSeg(key, n_layers, len(per_layer), 0, 0),)
-    leaf_sizes = per_layer * n_layers + [params[i].numel() for i in rest]
+    names, params = zip(*model.named_parameters())
+    segs, stacks, leaf_sizes = [], [], []
+    stage0 = leaf0 = 0
+    for prefix, n_layers in model.stacks:
+        # each stack picked by its prefix, wherever it sits in the leaf
+        # order (the hybrid family's groups sit between final_norm and
+        # shared), as the JAX package's _split_params picks it
+        stack = tuple(i for i, name in enumerate(names)
+                      if name.startswith(prefix))
+        per_layer = [math.prod(params[i].shape[1:]) for i in stack]
+        segs.append(StackSeg(prefix[:-1], n_layers, len(per_layer), stage0,
+                             leaf0))
+        stacks.append(stack)
+        leaf_sizes += per_layer * n_layers
+        stage0 += n_layers
+        leaf0 += len(per_layer) * n_layers
+    in_stack = set().union(*stacks)
+    rest = tuple(i for i in range(len(params)) if i not in in_stack)
+    leaf_sizes += [params[i].numel() for i in rest]
     dtype = bucketing._majority_dtype(params)
     layout = bucketing.layout_from_leaf_sizes(leaf_sizes, dtype, bucket_mb)
 
@@ -203,11 +213,12 @@ def layout_for_model(model, bucket_mb: float) -> OverlapLayout:
         for seg in segs:
             if leaf_idx < seg.leaf_end:
                 return seg.stage0 + (leaf_idx - seg.leaf0) // seg.n_leaves
-        return n_layers
+        return stage0
 
     ready = tuple(stage_of(layout.bucket_leaves(b)[1] - 1)
                   for b in range(layout.n_buckets))
-    return OverlapLayout(layout, segs, n_layers, ready, (stack,), rest)
+    return OverlapLayout(layout, tuple(segs), stage0, ready, tuple(stacks),
+                         rest)
 
 
 def build_layout(setup) -> OverlapLayout:
@@ -453,6 +464,94 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
             n_glob, moe_aux)
 
 
+def _backward_encdec(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
+                     xent_chunk: int):
+    """The audio family: the forward keeps one autograd graph per encoder
+    block, one for ``enc_norm`` (the memory), one for the decoder's
+    embedding and one per decoder block, whose memory input is a
+    detached leaf of its own.  The backward takes the decoder blocks in
+    reverse, summing the memory's gradient over their cross-attentions,
+    then ``enc_norm``, then the encoder blocks in reverse (stages
+    ``L_dec..``), handing each stage's leaf gradients to ``flush``; the
+    tail sums the loss head's, the decoder embedding's and ``enc_norm``'s
+    gradients.  Returns what ``_backward_stack`` returns."""
+    from repro_torch.models.model import DEC_PREFIX, ENC_PREFIX
+
+    model = setup.model
+    dec_seg, enc_seg = ov.stacks
+    stacked = {pre: [(name, p.detach()) for name, p in
+                     model.block_params(pre)]
+               for pre in (DEC_PREFIX, ENC_PREFIX)}
+    leaves = {name: _leaf(p) for name, p in model.named_parameters()
+              if not name.startswith((DEC_PREFIX, ENC_PREFIX))}  # the tail
+    head = ("final_norm.scale", "embed.table" if model.cfg.tie_embeddings
+            else "unembed.table")
+    tokens, labels = batch["tokens"], batch["labels"]
+
+    def run(pre: str, n: int, x: torch.Tensor, positions: torch.Tensor,
+            memory: Optional[torch.Tensor] = None):
+        """One graph per block of the stack under ``pre``: [(its
+        parameter slices, its input, its output)] and the last output."""
+        stages = []
+        for layer in range(n):
+            p_l = {name: p[layer].requires_grad_()
+                   for name, p in stacked[pre]}
+            y = model.stage_block(p_l, x, positions, memory=memory)
+            stages.append((p_l, x, y))
+            x = _leaf(y)
+        return stages, x
+
+    # ---- forward: one graph per stage --------------------------------
+    with torch.enable_grad():
+        # the frame embeddings are an input, not a parameter: no gradient
+        # reaches them, nor the first encoder block's input
+        x = model.stage_encoder_in(batch["enc_embeds"])
+        enc_stages, x_e = run(ENC_PREFIX, enc_seg.n_layers, x,
+                              positions_of(x[..., 0]))
+        memory = model.stage_memory(leaves["enc_norm.scale"], x_e)
+        mem = _leaf(memory)
+        x0 = model.stage_embed(leaves["embed.table"], tokens)
+        dec_stages, x = run(DEC_PREFIX, dec_seg.n_layers, _leaf(x0),
+                            positions_of(tokens), mem)
+        loss_sum, ntok = model.stage_loss(*(leaves[n] for n in head), x,
+                                          labels, xent_chunk)
+    seed, n_glob = _backward_seed(setup, loss_sum, ntok)
+
+    # ---- backward: the decoder in reverse, then enc_norm, then the
+    # ---- encoder in reverse, flushing completed buckets ----------------
+    *d_head, d_x = torch.autograd.grad(
+        loss_sum, (*(leaves[n] for n in head), x), seed)
+    grads = dict(zip(head, d_head))
+    del x
+    d_mem = None
+    for s in range(dec_seg.n_layers):
+        p_l, x_in, y = dec_stages.pop()           # frees the stage's graph
+        *d_p, d_x, d_m = torch.autograd.grad(y, (*p_l.values(), x_in, mem),
+                                             d_x)
+        del p_l, x_in, y
+        d_mem = d_m if d_mem is None else d_mem + d_m
+        flush.stage(dec_seg.stage0 + s, d_p)
+    d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
+    del d_x, x0, mem
+    grads["enc_norm.scale"], d_x = torch.autograd.grad(
+        memory, (leaves["enc_norm.scale"], x_e), d_mem)
+    del d_mem, memory, x_e
+    for s in range(enc_seg.n_layers):
+        p_l, x_in, y = enc_stages.pop()
+        wrt = (*p_l.values(), x_in) if x_in.requires_grad \
+            else tuple(p_l.values())
+        d = torch.autograd.grad(y, wrt, d_x)
+        del y
+        flush.stage(enc_seg.stage0 + s, d[:len(p_l)])
+        d_x = d[-1] if x_in.requires_grad else None
+        del p_l, x_in, d
+    grads["embed.table"] = grads["embed.table"] + d_emb \
+        if "embed.table" in grads else d_emb
+    aux = torch.zeros((), dtype=torch.float32, device=loss_sum.device)
+    return (flush.tail([grads[n] for n in leaves]), loss_sum.detach(),
+            n_glob, aux)
+
+
 def _segmented_backward(setup, ov: OverlapLayout, batch: dict,
                         flush: _Flush, xent_chunk: int):
     """Forward (one graph per stage) and reverse-order backward with
@@ -462,6 +561,8 @@ def _segmented_backward(setup, ov: OverlapLayout, batch: dict,
     ``"serial"`` flushes every bucket after the whole backward (the same
     bits); ``"raw"`` aggregates nothing and returns the local
     gradients."""
+    if setup.model.cfg.family == "audio":
+        return _backward_encdec(setup, ov, batch, flush, xent_chunk)
     return _backward_stack(setup, ov, batch, flush, xent_chunk)
 
 

@@ -413,13 +413,20 @@ def _fill_zero1_master(setup: TrainSetup, state: dict) -> dict:
 # the step
 # --------------------------------------------------------------------------
 def _to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(np.asarray(v), device=device).long()
-            for k, v in batch.items()}
+    """A batch on ``device``: integer arrays (tokens, labels) as int64,
+    float arrays (the audio family's ``enc_embeds``) in their own
+    dtype."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v), device=device)
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
     """Returns ``step(state, batch, lr) -> (state, metrics)``.  ``batch``
-    holds this rank's ``tokens`` and ``labels`` (numpy or tensors); with
+    holds this rank's ``tokens`` and ``labels`` (numpy or tensors), and
+    for the audio family its ``enc_embeds``; with
     ``accum > 1`` its rows split into ``accum`` equal microbatches.  The
     parameters and optimizer state are updated in place.  Under
     ``setup.overlap`` this is ``overlap.make_step(setup, "overlap")``."""

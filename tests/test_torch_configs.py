@@ -6,11 +6,11 @@ JAX package's (``repro.configs``, ``repro.models.registry``).
 * ``param_count`` and ``active_param_count`` equal JAX's exactly at full
   size for every arch the port builds (counted on the ``meta`` device),
   and ``model_flops`` equals JAX's.
-* The other two families raise ``NotImplementedError`` naming the family
-  from ``Model``, ``param_count`` and ``train_step.build``.
+* The vlm family raises ``NotImplementedError`` naming the family from
+  ``Model``, ``param_count`` and ``train_step.build``.
 * ``adaptive.controller``'s parameter count goes through the registry, so
-  ``resolve_plan`` runs for the MoE, hybrid and ssm archs (they raised
-  before).
+  ``resolve_plan`` runs for the MoE, hybrid, ssm and audio archs (they
+  raised before).
 """
 import dataclasses
 
@@ -36,9 +36,10 @@ COUNTS = {
     "arctic-480b": (476_850_275_328, 15_584_314_368),
     "zamba2-2.7b": (2_440_081_568, 2_440_081_568),
     "xlstm-350m": (314_143_912, 314_143_912),
+    "seamless-m4t-medium": (877_094_912, 877_094_912),
 }
 #: the families the port does not build yet
-NOT_PORTED = {"qwen2-vl-7b": "vlm", "seamless-m4t-medium": "audio"}
+NOT_PORTED = {"qwen2-vl-7b": "vlm"}
 
 
 def test_every_arch_is_registered():

@@ -807,8 +807,8 @@ def test_build_runs_the_overlapped_step(world):
     with pytest.raises(ValueError, match="FSDP"):
         overlap.check_supported(arch, dataclasses.replace(
             arch.plan, dp_mode="fsdp"))
-    with pytest.raises(NotImplementedError, match="audio"):
-        overlap.check_supported(dataclasses.replace(arch, family="audio"),
+    with pytest.raises(NotImplementedError, match="vlm"):
+        overlap.check_supported(dataclasses.replace(arch, family="vlm"),
                                 arch.plan)
     assert overlap.supports(arch, arch.plan) == (True, "")
     with pytest.raises(ValueError, match="schedule"):
