@@ -69,7 +69,10 @@ Phases, each fatal on failure:
      forward and gradients (the memory's included) on the card against
      the CPU in fp32 (``audio_reference``); one full-width decoder block
      forward and backward with remat under the sync debug mode "error"
-     (``audio_block_syncs``);
+     (``audio_block_syncs``); one full-width qwen2-vl block rotating by
+     M-RoPE over three distinct position streams, forward and gradients
+     on the card against the CPU in fp32, the card's pass under the
+     sync debug mode "error" (``vlm_reference``);
   6. train: full-width ``tinyllama-1.1b`` (22 layers, random weights from
      seed 0) on a one-rank NCCL group, the aggregator pointed at the
      ``data`` axis as the tests do, batch 4 x 512 tokens.  The classic
@@ -97,8 +100,8 @@ Phases, each fatal on failure:
      ``zero1=False`` step (90 fp32 buckets).  Each also checks the
      host-side flush order of every step (each bucket after the stage
      that completes it under ``overlap``, all after the last stage under
-     ``serial``), prints, from its profiled step (ZeRO-1 and classic
-     PowerSGD under ``overlap``), the device time of each CUDA stream and
+     ``serial``), prints, from its profiled step (ZeRO-1 PowerSGD under
+     ``overlap``), the device time of each CUDA stream and
      how much of it ran while the compute stream was busy, and takes one
      more step with the sync debug mode set to warn
      and prints where the host waited for the card (both reported, not
@@ -143,9 +146,18 @@ Phases, each fatal on failure:
      leaf-aligned buckets, the decoder's stages first, then the
      encoder's) 2 PowerSGD under ``overlap`` and 2 under ``serial``,
      which must agree bit for bit; the classic fp32 step 1 step
-     uncompressed; the same checks, with the overlap and serial runs
-     profiled (the cross-attention, the GELU MLPs and the loss head as
-     layers of their own).  Then ``ssm_profiles``: one mLSTM block and
+     uncompressed; the same checks (no run profiled since the vlm
+     slice; the cross-attention, the GELU MLPs and the loss head are
+     layers of their own in any breakdown).  Then the vlm slice
+     (``family_phase("vlm", vlm_arch(), ...)``): ``qwen2-vl-7b`` at full
+     width (d_model 3584, 28
+     heads and 4 KV heads of 128, d_ff 18944, two untied vocabulary
+     tables of 152,064) cut to ``VLM_LAYERS`` = 4 of 28 blocks
+     (2,022,211,072 parameters), on ``dp_mode="ddp"`` with ZeRO-1 (its
+     own plan is FSDP, run in phase 10), each batch with seeded fp32
+     ``embeds`` and M-RoPE positions (an image of 64 patches on an 8 x 8
+     grid, then text): the same runs and checks as the audio slice, no
+     run profiled.  Then ``ssm_profiles``: one mLSTM block and
      the sLSTM scan over 64 tokens profiled, forward and forward plus
      backward, and scaled to one step.  Then the
      adaptive controller: ``resolve_plan`` for the full-size arch at
@@ -192,20 +204,38 @@ Phases, each fatal on failure:
      Then local SGD on two ranks (``launch/train.py --mesh pod
      --sync-every 2``): the parameters must agree across pods after steps
      2 and 4.  The ranks share the card's SMs, so every pod time is of
-     time-sliced compute.
+     time-sliced compute;
+ 10. fsdp: ``qwen2-vl-7b`` as configured (``dp_mode="fsdp"``, AdamW,
+     ``remat="full"``) at full width cut to ``FSDP_LAYERS`` = 1 block
+     (1,323,051,520 parameters), four ``train/pod_worker.py`` ranks on the
+     card as pod 2 x data 2 (every collective gloo; the three runs as
+     ``--variant``s of one torchrun group), batch 4 x 512 (one row a
+     rank; two put the card past 75 GiB): HSDP
+     (the parameters sharded over ``data``) with PowerSGD over ``pod`` on
+     the 101 fp32 shard buckets, 2 steps (encode 2 and decode 1 launch a
+     bucket and step); ZeRO-3 (``fsdp_shard_pods``) uncompressed, 1 step;
+     HSDP with ``gather_quant="int8"``, 1 step, whose first loss must sit
+     within 1e-2 relative of the plain gather's on the same batch.  Each
+     must give finite losses, the configured axes, the same shard bits on
+     the pod replicas, every gathered parameter the same on every rank
+     (and, uncompressed, every unsharded leaf); each rank's peak, the
+     card's memory in use and the step times are printed.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
 classic ZeRO-1 step's and the classic fp32 step's, the MoE slice's
 overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
 elements), the hybrid slice's (83,931,552 and 81,920,000), the ssm
-slice's (26,275,896 and 63,056,896) and the audio slice's (16,781,312
-and 271,794,176); the ``kernels`` line counts each kernel's launches in
+slice's (26,275,896 and 63,056,896), the audio slice's (16,781,312
+and 271,794,176), the vlm slice's (67,902,464 and 545,000,960) and the
+HSDP shard buckets (6,553,600 and the last, 6,171,136); the ``kernels``
+line counts each kernel's launches in
 the overlapped ZeRO-1 run that drives it, in the live cells
 (``experiment_launches``), in the adaptive run (``adaptive_launches``),
 in each MoE run (``moe_launches``), in each hybrid run
 (``hybrid_launches``), in each ssm run (``ssm_launches``), in each audio
-run (``audio_launches``) and per pod step.
+run (``audio_launches``), in each vlm run (``vlm_launches``), per pod
+step and in each FSDP run's rank 0 (``fsdp_launches``).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -248,11 +278,11 @@ KERNELS = ("powersgd_encode", "powersgd_decode", "pack_signs",
 #: an overlap run and the serial run compared with it (``keep``) take the
 #: same steps, so both or neither are here.  No check reads a breakdown,
 #: and one costs 2-18 s of host time (40-50 s for a zamba2 step, minutes
-#: for an xLSTM step of some 10^5 kernels)
+#: for an xLSTM step of some 10^5 kernels).  The vlm slice's two phases
+#: took the room of three (the classic overlapped PowerSGD run and the
+#: audio overlap/serial pair, ~21 s; their breakdowns are in PERF.md §5)
 PROFILED = ("zero1 powersgd", "zero1 overlap powersgd",
-            "classic overlap powersgd", "moe zero1 overlap powersgd",
-            "moe zero1 serial powersgd", "audio zero1 overlap powersgd",
-            "audio zero1 serial powersgd")
+            "moe zero1 overlap powersgd", "moe zero1 serial powersgd")
 
 
 def log(msg: str) -> None:
@@ -465,7 +495,7 @@ def kernel_phase(shapes, rank):
                  lambda: kq.plain_quantize(g, norm, levels, u), None,
                  9 * n + 4, 8 * n, True)
         if tag.startswith(("classic", "moe", "hybrid", "ssm",
-                           "audio")):                         # no path
+                           "audio", "vlm", "hsdp")):          # no path
             # MSTop-K's 1%, from every k-th element (torch.quantile
             # takes at most 2**24)
             t = torch.quantile(g.abs()[::-(-n // 2**24)], 0.99)
@@ -1697,8 +1727,14 @@ FAMILY_PHASES = (("hybrid", HYBRID_ARCH), ("ssm", SSM_ARCH),
 def with_frames(arch, batch: dict, seed: int) -> dict:
     """``batch`` and, for the audio family, its ``enc_embeds``: the
     stubbed frontend's frames, a standard normal ``(B, S, d_model)`` in
-    fp32 from ``seed``, the encoder as long as the decoder."""
+    fp32 from ``seed``, the encoder as long as the decoder; for the vlm
+    family its seeded fp32 ``embeds`` and ``mrope_positions``
+    (``launch.inputs.with_vlm_inputs``)."""
     import torch
+
+    from repro_torch.launch.inputs import with_vlm_inputs
+    if arch.family == "vlm":
+        return with_vlm_inputs(arch, batch, seed)
     if arch.family != "audio":
         return batch
     b, s = batch["tokens"].shape
@@ -1822,6 +1858,96 @@ def audio_block_syncs(device: str = "cuda") -> None:
         f"{len(grads)} gradients, the memory's among them)")
 
 
+VLM_ARCH = "qwen2-vl-7b"
+#: the vlm one-rank phase's depth: full width, 4 of 28 blocks (28 would
+#: need ~122 GB of ZeRO-1 state and weights on one rank)
+VLM_LAYERS = 4
+#: the vlm reference block's tokens (the CPU side runs a 233 M-parameter
+#: block forward and backward in fp32)
+VLM_REF_SEQ = 128
+
+
+def vlm_arch():
+    """``qwen2-vl-7b`` at full width cut to ``VLM_LAYERS`` blocks."""
+    from repro_torch.configs import base as cfgs
+    return dataclasses.replace(cfgs.get(VLM_ARCH), n_layers=VLM_LAYERS)
+
+
+def vlm_reference(device: str = "cuda") -> float:
+    """One full-width qwen2-vl block (d_model 3584, 28 heads and 4 KV
+    heads of 128, d_ff 18944) rotating by M-RoPE over three distinct
+    position streams (an image of 64 patches on an 8 x 8 grid, then
+    text; batch 1 x ``VLM_REF_SEQ``), forward and the gradients of every
+    parameter and the input, on the card against the same code on the
+    CPU, in fp32, from the same parameters and inputs, within
+    ``CARD_RTOL`` and ``CARD_SCALE``; the card's forward and backward run
+    under the sync debug mode "error" (fatal on a host sync).  Returns
+    the largest error over the largest entry."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch.inputs import vlm_positions
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import (BLOCK_PREFIX, init_leaf_,
+                                          leaf_dtype, param_layout)
+    arch = cfgs.get(VLM_ARCH)
+    ctx = ShardCtx(compute_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(11)
+    params = {}
+    for name, shape, init in param_layout(arch):
+        if name.startswith(BLOCK_PREFIX):
+            t = torch.empty(shape[1:], dtype=leaf_dtype(name, ctx))
+            init_leaf_(t, init, gen)
+            params[name[len(BLOCK_PREFIX):]] = t
+    s = VLM_REF_SEQ
+    x, r = (torch.randn(1, s, arch.d_model, generator=gen) for _ in range(2))
+    mrope = vlm_positions(1, s)
+    positions = torch.arange(s).expand(1, s)
+    res = {}
+    for dev in ("cpu", device):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        args = (xx, positions.to(dev), arch, ctx, mrope.to(dev))
+        rr = r.to(dev)
+        sync = dev != "cpu"
+        if sync:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = tf.dense_block_apply(p, *args)
+            grads = torch.autograd.grad((y * rr).sum(), (*p.values(), xx))
+        finally:
+            if sync:
+                torch.cuda.set_sync_debug_mode("default")
+        res[dev] = [y, *grads]
+        del p, xx
+    names = ["y", *params, "x"]
+    errs = {nm: card_close(a, c, f"vlm block {nm}")
+            for nm, a, c in zip(names, res[device], res["cpu"])}
+    log(f"[reference] vlm block (d_model {arch.d_model}, M-RoPE sections "
+        f"(16, 24, 24), batch 1 x {s}): card == CPU in fp32, forward and "
+        f"{len(names) - 1} gradients, no host sync on the card; max err / "
+        f"max " + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+    return max(errs.values())
+
+
+def hsdp_layout():
+    """The HSDP phase's shard bucket layout: ``qwen2-vl-7b`` at full
+    width, ``FSDP_LAYERS`` block, fp32 parameters sharded over a ``data``
+    axis of 2 (``meta``; no allocation)."""
+    import torch
+
+    from repro_torch.core import bucketing
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    arch = dataclasses.replace(vlm_arch(), n_layers=FSDP_LAYERS)
+    model = Model(arch, ShardCtx(fsdp_axes=("data",)), device="meta",
+                  fsdp_size=2)
+    return bucketing.layout_for(list(model.parameters()),
+                                arch.plan.bucket_mb)
+
+
 def family_layouts(tag: str, name: str) -> tuple[dict, list]:
     """The full-size arch ``name``'s bucket counts (classic ZeRO-1 and
     overlapped ZeRO-1, from the layouts on the ``meta`` device) and the
@@ -1836,7 +1962,7 @@ def family_layouts(tag: str, name: str) -> tuple[dict, list]:
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
     from repro_torch.train import overlap
-    arch = cfgs.get(name)
+    arch = cfgs.get(name) if isinstance(name, str) else name
     model = Model(arch, ShardCtx(param_dtype=torch.bfloat16), device="meta")
     ov = overlap.layout_for_model(model, arch.plan.bucket_mb)
     by_stage = list(zip(ov.layout.sizes, ov.bucket_ready))
@@ -1850,10 +1976,12 @@ def family_layouts(tag: str, name: str) -> tuple[dict, list]:
     return {"zero1": zero1.n_buckets, "overlap": ov.layout.n_buckets}, shapes
 
 
-def family_phase(tag: str, name: str, buckets: dict, hist: dict,
-                 counts: dict) -> dict:
-    """The arch ``name`` at full width and depth on its own plan (DDP,
-    ZeRO-1, ``remat="full"``) through ``train_phase``, each run labelled
+def family_phase(tag: str, name, buckets: dict, hist: dict,
+                 counts: dict, **extra) -> dict:
+    """The arch ``name`` (a registered name: full width and depth; or an
+    ``ArchConfig``, e.g. cut in depth) on its own plan (DDP, ZeRO-1,
+    ``remat="full"``; ``extra`` overrides it in every run, e.g.
+    ``dp_mode="ddp"``) through ``train_phase``, each run labelled
     ``tag``: ZeRO-1 2 PowerSGD steps, 1 SignSGD and 1 QSGD; the
     overlapped ZeRO-1 step 2 PowerSGD steps under ``overlap`` and 2 under
     ``serial``, whose final states and metrics must agree bit for bit;
@@ -1861,6 +1989,7 @@ def family_phase(tag: str, name: str, buckets: dict, hist: dict,
     layouts' bucket counts (``family_layouts``); each run's records and
     launch counts go into ``hist`` and ``counts``.  Returns the runs."""
     from repro_torch.configs import base as cfgs
+    arch = cfgs.get(name) if isinstance(name, str) else name
     t0 = time.perf_counter()
     nz, no = buckets["zero1"], buckets["overlap"]
 
@@ -1882,8 +2011,8 @@ def family_phase(tag: str, name: str, buckets: dict, hist: dict,
     kept = {}
     for label, (steps, per_step, schedule, overrides) in runs.items():
         hist[label], counts[label] = train_phase(
-            label, steps, per_step, 1, schedule, arch=cfgs.get(name),
-            keep=kept if schedule else None, **overrides)
+            label, steps, per_step, 1, schedule, arch=arch,
+            keep=kept if schedule else None, **{**extra, **overrides})
     if not kept.get("same"):
         raise AssertionError(f"{tag}: serial and overlap differ at full "
                              f"width")
@@ -2601,6 +2730,95 @@ def pod_phase(kind: str) -> dict:
     return recs
 
 
+#: the FSDP phase: four ranks of the pod worker on one card as pod 2 x
+#: data 2, qwen2-vl-7b as configured (dp_mode="fsdp", AdamW,
+#: remat="full") at full width cut to FSDP_LAYERS block, 25 MB shard
+#: buckets, batch 4 x 512 global: one row a rank (two rows put the card
+#: at 76.2 GiB in use on an H100 80GB, past the 75 GiB line)
+FSDP_LAYERS = 1
+FSDP_WORKER_ARGS = ("--procs", "2", "--local-devices", "2", "--arch",
+                    VLM_ARCH, "--full-width", "--layers", str(FSDP_LAYERS),
+                    "--batch", "4", "--seq", "512", "--bucket-mb", "25",
+                    "--json", "--plan", "dp_mode=fsdp")
+#: label -> (plan fields and steps of the worker's ``--variant``, FSDP
+#: axes, compress axes, launches per shard bucket and step); the
+#: variants run in turn in one torchrun group
+FSDP_RUNS = {
+    "hsdp powersgd": ("compression=powersgd,steps=2", ["data"], ["pod"],
+                      {"powersgd_encode": 2, "powersgd_decode": 1}),
+    "zero3 none": ("fsdp_shard_pods=true,steps=1", ["pod", "data"], [],
+                   {}),
+    "hsdp int8 gather": ("gather_quant=int8,steps=1", ["data"], ["pod"],
+                         {}),
+}
+#: the int8 gather's first loss against the plain gather's, same batch
+INT8_LOSS_RTOL = 1e-2
+
+
+def fsdp_phase(kind: str) -> dict:
+    """The FSDP cells of ``FSDP_RUNS``: one ``torchrun`` of
+    ``train/pod_worker.py`` on 4 ranks of this card, running each as a
+    ``--variant`` in turn.  Each must give
+    finite losses, the FSDP and compress axes as configured, the same
+    shard bits on the ranks with the same index along the FSDP axes,
+    every gathered parameter the same on every rank, the leaves FSDP does
+    not shard the same on every rank when nothing is compressed, and the
+    PowerSGD launches per shard bucket and step; the int8 gather's first
+    loss within ``INT8_LOSS_RTOL`` of the plain gather's on the same
+    batch.  Prints each rank's peak, the card's memory in use and the
+    step times.  Returns {label: the worker's record}."""
+    variants = [f"--variant={label}:{fields}"
+                for label, (fields, *_) in FSDP_RUNS.items()]
+    out, wall = run_ranks(4, "repro_torch.train.pod_worker",
+                          (*FSDP_WORKER_ARGS, *variants), "fsdp")
+    got = {rec["label"]: rec
+           for rec in json.loads(out.strip().splitlines()[-1])["variants"]}
+    log(f"[fsdp] {len(got)} variants in one torchrun group of 4 ranks: "
+        f"{wall:.1f} s")
+    recs = {}
+    for label, (_, fsdp, comp, per_bucket) in FSDP_RUNS.items():
+        rec = got[label]
+        bad = []
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            bad.append(f"losses {rec['losses']}")
+        if (rec["fsdp_axes"], rec["compress_axes"], rec["device"]) != (
+                fsdp, comp, kind):
+            bad.append(f"axes {rec['fsdp_axes']} / {rec['compress_axes']} "
+                       f"or device {rec['device']}")
+        if not rec["replicas_identical"]:
+            bad.append("shard bits differ between replicas")
+        if not rec["gathered_identical"]:
+            bad.append("gathered parameters differ between ranks")
+        if rec["method"] == "none" and not rec["unsharded_identical"]:
+            bad.append("unsharded leaves differ between ranks")
+        want = {k: v * rec["n_buckets"] * rec["steps_timed"]
+                for k, v in per_bucket.items()}
+        if rec["launches"] != want:
+            bad.append(f"launches {rec['launches']}, want {want}")
+        if bad:
+            raise AssertionError(f"fsdp {label}: " + "; ".join(bad))
+        log(f"[fsdp] {label}: {rec['n_params']:,} parameters"
+            f", fsdp {rec['fsdp_axes']}, compress {rec['compress_axes']}, "
+            f"{rec['n_buckets']} shard buckets of {rec['bucket_sizes'][0]:,}"
+            f" (last {rec['bucket_sizes'][-1]:,}); losses {rec['losses']}; "
+            f"step s {rec['step_s']}; peak GiB per rank "
+            f"{rec['peak_mem_gb']}; card in use {rec['card_used_gb']:.2f} "
+            f"GiB; replicas identical {rec['replicas_identical']}, gathered "
+            f"identical {rec['gathered_identical']}, unsharded identical "
+            f"{rec['unsharded_identical']}; launches {rec['launches']}")
+        log(f"[fsdp] {label} record: " + json.dumps(rec))
+        recs[label] = rec
+    plain = recs["hsdp powersgd"]["losses"][0]
+    quant = recs["hsdp int8 gather"]["losses"][0]
+    if abs(quant - plain) > INT8_LOSS_RTOL * abs(plain):
+        raise AssertionError(f"fsdp: int8 gather's first loss {quant} vs "
+                             f"the plain gather's {plain}")
+    log(f"[fsdp] first loss: plain gather {plain!r}, int8 gather {quant!r} "
+        f"(rel {abs(quant - plain) / abs(plain):.3g}), ZeRO-3 "
+        f"{recs['zero3 none']['losses'][0]!r}")
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2681,6 +2899,15 @@ def main() -> int:
     for tag, name in FAMILY_PHASES:
         family_buckets[tag], more = family_layouts(tag, name)
         shapes += more
+    # the vlm slice: full width cut to VLM_LAYERS blocks (DDP), and the
+    # HSDP phase's shard buckets (full width, FSDP_LAYERS block, fp32
+    # shards over a data axis of 2)
+    family_buckets["vlm"], more = family_layouts("vlm", vlm_arch())
+    shapes += more
+    hsdp = hsdp_layout()
+    shapes += [(f"hsdp {which}", *matrix_shape(n), n)
+               for which, n in (("full", hsdp.bucket_elems),
+                                ("last", hsdp.last_elems))]
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -2716,6 +2943,9 @@ def main() -> int:
         audio_block_syncs()
         log(f"[audio] reference and block syncs in "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        vlm_reference()
+        log(f"[vlm] reference in {time.perf_counter() - t0:.1f} s")
         nb, nz = layouts["classic"].n_buckets, layouts["zero1"].n_buckets
         ob, oz = (ovs[k].layout.n_buckets for k in ("classic", "zero1"))
         runs = {  # name -> (steps, launches per step, accum, build overrides)
@@ -2825,6 +3055,12 @@ def main() -> int:
         family_runs = {tag: family_phase(tag, name, family_buckets[tag],
                                          hist, counts)
                        for tag, name in FAMILY_PHASES}
+        # the vlm slice on one rank: DDP (the arch's own plan is FSDP,
+        # whose phase runs four ranks below), ZeRO-1 as the other
+        # families configure it
+        family_runs["vlm"] = family_phase(
+            "vlm", vlm_arch(), family_buckets["vlm"], hist, counts,
+            dp_mode="ddp", zero1=True)
         t0 = time.perf_counter()
         ssm_profiles()
         log(f"[ssm] block profiles in {time.perf_counter() - t0:.1f} s")
@@ -2863,6 +3099,9 @@ def main() -> int:
     pod = pod_phase(kind)
     log(f"[pod] {len(pod)} cells, the fit and local SGD in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fsdp = fsdp_phase(kind)
+    log(f"[fsdp] {len(fsdp)} cells in {time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
@@ -2909,6 +3148,8 @@ def main() -> int:
             **{f"{tag}_launches": {label: counts[label].get(name, 0)
                                    for label in runs}
                for tag, runs in family_runs.items()},
+            "fsdp_launches": {label: rec["launches"].get(name, 0)
+                              for label, rec in fsdp.items()},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -144,8 +144,20 @@ def _agg_tree(st):
         for f, v in zip(st._fields, st)))
 
 
+def check_unsharded(setup) -> None:
+    """Refuse a state whose parameters FSDP shards: its leaves are this
+    rank's slices, a file the JAX package could not read.  FSDP
+    checkpoints are a later slice of the port (ROADMAP)."""
+    if getattr(setup, "fsdp_axes", ()):
+        raise NotImplementedError(
+            f"checkpoints of an FSDP state (parameters sharded over "
+            f"{tuple(setup.fsdp_axes)}) are not ported yet: a later slice "
+            f"(FSDP checkpoints) writes the gathered JAX layout")
+
+
 def to_tree(setup, state: dict) -> dict:
     """The live ``state`` as the JAX package's TrainState tree."""
+    check_unsharded(setup)
     names = _names(setup)
     opt = state["opt"]
     if setup.zero1:
@@ -214,6 +226,7 @@ def abstract_state(setup) -> dict:
     allocated (the tensors it reads live on ``meta``)."""
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_step as ts
+    check_unsharded(setup)
     params = [torch.empty(p.shape, dtype=p.dtype, device="meta")
               for p in setup.model.parameters()]
     if setup.zero1:

@@ -9,6 +9,12 @@ of the other schemes, the ``key`` of the stochastic ones, and the
 state).  Everything arrives as numpy arrays (``jax.device_get`` on the JAX
 side, and ``jax.random.key_data`` for a key: two uint32 words); this
 module imports neither JAX nor the JAX package.
+
+Under FSDP the JAX tree still holds global arrays: ``load_params`` keeps
+this rank's slice of each sharded leaf (``Model.shard_slice``), and
+``global_params`` / ``to_global`` gather a rank's shards back into global
+tensors (collectives over the FSDP axes: every rank calls them), so that
+comparisons run on global arrays.
 """
 from __future__ import annotations
 
@@ -43,9 +49,11 @@ def to_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def load_params(model: torch.nn.Module, tree: Mapping) -> None:
-    """Copy a JAX parameter tree into ``model`` (same names and shapes).
-    Each parameter keeps its dtype; a source of the same dtype is copied
-    bit for bit, so a mixed tree (the MoE family's fp32 router and shared
+    """Copy a JAX parameter tree (global arrays) into ``model`` (same
+    names; each leaf of the model's shape, or for an FSDP-sharded model
+    of its global shape, of which this rank keeps its slice).  Each
+    parameter keeps its dtype; a source of the same dtype is copied bit
+    for bit, so a mixed tree (the MoE family's fp32 router and shared
     gate among bf16 leaves) arrives leaf by leaf in its own dtypes."""
     flat = flatten(tree)
     params = dict(model.named_parameters())
@@ -55,10 +63,35 @@ def load_params(model: torch.nn.Module, tree: Mapping) -> None:
     with torch.no_grad():
         for name, p in params.items():
             src = to_tensor(flat[name])
+            if tuple(src.shape) != tuple(p.shape) and hasattr(
+                    model, "shard_slice") and tuple(src.shape) == \
+                    model.global_shape(name):
+                src = model.shard_slice(name, src)
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(src.shape)} vs "
                                  f"{tuple(p.shape)}")
             p.copy_(src)
+
+
+def to_global(model: torch.nn.Module, name: str, t: torch.Tensor
+              ) -> torch.Tensor:
+    """A tensor laid out as leaf ``name``'s local shard (the parameter,
+    its gradient, an AdamW moment) gathered over the FSDP axes into the
+    global leaf, on the host.  A collective of the FSDP group; ``t``
+    itself, on the host, when the leaf is not sharded."""
+    from repro_torch.models.layers import _all_gather, fsdp_dim
+    axes = tuple(model.ctx.fsdp_axes)
+    dim = fsdp_dim(name)
+    if axes and dim is not None and getattr(model, "fsdp_size", 1) > 1:
+        t = _all_gather(t.detach(), axes, dim % t.ndim)
+    return t.detach().cpu()
+
+
+def global_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """name -> the global parameter on the host, in leaf order (every
+    rank of the FSDP group calls it)."""
+    return {name: to_global(model, name, p)
+            for name, p in model.named_parameters()}
 
 
 def opt_state(state: Mapping, index: int,

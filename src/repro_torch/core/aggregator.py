@@ -1,9 +1,10 @@
-"""DP-axis gradient aggregation.  Counterpart of ``repro.core.aggregator``
-for the DDP path (the FSDP ``aggregate_shard`` comes with its slice).
+"""DP-axis gradient aggregation.  Counterpart of ``repro.core.aggregator``.
 
 ``aggregate_bucketed``: the gradient leaves -> 25 MB buckets, each bucket
 compressed-aggregated over the compress axes (the PyTorch-DDP comm-hook
 path the paper measures), after a raw mean over the raw axes if any.
+The FSDP step runs it on the leaves' local shards (the JAX package's
+train step does the same; its ``aggregate_shard`` is on no path).
 Which collective moves each payload is the config's ``CommPlan``.
 ``from_plan`` is the JAX package's policy: ``compress_axes="pod"`` on a
 ``pod x data`` mesh means a raw mean over ``data``, then the compressor
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Sequence
+
+import torch
 
 from repro_torch.core import bucketing
 from repro_torch.core.compression import base as cbase
@@ -51,11 +54,24 @@ class GradAggregator:
 
     def aggregate_bucketed(self, grads: Sequence[torch.Tensor], states,
                            layout: bucketing.BucketLayout):
-        """grads: the local gradient leaves (replicated params).  Returns
-        the aggregated leaves and the new compressor states."""
-        buckets = bucketing.to_buckets(grads, layout)
-        outs, news = self.aggregate_bucket_list(buckets, states)
-        return bucketing.from_buckets(outs, grads, layout), news
+        """grads: the local gradient leaves, in the layout's leaf order.
+        One bucket at a time, each read out of the leaves (cast to the
+        bucket dtype), aggregated, and written back into them in place (cast
+        to each leaf's dtype), so at most one bucket exists beside the
+        gradient.  Returns the aggregated leaves (``grads`` itself) and
+        the new compressor states."""
+        news, start = [], 0
+        for i, n in enumerate(layout.sizes):
+            bucket = bucketing.read_flat(
+                grads, start, torch.empty(n, dtype=layout.dtype,
+                                          device=grads[0].device),
+                layout.dtype)
+            out, ns = self.aggregate_one(bucket, states[i] if states else ())
+            del bucket
+            bucketing.write_flat(grads, start, out)
+            news.append(ns)
+            start += n
+        return grads, tuple(news)
 
     def start_one(self, bucket: torch.Tensor) -> cp.PendingMean:
         """``aggregate_one`` of the ``none`` compressor with its collectives

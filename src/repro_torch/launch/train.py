@@ -1,16 +1,19 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
-Runs the port's DDP step as the arch configures it (``tinyllama-1.1b``:
-ZeRO-1 with bf16 working parameters) on the card, or on the CPU with
-``--device cpu``.  ``--arch`` takes every registered arch: the dense,
-MoE, hybrid (``zamba2-2.7b``) and ssm (``xlstm-350m``) families train;
-the audio family (``seamless-m4t-medium``) builds, but its step reads
-``enc_embeds``, which the data pipeline does not yield (nor does the JAX
-package's), so its first step raises a ``KeyError`` naming it; the vlm
-family, which the port does not build yet, fails at
-``train_step.build`` with the family named.  An arch configured for
-FSDP runs only with ``--overlap`` or ``--adaptive``, which force
-``dp_mode="ddp"`` and say so, as in the JAX package.
+Runs the port's train step as the arch configures it (``tinyllama-1.1b``:
+DDP, ZeRO-1 with bf16 working parameters; six archs: FSDP, sharded over
+``data``, and over ``pod`` too under ``fsdp_shard_pods``; the line it
+prints names the ``fsdp=`` axes, as the JAX launcher's does) on the
+card, or on the CPU with ``--device cpu``.  ``--arch`` takes every
+registered arch: the dense, MoE, hybrid (``zamba2-2.7b``) and ssm
+(``xlstm-350m``) families train; the audio (``seamless-m4t-medium``) and
+vlm (``qwen2-vl-7b``) families build, but their steps read
+``enc_embeds`` or ``mrope_positions``, which the data pipeline does not
+yield (nor does the JAX package's), so the first step raises a
+``KeyError`` naming it (``train/pod_worker.py`` feeds them).
+``--overlap`` and ``--adaptive`` force ``dp_mode="ddp"`` and say so, as
+in the JAX package.  An FSDP state cannot be checkpointed yet
+(``checkpoint.manager.check_unsharded``).
 ``--accum`` splits each rank's batch into microbatches,
 ``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
 each bucket aggregated between backward stages) and ``--sync-every N``
@@ -173,6 +176,7 @@ def main(argv=None):
                   f"mesh={mesh_mod.axis_sizes()} "
                   f"backends={mesh_mod.backends()} "
                   f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
+                  f"fsdp={setup.fsdp_axes} "
                   f"optimizer={setup.opt_cfg.name} "
                   f"overlap={setup.overlap}{sched} "
                   f"params={str(setup.layout.dtype).removeprefix('torch.')} "

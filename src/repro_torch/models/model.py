@@ -1,7 +1,6 @@
-"""The model as an ``nn.Module``: the dense, MoE, hybrid, ssm and audio
-families of ``repro.models.model.Model`` (init and loss).  Counterpart of
-those families at tensor-parallel degree 1; ``vlm`` raises
-``NotImplementedError``.
+"""The model as an ``nn.Module``: every family of
+``repro.models.model.Model`` (dense, vlm, MoE, hybrid, ssm and audio;
+init and loss), at tensor-parallel degree 1.
 
 The parameters are stored as the JAX package stores them: one stacked
 leaf per block weight, weights laid out ``(d_in, d_out)``, under the JAX
@@ -65,6 +64,21 @@ cross-attention reads the encoder's normed output (the memory):
 stubbed speech frontend's ``(B, S_enc, d_model)`` frame embeddings; both
 stacks' inputs take sinusoidal positions (``rope="none"``).
 
+The vlm family (qwen2-vl) has the dense family's leaves and rotates by
+M-RoPE (``rope="mrope"``): its ``loss`` reads ``batch["mrope_positions"]``
+``(3, B, S)`` and raises ``KeyError`` without it.  Any family's ``loss``
+takes ``batch["embeds"]`` ``(B, S, d_model)`` (the stubbed vision
+frontend's patch and text embeddings), cast to the compute dtype, in
+place of the token lookup when the batch has it.
+
+FSDP (``ctx.fsdp_axes`` set): every leaf that ``layers.fsdp_dim`` names
+is built at its local shard shape, that dim divided by the FSDP degree,
+and gathered at use: a stage's leaves at the top of its (recomputed)
+function, the vocabulary tables in the lookup and in each loss chunk.
+``init_params`` draws each leaf whole, in leaf order, and keeps this
+rank's slice before it draws the next, so the global parameters are the
+same at every FSDP degree and one leaf is the largest transient.
+
 Whatever the parameter dtype, the MoE ``router`` and ``shared_gate``, the
 Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the xLSTM ``b_if``, ``w_if``,
 ``b_gates``, ``r_gates`` and ``w_gates`` are fp32 (``leaf_dtype``).
@@ -95,7 +109,8 @@ from repro_torch.models import encdec, mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm
-from repro_torch.models.layers import (ShardCtx, embedding_lookup, rmsnorm,
+from repro_torch.models.layers import (ShardCtx, embedding_lookup, fsdp_dim,
+                                       gather_params, rmsnorm,
                                        sinusoidal_positions, trunc_normal_)
 
 BLOCK_PREFIX = "blocks."
@@ -103,10 +118,14 @@ SHARED_PREFIX = "shared."
 DEC_PREFIX, ENC_PREFIX = "dec_blocks.", "enc_blocks."
 #: the single-stack families, and the prefix of each one's stacked
 #: leaves (the JAX package's ``params`` key)
-STACK_PREFIX = {"dense": BLOCK_PREFIX, "moe": BLOCK_PREFIX,
-                "hybrid": "groups.", "ssm": "groups."}
+STACK_PREFIX = {"dense": BLOCK_PREFIX, "vlm": BLOCK_PREFIX,
+                "moe": BLOCK_PREFIX, "hybrid": "groups.", "ssm": "groups."}
 #: the families the port builds
 FAMILIES = (*STACK_PREFIX, "audio")
+#: each family's rotary scheme (``ArchConfig.rope``): the ssm family has
+#: no positional input, the audio family adds sinusoidal positions under
+#: "none", the vlm family rotates by M-RoPE
+ROPE = {"ssm": "none", "audio": "none", "vlm": "mrope"}
 #: the rank of the zamba2 shared block's per-group LoRA adapters
 ZAMBA_LORA_RANK = 64
 #: shared-block weight -> the LoRA adapter patched into it in every group
@@ -212,6 +231,30 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
     return out + io + tail
 
 
+def param_dims(cfg) -> dict[str, "int | None"]:
+    """name -> the dim of the leaf (counted from its first, stacking dims
+    included) that FSDP shards, or None: the dims of the JAX package's
+    ``Model.abstract_init`` specs with ``fsdp_axes`` set."""
+    out = {}
+    for name, shape, _ in param_layout(cfg):
+        dim = fsdp_dim(name)
+        out[name] = None if dim is None else dim % len(shape)
+    return out
+
+
+def local_shape(name: str, shape: tuple, p: int) -> tuple:
+    """The shape of this rank's shard of ``name`` at FSDP degree ``p``."""
+    dim = fsdp_dim(name)
+    if dim is None or p == 1:
+        return tuple(shape)
+    out = list(shape)
+    if out[dim] % p:
+        raise ValueError(f"{name}: dim {dim % len(shape)} of {tuple(shape)} "
+                         f"does not split over {p} FSDP ranks")
+    out[dim] //= p
+    return tuple(out)
+
+
 def leaf_dtype(name: str, ctx: ShardCtx) -> torch.dtype:
     """A leaf's storage dtype: fp32 for ``FP32_LEAVES`` (the MoE router
     and shared-expert gate, the Mamba2 ``A_log``, ``D`` and ``dt_bias``,
@@ -246,26 +289,32 @@ def _lora_patch(w: torch.Tensor, a: torch.Tensor,
 
 class Model(nn.Module):
     def __init__(self, cfg, ctx: ShardCtx = ShardCtx(),
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 fsdp_size: "int | None" = None):
         """Parameters of ``leaf_dtype``, uninitialised, on ``device``:
-        ``cuda`` unless the caller asks for ``cpu`` or ``meta``."""
+        ``cuda`` unless the caller asks for ``cpu`` or ``meta``.  Under
+        ``ctx.fsdp_axes`` each sharded leaf has its local shape at the
+        axes' size (``fsdp_size``, else read from the process group)."""
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+                f"{cfg.name}: the {cfg.family!r} family is not ported "
                 f"(the port has {', '.join(FAMILIES)})")
-        # the ssm family has no positional input; the audio family adds
-        # sinusoidal positions to its embeddings under rope="none"
-        if cfg.rope != ("none" if cfg.family in ("ssm", "audio")
-                        else "rope"):
-            raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r}")
+        if cfg.rope != ROPE.get(cfg.family, "rope"):
+            raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r} in "
+                                      f"the {cfg.family!r} family")
         if cfg.plan.remat not in ("none", "full"):
             raise NotImplementedError(f"remat={cfg.plan.remat!r}")
         if torch.device(device or "cuda").type != "meta":
             device = mesh_mod.resolve_device(device)
         self.cfg = cfg
         self.ctx = ctx
+        if fsdp_size is None:
+            fsdp_size = mesh_mod.size(ctx.fsdp_axes) if ctx.fsdp_axes else 1
+        #: the FSDP degree the leaves are sharded at (1: global shapes)
+        self.fsdp_size = fsdp_size
         self._init = {}
+        self._global = {}
         for name, shape, init in param_layout(cfg):
             *path, leaf = name.split(".")
             node: nn.Module = self
@@ -274,8 +323,10 @@ class Model(nn.Module):
                     node.add_module(part, nn.Module())
                 node = getattr(node, part)
             node.register_parameter(leaf, nn.Parameter(torch.empty(
-                shape, dtype=leaf_dtype(name, ctx), device=device)))
+                local_shape(name, shape, fsdp_size),
+                dtype=leaf_dtype(name, ctx), device=device)))
             self._init[name] = init
+            self._global[name] = tuple(shape)
 
     def named_parameters(self, prefix: str = "", recurse: bool = True,
                          remove_duplicate: bool = True):
@@ -290,13 +341,35 @@ class Model(nn.Module):
         for name in self._init:
             yield prefix + ("." if prefix else "") + name, params[name]
 
+    def global_shape(self, name: str) -> tuple:
+        """The leaf's shape before FSDP sharding."""
+        return self._global[name]
+
+    def shard_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the global leaf ``full`` (``full`` itself
+        when the leaf is not sharded)."""
+        dim = fsdp_dim(name)
+        if dim is None or self.fsdp_size == 1:
+            return full
+        n = full.shape[dim] // self.fsdp_size
+        return full.narrow(dim % full.ndim,
+                           mesh_mod.rank(self.ctx.fsdp_axes) * n, n)
+
     def init_params(self, generator: torch.Generator) -> None:
         """Every leaf as ``param_layout`` says (truncated-normal weights,
         unit norm scales, zero LoRA ``b``, the Mamba2 ``A_log``, ``D`` and
-        ``dt_bias``), drawn in leaf order from ``generator``."""
+        ``dt_bias``), drawn in leaf order from ``generator``; under FSDP
+        each sharded leaf is drawn whole and this rank keeps its slice."""
         with torch.no_grad():
             for name, p in self.named_parameters():
-                init_leaf_(p, self._init[name], generator)
+                if tuple(p.shape) == self._global[name]:
+                    init_leaf_(p, self._init[name], generator)
+                    continue
+                full = torch.empty(self._global[name], dtype=p.dtype,
+                                   device=p.device)
+                init_leaf_(full, self._init[name], generator)
+                p.copy_(self.shard_slice(name, full))
+                del full
 
     # ---- the three stages of the loss; the classic step runs them in one
     # ---- autograd graph, the overlapped step one graph per stage ----------
@@ -308,6 +381,18 @@ class Model(nn.Module):
         if self.cfg.family == "audio":
             x = self._add_positions(x)
         return x
+
+    def stage_embeds(self, embeds: torch.Tensor) -> torch.Tensor:
+        """Precomputed embeddings (B, S, d) (the vlm family's stubbed
+        frontend) -> the first block's input, in the compute dtype."""
+        return embeds.to(self.ctx.compute_dtype)
+
+    def mrope_positions(self, batch: dict) -> "torch.Tensor | None":
+        """The batch's ``(3, B, S)`` M-RoPE positions under
+        ``rope="mrope"`` (``KeyError`` without them, where the JAX
+        package fails in ``apply_mrope``), else None."""
+        return batch["mrope_positions"] if self.cfg.rope == "mrope" \
+            else None
 
     def _add_positions(self, x: torch.Tensor) -> torch.Tensor:
         """``x + sinusoidal_positions`` cast to ``x``'s dtype first, as
@@ -371,17 +456,31 @@ class Model(nn.Module):
             patched[w] = _lora_patch(shared[w], p_g[f"lora.{name}.a"],
                                      p_g[f"lora.{name}.b"])
         remat = self._remat()
+        dense = self._gathered(tf.dense_block_apply)
         args = (patched, x, positions, cfg, ctx)
-        x = checkpoint(tf.dense_block_apply, *args, use_reentrant=False) \
-            if remat else tf.dense_block_apply(*args)
+        x = checkpoint(dense, *args, use_reentrant=False) \
+            if remat else dense(*args)
         inner = [(name[len("mamba."):], p.unbind(0))
                  for name, p in p_g.items() if name.startswith("mamba.")]
+        block = self._gathered(mamba2.mamba_block_apply)
         for i in range(cfg.ssm.attn_every):
             args = ({name: p[i] for name, p in inner}, x, cfg, ctx)
-            x = checkpoint(mamba2.mamba_block_apply, *args,
-                           use_reentrant=False) if remat \
-                else mamba2.mamba_block_apply(*args)
+            x = checkpoint(block, *args, use_reentrant=False) if remat \
+                else block(*args)
         return x
+
+    def _gathered(self, fn):
+        """``fn(p, *args)`` with ``p``'s sharded leaves gathered first
+        (``layers.gather_params``): inside a recomputed stage the gather
+        runs again, and its backward once per use.  ``fn`` itself without
+        FSDP axes."""
+        if not self.ctx.fsdp_axes:
+            return fn
+        ctx = self.ctx
+
+        def run(p, *args, **kw):
+            return fn(gather_params(p, ctx), *args, **kw)
+        return run
 
     def _xlstm_group_apply(self, p_g: dict, x: torch.Tensor) -> torch.Tensor:
         """One xLSTM group: its mLSTM blocks, then its sLSTM block, each
@@ -396,13 +495,15 @@ class Model(nn.Module):
                        {name[len("slstm."):]: p for name, p in p_g.items()
                         if name.startswith("slstm.")}))
         for fn, p in blocks:
+            fn = self._gathered(fn)
             x = checkpoint(fn, p, x, cfg, ctx, use_reentrant=False) \
                 if remat else fn(p, x, cfg, ctx)
         return x
 
     def stage_block(self, p_l: dict, x: torch.Tensor,
                     positions: torch.Tensor, shared: "dict | None" = None,
-                    memory: "torch.Tensor | None" = None):
+                    memory: "torch.Tensor | None" = None,
+                    mrope_positions: "torch.Tensor | None" = None):
         """One stage on one slice of the stacked parameters (``p_l``:
         names under the stack's prefix -> that slice): a block, or for the
         hybrid family a group, which also reads ``shared`` (names under
@@ -412,21 +513,27 @@ class Model(nn.Module):
         backward pass when ``remat="full"``, with ``memory`` an input of
         the recomputation, so its gradient flows.  Returns the stage's
         output, and for the MoE family (``has_aux``) ``(output,
-        load-balancing loss)``."""
+        load-balancing loss)``.  The vlm family's block reads
+        ``mrope_positions`` (3, B, S).  Under FSDP the stage's sharded
+        leaves are gathered inside the recomputed function (the hybrid
+        and ssm groups gather per inner block, after the LoRA patch of
+        the shared block's shards)."""
         if self.cfg.family == "hybrid":
             fn, args = self._group_apply, (p_l, shared, x, positions)
         elif self.cfg.family == "ssm":
             fn, args = self._xlstm_group_apply, (p_l, x)
         elif memory is not None:
-            fn = encdec.dec_block_apply
+            fn = self._gathered(encdec.dec_block_apply)
             args = (p_l, x, memory, positions, self.cfg, self.ctx)
         elif self.cfg.family == "audio":
-            fn = encdec.enc_block_apply
+            fn = self._gathered(encdec.enc_block_apply)
+            args = (p_l, x, positions, self.cfg, self.ctx)
+        elif self.has_aux:
+            fn = self._gathered(moe_mod.moe_block_apply)
             args = (p_l, x, positions, self.cfg, self.ctx)
         else:
-            fn = moe_mod.moe_block_apply if self.has_aux \
-                else tf.dense_block_apply
-            args = (p_l, x, positions, self.cfg, self.ctx)
+            fn = self._gathered(tf.dense_block_apply)
+            args = (p_l, x, positions, self.cfg, self.ctx, mrope_positions)
         if self._remat():
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
@@ -472,21 +579,30 @@ class Model(nn.Module):
                 for name, p in self.named_parameters()
                 if name.startswith(SHARED_PREFIX)}
 
+    def stage_input(self, batch: dict) -> torch.Tensor:
+        """The first block's input: ``batch["embeds"]`` cast to the
+        compute dtype when the batch has them, else the token lookup."""
+        if "embeds" in batch:
+            return self.stage_embeds(batch["embeds"])
+        return self.stage_embed(self.embed.table, batch["tokens"])
+
     def loss(self, batch: dict, xent_chunk: int = 1024
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """batch: ``tokens`` and ``labels`` (B, S) on the model's device,
-        and for the audio family ``enc_embeds`` (B, S_enc, d).  Returns
-        (local loss sum, local token count, the load-balancing loss
-        averaged over the layers: 0 but for the MoE family)."""
-        tokens, labels = batch["tokens"], batch["labels"]
+        """batch: ``tokens`` (or ``embeds`` (B, S, d)) and ``labels`` (B,
+        S) on the model's device, for the audio family ``enc_embeds`` (B,
+        S_enc, d), for the vlm family ``mrope_positions`` (3, B, S).
+        Returns (local loss sum, local token count, the load-balancing
+        loss averaged over the layers: 0 but for the MoE family)."""
+        labels = batch["labels"]
+        mrope = self.mrope_positions(batch)
         memory = self.encode(batch["enc_embeds"]) \
             if self.cfg.family == "audio" else None
-        x = self.stage_embed(self.embed.table, tokens)
-        positions = positions_of(tokens)
+        x = self.stage_input(batch)
+        positions = positions_of(x[..., 0])
         shared = self.shared_params()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p_l in self._slices(self.stacks[0][0]):
-            x = self.stage_block(p_l, x, positions, shared, memory)
+            x = self.stage_block(p_l, x, positions, shared, memory, mrope)
             if self.has_aux:
                 x, a = x
                 aux = aux + a

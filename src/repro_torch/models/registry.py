@@ -6,8 +6,9 @@
 on the ``meta`` device (no allocation) and sums the leaf sizes.
 ``active_only`` subtracts the never-active share of the routed experts
 (the ``blocks.moe.experts.*`` leaves): active = total - routed · (1 -
-top_k / n_experts).  A family the port does not build raises
-``NotImplementedError`` from ``Model``.
+top_k / n_experts).  The ``Model`` it builds has no FSDP axes, so the
+count is of the global parameters whatever the FSDP degree a run shards
+them at.
 """
 from __future__ import annotations
 

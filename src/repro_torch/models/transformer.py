@@ -5,8 +5,11 @@ included (``cfg.qk_norm``: an RMSNorm over ``head_dim`` of each q and k
 head after the projection, before the rotation, as qwen3 has it).  The
 enc-dec family (``repro_torch.models.encdec``) reads the attention
 without the rotation (``rope="none"``) and, in its encoder, without the
-causal mask, and the two-matrix GELU MLP.  The GELU MLP and each chunk of
-the loss run inside the profiler ranges ``GELU_MLP`` and ``LM_LOSS``.
+causal mask, and the two-matrix GELU MLP.  The vlm family rotates q and k
+by M-RoPE (``cfg.rope == "mrope"``): its ``(3, B, S)``
+``mrope_positions`` choose the angles, the ``(B, S)`` positions the
+causal mask.  The GELU MLP and each chunk of the loss run inside the
+profiler ranges ``GELU_MLP`` and ``LM_LOSS``.
 
 A block's parameters arrive as a dict keyed by their names under
 ``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
@@ -20,8 +23,9 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention
-from repro_torch.models.layers import (ShardCtx, apply_rope, linear, rmsnorm,
-                                       unembed_logits, vocab_parallel_xent)
+from repro_torch.models.layers import (ShardCtx, apply_mrope, apply_rope,
+                                       linear, rmsnorm, unembed_logits,
+                                       vocab_parallel_xent)
 
 #: the profiler ranges around the GELU MLP and one chunk of the loss head
 GELU_MLP, LM_LOSS = "mlp.gelu", "lm_loss.chunk"
@@ -47,11 +51,14 @@ def gelu_mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
 
 def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                ctx: ShardCtx, causal: bool = True,
-               prefix: str = "attn.") -> torch.Tensor:
+               prefix: str = "attn.",
+               mrope_positions: "torch.Tensor | None" = None
+               ) -> torch.Tensor:
     """x: the pre-normed (B, S, d) input; returns the attention output
     (the caller adds the residual) of the weights ``p[prefix + ...]``.
-    q and k are rotated unless ``cfg.rope == "none"``; ``causal=False``
-    lets every query see every key."""
+    q and k are rotated unless ``cfg.rope == "none"``, by M-RoPE over
+    ``mrope_positions`` (3, B, S) under ``cfg.rope == "mrope"``;
+    ``causal=False`` lets every query see every key."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q = linear(p[prefix + "wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
@@ -60,7 +67,12 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     if cfg.qk_norm:
         q = rmsnorm(p[prefix + "q_norm.scale"], q, cfg.norm_eps)
         k = rmsnorm(p[prefix + "k_norm.scale"], k, cfg.norm_eps)
-    if cfg.rope != "none":
+    if cfg.rope == "mrope":
+        if mrope_positions is None:
+            raise KeyError("mrope_positions")
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta)
+    elif cfg.rope != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, positions, positions, causal=causal)
@@ -69,9 +81,12 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 
 def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                      cfg, ctx: ShardCtx) -> torch.Tensor:
+                      cfg, ctx: ShardCtx,
+                      mrope_positions: "torch.Tensor | None" = None
+                      ) -> torch.Tensor:
     x = x + attn_apply(p, rmsnorm(p["ln1.scale"], x, cfg.norm_eps),
-                       positions, cfg, ctx)
+                       positions, cfg, ctx,
+                       mrope_positions=mrope_positions)
     return x + mlp_apply(p, rmsnorm(p["ln2.scale"], x, cfg.norm_eps), ctx)
 
 

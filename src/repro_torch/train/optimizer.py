@@ -9,8 +9,15 @@ Adafactor ``{"s", "t"}``, whose ``s`` holds per leaf the factored row and
 column statistics ``{"r", "c"}`` over the trailing two dims (leaves with
 two dims or more) or a full second moment ``{"v"}``.
 
-Parameters are replicated over the data axis (fp32, or bf16 working
-copies), so the global norm needs no collective.  Both updates run one
+Under DDP the parameters are replicated over the data axis (fp32, or
+bf16 working copies), so the global norm needs no collective.  Under FSDP
+(``Sharding``: the FSDP axes and, per leaf, the dim they shard or None)
+two places need the sharding, as in the JAX package: the global norm sums
+each sharded leaf's squares over the FSDP axes (leaves grouped by their
+axes, each group's sum reduced once; a replicated leaf is never summed
+over them), and Adafactor's factored means sum over a sharded dim's axes
+and divide by the global size, as does its per-matrix RMS clip.  Both
+updates run one
 elementwise function, ``adamw_math``, in the JAX package's operation
 order and in fp32, whatever the parameter's dtype; that is what makes the
 owner-sharded update bit-identical to the replicated one from the same
@@ -21,9 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.parallel import commplan as cp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,16 +49,45 @@ class OptConfig:
     momentum: float = 0.9
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """fp32 L2 norm over every leaf, summed in leaf order."""
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """How FSDP shards the parameters: the mesh axes, and per leaf (in
+    parameter order) the dim they shard, or None for a replicated leaf."""
+    axes: tuple[str, ...]
+    dims: tuple["int | None", ...]
+
+    def leaf_axes(self, i: int) -> tuple[str, ...]:
+        return self.axes if self.dims[i] is not None else ()
+
+
+def _psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    return cp.psum(t, axes) if axes else t
+
+
+def global_norm(grads: Sequence[torch.Tensor],
+                sharding: Optional[Sharding] = None) -> torch.Tensor:
+    """fp32 L2 norm over every leaf, summed in leaf order; under
+    ``sharding`` the global gradient's: the leaves grouped by the axes
+    that shard them (in order of first appearance), each group's sum of
+    squares summed over its axes, as the JAX package groups them."""
+    if sharding is None or not sharding.axes:
+        total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for g in grads:
+            total = total + g.float().square().sum()
+        return total.sqrt()
+    groups: dict = {}
+    for i, g in enumerate(grads):
+        key = sharding.leaf_axes(i)
+        groups[key] = groups.get(key, 0.0) + g.float().square().sum()
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for g in grads:
-        total = total + g.float().square().sum()
+    for axes, acc in groups.items():
+        total = total + _psum(acc, axes)
     return total.sqrt()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        sharding: Optional[Sharding] = None):
+    norm = global_norm(grads, sharding)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return [g * scale.to(g.dtype) for g in grads], norm
 
@@ -75,8 +114,9 @@ def _bias_corrections(c: OptConfig, t: int) -> tuple[float, float]:
 
 
 class AdamW:
-    def __init__(self, cfg: OptConfig):
+    def __init__(self, cfg: OptConfig, sharding: Optional[Sharding] = None):
         self.cfg = cfg
+        self.sharding = sharding
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
@@ -90,17 +130,28 @@ class AdamW:
         ``p.float()`` and is written back in the parameter's dtype (a bf16
         parameter rounds once, as JAX's ``astype(p.dtype)``)."""
         c = self.cfg
-        if c.grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, c.grad_clip)
-        else:
-            gnorm = global_norm(grads)
+        gnorm = global_norm(grads, self.sharding)
+        # the clip of ``clip_by_global_norm``, applied a leaf at a time:
+        # the same bits, one clipped leaf in memory rather than a copy of
+        # the whole gradient
+        scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0) if c.grad_clip else None
         t = state["t"] + 1
         bc1, bc2 = _bias_corrections(c, t)
         for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-            p32 = p.float()
-            adamw_math(p32, g, m, v, bc1, bc2, lr, c)
-            if p32 is not p:
-                p.copy_(p32)
+            # a leaf in FLAT_CHUNK slices: elementwise, so the same bits,
+            # with the temporaries of a slice, not of a whole table
+            pf, gf, mf, vf = (x.reshape(-1) for x in (p, g, m, v))
+            for a in range(0, pf.shape[0], FLAT_CHUNK):
+                b = a + FLAT_CHUNK
+                gc = gf[a:b]
+                if scale is not None:
+                    gc = gc * scale.to(gc.dtype)
+                pc = pf[a:b]
+                p32 = pc.float()
+                adamw_math(p32, gc, mf[a:b], vf[a:b], bc1, bc2, lr, c)
+                if p32 is not pc:
+                    pc.copy_(p32)
         return params, {"m": state["m"], "v": state["v"], "t": t}, \
             {"grad_norm": gnorm}
 
@@ -129,15 +180,17 @@ def flat_adamw_update(p: torch.Tensor, g: torch.Tensor, st: dict, t: int,
     return p, st
 
 
-def _clipped(grads: Sequence[torch.Tensor], c: OptConfig):
+def _clipped(grads: Sequence[torch.Tensor], c: OptConfig,
+             sharding: Optional[Sharding] = None):
     if c.grad_clip:
-        return clip_by_global_norm(grads, c.grad_clip)
-    return list(grads), global_norm(grads)
+        return clip_by_global_norm(grads, c.grad_clip, sharding)
+    return list(grads), global_norm(grads, sharding)
 
 
 class SGDM:
-    def __init__(self, cfg: OptConfig):
+    def __init__(self, cfg: OptConfig, sharding: Optional[Sharding] = None):
         self.cfg = cfg
+        self.sharding = sharding
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         return {"m": [torch.zeros_like(p, dtype=torch.float32) for p in params],
@@ -147,7 +200,7 @@ class SGDM:
     def update(self, grads: Sequence[torch.Tensor], state: dict,
                params: Sequence[torch.Tensor], lr: float):
         c = self.cfg
-        grads, gnorm = _clipped(grads, c)
+        grads, gnorm = _clipped(grads, c, self.sharding)
         for p, g, m in zip(params, grads, state["m"]):
             m.mul_(c.momentum).add_(g.float())
             p32 = p.float()
@@ -163,8 +216,16 @@ class Adafactor:
     leaf of three dims or more (the JAX package maps those over their
     layer dim), over the whole leaf otherwise."""
 
-    def __init__(self, cfg: OptConfig):
+    def __init__(self, cfg: OptConfig, sharding: Optional[Sharding] = None):
         self.cfg = cfg
+        self.sharding = sharding
+
+    def _dim_axes(self, i: int, ndim: int) -> list[tuple[str, ...]]:
+        """Per dim of leaf ``i``, the axes that shard it."""
+        out: list = [()] * ndim
+        if self.sharding is not None and self.sharding.dims[i] is not None:
+            out[self.sharding.dims[i] % ndim] = self.sharding.axes
+        return out
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         def st(p):
@@ -181,21 +242,29 @@ class Adafactor:
     def update(self, grads: Sequence[torch.Tensor], state: dict,
                params: Sequence[torch.Tensor], lr: float):
         c = self.cfg
-        grads, gnorm = _clipped(grads, c)
+        grads, gnorm = _clipped(grads, c, self.sharding)
         t = state["t"] + 1
         beta2 = 1.0 - torch.tensor(t, dtype=torch.float32) ** -0.8
         new_s = []
-        for p, gl, sl in zip(params, grads, state["s"]):
+        for i, (p, gl, sl) in enumerate(zip(params, grads, state["s"])):
             beta2 = beta2.to(p.device)
+            dims = self._dim_axes(i, p.ndim)
+            glob = [n * (mesh_mod.size(a) if a else 1)
+                    for n, a in zip(p.shape, dims)]
+
+            def mean(x, dim, axes, n):
+                """The mean over a dim sharded over ``axes``: the local
+                sum, summed over the axes, over the global size."""
+                return _psum(x.sum(dim), axes) / float(n)
             g = gl.float()
             g2 = g * g + c.adafactor_eps1
             if p.ndim >= 2:
-                r = beta2 * sl["r"] + (1 - beta2) * (
-                    g2.sum(-1) / float(p.shape[-1]))
-                cc = beta2 * sl["c"] + (1 - beta2) * (
-                    g2.sum(-2) / float(p.shape[-2]))
+                r = beta2 * sl["r"] + (1 - beta2) * mean(g2, -1, dims[-1],
+                                                         glob[-1])
+                cc = beta2 * sl["c"] + (1 - beta2) * mean(g2, -2, dims[-2],
+                                                          glob[-2])
                 # v̂ = r ⊗ c / mean(r)
-                r_mean = r.sum(-1) / float(p.shape[-2])
+                r_mean = mean(r, -1, dims[-2], glob[-2])
                 denom = torch.sqrt(r[..., :, None] * cc[..., None, :]
                                    / torch.clamp(r_mean[..., None, None],
                                                  min=c.adafactor_eps1))
@@ -207,15 +276,17 @@ class Adafactor:
                 new_s.append({"v": v})
             # per-matrix RMS clip (mean of u² over one layer's matrix)
             lead = 1 if p.ndim >= 3 and p.shape[0] > 1 else 0
-            dims = tuple(range(lead, p.ndim))
-            n = float(math.prod(p.shape[lead:]))
-            rms = torch.sqrt((u * u).sum(dims, keepdim=True) / n)
+            n = float(math.prod(glob[lead:]))
+            sq = _psum((u * u).sum(tuple(range(lead, p.ndim)), keepdim=True),
+                       tuple(sorted(set(a for ax in dims for a in ax))))
+            rms = torch.sqrt(sq / n)
             u = u / torch.clamp(rms / c.adafactor_clip, min=1.0)
             p32 = p.float()
             p.copy_(p32 - lr * (u + c.weight_decay * p32))
         return params, {"s": new_s, "t": t}, {"grad_norm": gnorm}
 
 
-def make(name: str, cfg: OptConfig) -> "AdamW | SGDM | Adafactor":
+def make(name: str, cfg: OptConfig, sharding: Optional[Sharding] = None
+         ) -> "AdamW | SGDM | Adafactor":
     table = {"adamw": AdamW, "adafactor": Adafactor, "sgdm": SGDM}
-    return table[name](cfg)
+    return table[name](cfg, sharding)

@@ -69,11 +69,17 @@ through ``enc_norm``, then runs the encoder blocks in reverse
 (``_backward_encdec``).  Its tail is the embedding, ``enc_norm``, the
 final norm and the unembedding.
 
-Supported: the dense, MoE, hybrid, ssm and audio families (the ones the
-port has), ZeRO-1 through ``train_step.zero1_apply`` on the ordered
-leaves, and ``accum > 1`` (microbatches 0..N-2 run ``raw`` into an fp32
-sum; each bucket is flushed once, during the final microbatch's
-backward).  FSDP is refused, as in the JAX package.
+The vlm family's stage is a dense block rotating by M-RoPE over the
+batch's ``mrope_positions``; its first stage takes the batch's
+``embeds`` (cast to the compute dtype) in place of the token lookup, so
+no gradient reaches ``embed.table``, whose gradient is zero, as in the
+JAX package's ``f_in``.
+
+Supported: every family (dense, vlm, MoE, hybrid, ssm and audio), ZeRO-1
+through ``train_step.zero1_apply`` on the ordered leaves, and ``accum >
+1`` (microbatches 0..N-2 run ``raw`` into an fp32 sum; each bucket is
+flushed once, during the final microbatch's backward).  FSDP is refused
+with the JAX package's ``ValueError``.
 """
 from __future__ import annotations
 
@@ -100,17 +106,14 @@ def supports(arch, plan) -> tuple[bool, str]:
                        "per-layer reduce-scatter already overlaps via the "
                        "all_gather AD transpose")
     if arch.family not in FAMILIES:
-        return False, f"family {arch.family!r} is not ported yet"
+        return False, f"family {arch.family!r} has no scanned block " \
+                      "stack to segment"
     return True, ""
 
 
 def check_supported(arch, plan) -> None:
-    """Raises ``NotImplementedError`` for a family the port does not have
-    yet and ``ValueError`` for a plan the segmented step cannot run."""
-    if arch.family not in FAMILIES:
-        raise NotImplementedError(
-            f"plan.overlap for {arch.name}: the {arch.family!r} family is "
-            f"not ported yet (the port has {', '.join(FAMILIES)})")
+    """Raises ``ValueError`` for a plan or a family the segmented step
+    cannot run."""
     ok, why = supports(arch, plan)
     if not ok:
         raise ValueError(f"plan.overlap unsupported for {arch.name}: {why}")
@@ -410,17 +413,20 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
               if name.startswith(SHARED_PREFIX)}
     head = ("final_norm.scale", "embed.table" if model.cfg.tie_embeddings
             else "unembed.table")
-    tokens, labels = batch["tokens"], batch["labels"]
+    labels = batch["labels"]
+    mrope = model.mrope_positions(batch)
 
     # ---- forward: one graph per stage --------------------------------
     with torch.enable_grad():
-        x0 = model.stage_embed(leaves["embed.table"], tokens)
-        positions = positions_of(tokens)
+        x0 = model.stage_embeds(batch["embeds"]) if "embeds" in batch \
+            else model.stage_embed(leaves["embed.table"], batch["tokens"])
+        positions = positions_of(x0[..., 0])
         x = _leaf(x0)
         stages = []
         for layer in range(seg.n_layers):
             p_l = {name: p[layer].requires_grad_() for name, p in stacked}
-            y = model.stage_block(p_l, x, positions, shared)
+            y = model.stage_block(p_l, x, positions, shared,
+                                  mrope_positions=mrope)
             # the block's outputs: (y,) or, for MoE, (y, its aux loss)
             outs = y if model.has_aux else (y,)
             stages.append((p_l, x, outs))
@@ -456,7 +462,10 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
         flush.stage(seg.stage0 + s, d_p)
     if shared:
         grads.update(zip((SHARED_PREFIX + n for n in shared), d_shared))
-    d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
+    if x0.requires_grad:
+        d_emb, = torch.autograd.grad(x0, leaves["embed.table"], d_x)
+    else:               # embeds in place of the lookup: no gradient
+        d_emb = torch.zeros_like(leaves["embed.table"])
     del d_x, x0
     grads["embed.table"] = grads["embed.table"] + d_emb \
         if "embed.table" in grads else d_emb
@@ -609,13 +618,7 @@ def make_step(setup, schedule: str = "overlap", accum: int = 1,
             leaves, loss_sum, n_glob, aux = _segmented_backward(
                 setup, ov, batch, flush, xent_chunk)
             return leaves, flush, loss_sum, n_glob, aux
-        rows = batch["tokens"].shape[0]
-        if rows % accum:
-            raise ValueError(f"{rows} rows do not split into {accum} "
-                             f"microbatches")
-        mb = rows // accum
-        micro = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                 for i in range(accum)]
+        micro = ts.microbatches(batch, accum)
         acc = loss_sum = n_glob = aux = None
         for m in micro[:-1]:
             raw = _Flush(ov, aggregator, (), "raw", False)

@@ -30,6 +30,29 @@ bucket of this rank's fp32 gradient under each comm plan over
 launches of the timed steps; each axis's collective backend; the peak
 device memory of every rank.
 
+FSDP (``--plan dp_mode=fsdp``, with ``fsdp_shard_pods`` and
+``gather_quant`` as further ``--plan`` fields): the classic FSDP step
+(``train_step.make_step``; there is no overlapped FSDP step) on the
+same mesh, ``--warmup + --reps`` steps on this rank's rows, each timed
+on its own (``step_s``).  ``--variant LABEL:FIELD=VALUE,...`` (repeatable)
+runs each plan variant in turn in the same processes (one start, one set
+of gloo connections), ``steps=N`` its step count; the record is then
+``{"variants": [one record each]}``.  HSDP shards the parameters over
+``data`` and runs the compressor over ``pod`` on gradient shards;
+``fsdp_shard_pods`` shards over both axes.  For a vlm arch each rank's batch gets seeded
+fp32 ``embeds`` and the ``vlm_positions`` (``launch.inputs``).  Checked
+and recorded: every loss; the ranks with the same index along the FSDP
+axes (one per pod under HSDP) hold the same shard bits
+(``replicas_identical``); every sharded parameter gathered over the FSDP
+axes has the same bits on every rank (``gathered_identical``); whether
+the leaves FSDP does not shard have the same bits on every rank
+(``unsharded_identical``: they do when nothing is compressed; under
+HSDP with a compressor they ride buckets of each ``data`` rank's own
+shards through the lossy exchange and drift apart across ``data``, in the
+JAX package too); the kernel
+launches; each rank's peak device memory and the card's memory in use
+after the steps (``card_used_gb``, from ``torch.cuda.mem_get_info``).
+
 Every rank runs the same program; rank 0's last stdout line is the JSON
 record, the other ranks keep stdout silent (logs go to stderr).  The
 default arch is the reduced one, as in the JAX package;
@@ -37,6 +60,9 @@ default arch is the reduced one, as in the JAX package;
 
     torchrun --standalone --nproc-per-node 4 -m repro_torch.train.pod_worker \\
         --procs 2 --local-devices 2 --json
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.train.pod_worker \\
+        --procs 2 --local-devices 2 --arch qwen2-vl-7b --plan dp_mode=fsdp \\
+        --method powersgd --json
 """
 from __future__ import annotations
 
@@ -44,6 +70,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import sys
 import time
 
@@ -86,6 +113,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--bucket-mb", type=float, default=1)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="LABEL:FIELD=VALUE[,FIELD=VALUE...]",
+                    help="FSDP: run this plan variant after the others in "
+                         "the same processes (repeatable); 'steps=N' sets "
+                         "its step count")
     ap.add_argument("--json", action="store_true",
                     help="rank 0 prints the JSON record as its last stdout "
                          "line")
@@ -131,11 +163,33 @@ def main(argv=None) -> dict:
                            compression=args.method, bucket_mb=args.bucket_mb,
                            comm=args.comm)
         plan_fields.update(plan_overrides)
+        if plan_fields["dp_mode"] == "fsdp":
+            plan_fields["overlap"] = False     # no overlapped FSDP step
         cfg = dataclasses.replace(cfg, plan=dataclasses.replace(
             cfg.plan, **plan_fields))
         backends = mesh_mod.backends()
         log(f"mesh {mesh_mod.axis_sizes()} (p_dp={world}) on {dev}, "
             f"backends {backends}")
+        if cfg.plan.dp_mode == "fsdp":
+            variants = [_variant(v, args.warmup + args.reps)
+                        for v in args.variant] \
+                or [("fsdp", {}, args.warmup + args.reps)]
+            recs = []
+            for label, fields, n_steps in variants:
+                plan = dataclasses.replace(cfg.plan, **fields)
+                rec = _fsdp_run(args, dataclasses.replace(cfg, plan=plan),
+                                dev, log, t_start, n_steps)
+                rec.update(label=label, plan_overrides={
+                    **plan_overrides, **fields} or None, backends=backends)
+                recs.append(rec)
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+            out = recs[0] if not args.variant else dict(
+                variants=recs, wall_s=time.perf_counter() - t_start)
+            if args.json and rank == 0:
+                print(json.dumps(out), flush=True)
+            return out
 
         names = ("serial", "overlap")
         setups = {k: ts.build(cfg, dev) for k in names}
@@ -231,6 +285,138 @@ def main(argv=None) -> dict:
         return rec
     finally:
         dist.destroy_process_group()
+
+
+def _fingerprint(t) -> tuple[int, int]:
+    """Two int64 sums of ``t``'s bit patterns (plain, and weighted by the
+    position mod 65521), taken on its device a chunk at a time: equal
+    bits give equal fingerprints."""
+    import torch
+    flat = t.detach().reshape(-1)
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[flat.element_size()]
+    bits = flat.view(view)
+    s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+    s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+    chunk = 1 << 24
+    for a in range(0, bits.numel(), chunk):
+        b = bits[a:a + chunk].long()
+        w = torch.arange(a, a + b.numel(), device=t.device) % 65521 + 1
+        s1 += b.sum()
+        s2 += (b * w).sum()
+    return int(s1.item()), int(s2.item())
+
+
+def _variant(spec: str, default_steps: int) -> tuple[str, dict, int]:
+    """``"LABEL:FIELD=VALUE,..."`` -> (label, plan fields, steps)."""
+    from repro_torch.experiments.backend import coerce_kv
+    label, _, rest = spec.partition(":")
+    fields = {}
+    for kv in filter(None, rest.split(",")):
+        k, _, v = kv.partition("=")
+        fields[k] = coerce_kv(v)
+    return label, fields, int(fields.pop("steps", default_steps))
+
+
+def _fsdp_run(args, cfg, dev, log, t_start, n_steps: int) -> dict:
+    """The FSDP cell: build, ``n_steps`` timed steps, the checks; returns
+    the record (every rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.inputs import with_vlm_inputs
+    from repro_torch.models.layers import _all_gather, fsdp_dim
+    from repro_torch.train import train_step as ts
+
+    cuda = dev.type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup = ts.build(cfg, dev)
+    state = ts.init_state(setup, seed=0)
+    model = setup.model
+    n_params = sum(math.prod(model.global_shape(n))
+                   for n, _ in model.named_parameters())
+    data = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                               global_batch=args.batch),
+                    host=rank, num_hosts=world, prefetch=0)
+    batch = with_vlm_inputs(cfg, next(data), seed=rank)
+    data.close()
+    log(f"fsdp: {n_params:,} parameters, fsdp_axes {setup.fsdp_axes} "
+        f"(p_fsdp {setup.p_fsdp}), compress {setup.agg_cfg.compressor}@"
+        f"{setup.agg_cfg.compress_axes}, {setup.layout.n_buckets} shard "
+        f"buckets, gather_quant {model.ctx.gather_quant}")
+    step = ts.make_step(setup)
+    kbuild.reset_launches()
+    losses, step_s = [], []
+    for _ in range(n_steps):
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 1e-4)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    used = None
+    if cuda:
+        free, total = torch.cuda.mem_get_info(dev)
+        used = (total - free) / 2**30
+    # the replicas: the ranks with the same index along the FSDP axes
+    coords = mesh_mod.coords()
+    key = tuple(coords[a] for a in setup.fsdp_axes)
+    local = [_fingerprint(p) for p in model.parameters()]
+    gathered, unsharded = [], []
+    for name, p in model.named_parameters():
+        dim = fsdp_dim(name)
+        if dim is None or not setup.fsdp_axes:
+            unsharded.append(_fingerprint(p))
+            continue
+        full = _all_gather(p.detach(), setup.fsdp_axes, dim % p.ndim)
+        gathered.append(_fingerprint(full))
+        del full
+    everyone = [None] * world
+    dist.all_gather_object(everyone, dict(key=key, local=local,
+                                          gathered=gathered,
+                                          unsharded=unsharded, peak=peak,
+                                          used=used))
+    by_key: dict = {}
+    for e in everyone:
+        by_key.setdefault(tuple(e["key"]), []).append(e["local"])
+    replicas = all(all(x == v[0] for x in v) for v in by_key.values())
+    return dict(
+        arch=cfg.name, n_layers=cfg.n_layers, n_params=n_params,
+        dp_mode="fsdp", method=cfg.plan.compression, workers=world,
+        procs=args.procs, local_devices=args.local_devices,
+        fsdp_axes=list(setup.fsdp_axes), p_fsdp=setup.p_fsdp,
+        fsdp_shard_pods=cfg.plan.fsdp_shard_pods,
+        gather_quant=model.ctx.gather_quant,
+        compress_axes=list(setup.agg_cfg.compress_axes),
+        raw_axes=list(setup.agg_cfg.raw_axes),
+        n_buckets=setup.layout.n_buckets,
+        bucket_sizes=list(setup.layout.sizes),
+        mesh_axes=list(mesh_mod.AXES),
+        mesh_shape=[args.procs, args.local_devices],
+        batch=args.batch, seq=args.seq,
+        losses=losses, step_s=step_s, steps_timed=len(step_s),
+        launches=launches,
+        device=torch.cuda.get_device_name(dev) if cuda else "cpu",
+        peak_mem_gb=[e["peak"] for e in everyone],
+        card_used_gb=max((e["used"] for e in everyone
+                          if e["used"] is not None), default=None),
+        replica_groups=len(by_key),
+        replicas_identical=replicas,
+        gathered_identical=all(e["gathered"] == everyone[0]["gathered"]
+                               for e in everyone),
+        unsharded_identical=all(e["unsharded"] == everyone[0]["unsharded"]
+                                for e in everyone),
+        wall_s=time.perf_counter() - t_start)
 
 
 def _same_bits(states) -> bool:

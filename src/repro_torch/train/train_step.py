@@ -1,6 +1,7 @@
-"""The classic DDP train step: loss -> backward -> bucketed gradient
-aggregation (the paper's subject) -> AdamW.  Counterpart of the ``ddp``
-path of ``repro.train.train_step`` with ``overlap=False``.
+"""The classic train step: loss -> backward -> bucketed gradient
+aggregation (the paper's subject) -> AdamW.  Counterpart of
+``repro.train.train_step`` with ``overlap=False``: the ``ddp`` path
+below, and the ``fsdp`` path at the end of this docstring.
 
 Each rank holds the full parameters and its own slice of the global
 batch.  The gradient leaves are raveled into 25 MB buckets and each bucket
@@ -53,13 +54,37 @@ optimizer there, where the JAX step fails its assertion at the first
 call.  As in JAX, ``build`` reads the plan's static fields only:
 ``plan.adaptive`` is resolved before it, by
 ``adaptive.controller.resolve_plan``.  ``build`` raises
-``NotImplementedError`` on what later slices port (FSDP, and the
-families ``models.model`` does not build).  Like the JAX ``build``, it
+``NotImplementedError`` on what later slices port (parameter dtypes but
+fp32 and bf16).  Like the JAX ``build``, it
 drops reduction axes of size 1 from the aggregation (on one rank the
 compressor is not run unless the caller points ``agg_cfg`` back at the
 ``data`` axis) and checks a ``hierarchical`` plan against the remaining
 axes.  ZeRO-1's own collectives run over the DP axes whatever their size.
 ``local_sgd_sync`` is the pod-axis parameter mean of local SGD.
+
+FSDP (``dp_mode="fsdp"``): the parameters are sharded over
+``setup.fsdp_axes``, which are ``data``, and ``pod`` too under
+``plan.fsdp_shard_pods`` (full ZeRO-3), less the axes of size 1 (on one
+rank the step runs unsharded, as the JAX package's does).  Each leaf that
+``layers.fsdp_dim`` names holds this rank's slice and is gathered at use;
+the gather's backward is the reduce-scatter of the gradient
+(``layers.fsdp_gather``).  The loss scale is ``p_dp / (n_global *
+p_fsdp)``, so that the reduce-scatter's sum over the FSDP axes and the
+mean over the remaining DP axes land on the global-mean gradient; a
+leaf that is not sharded (norms, routers, gates) gets the sum over the
+FSDP axes explicitly (``norm_replicated_over_fsdp``).  The compressor runs
+on the DP axes not folded into FSDP, over buckets of the local shards:
+under HSDP (``pod x data``, FSDP over ``data``) that is the ``pod``
+exchange of gradient shards, where the bandwidth is scarce; under
+``fsdp_shard_pods`` no DP exchange is left.  The optimizer sums its
+global norm (and Adafactor its factored means) over the FSDP axes
+(``optimizer.Sharding``).  ZeRO-1 is DDP only, and the overlapped step
+refuses FSDP with the JAX package's ``ValueError``.
+
+A batch carrying ``mrope_positions`` (the vlm family, ``(3, B, S)``) is
+split over ranks on dim 1 (``split_batch``).  The JAX package's
+microbatch split reshapes every leaf on dim 0 and fails on it at
+``accum > 1``; the port raises ``ValueError`` there rather than guess.
 """
 from __future__ import annotations
 
@@ -76,7 +101,7 @@ from repro_torch.core import aggregator as agg_mod
 from repro_torch.core import bucketing
 from repro_torch.core.compression import base as cbase
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.models.layers import ShardCtx
+from repro_torch.models.layers import ShardCtx, fsdp_dim
 from repro_torch.models.model import FAMILIES, Model
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
@@ -102,6 +127,8 @@ class TrainSetup:
     # the segmented backward with each bucket aggregated between backward
     # stages (repro_torch.train.overlap); implies the leaf-aligned layout
     overlap: bool = False
+    # the axes the parameters are sharded over (dp_mode="fsdp"); () = none
+    fsdp_axes: tuple[str, ...] = ()
 
     @property
     def comm(self) -> cp.CommPlan:
@@ -122,23 +149,33 @@ class TrainSetup:
 
     @property
     def p_fsdp(self) -> int:
-        """The FSDP degree, which divides the MoE loss term: 1, the port
-        has no FSDP axes."""
-        return 1
+        """The FSDP degree (1 without FSDP axes), which divides the loss
+        scale and the MoE loss term."""
+        return cp.axes_p(self.fsdp_axes) if self.fsdp_axes else 1
+
+    @property
+    def sharding(self) -> "Optional[opt_mod.Sharding]":
+        """The optimizer's view of the FSDP sharding, None without it."""
+        if not self.fsdp_axes:
+            return None
+        return opt_mod.Sharding(
+            self.fsdp_axes, tuple(fsdp_dim(name) for name, _
+                                  in self.model.named_parameters()))
 
 
 def _check_ported(arch: ArchConfig, plan) -> None:
+    if plan.dp_mode not in ("ddp", "fsdp"):
+        raise ValueError(f"dp_mode={plan.dp_mode!r}")
     todo = []
     if arch.family not in FAMILIES:
         todo.append(f"the {arch.family!r} family")
-    if plan.dp_mode != "ddp":
-        todo.append(f"dp_mode={plan.dp_mode!r}")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if todo:
         raise NotImplementedError(
             f"not ported yet: {', '.join(todo)} (this port runs the DDP "
-            f"step, classic or overlapped, with or without ZeRO-1)")
+            f"step, classic or overlapped, with or without ZeRO-1, and the "
+            f"FSDP step)")
 
 
 def build(arch: ArchConfig, device: "str | torch.device | None" = None,
@@ -168,12 +205,28 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     mesh_mod.init_world(dev)
     sizes = mesh_mod.axis_sizes()
     dp_axes = mesh_mod.present_axes()
+    if plan.dp_mode == "fsdp":
+        fsdp_axes = tuple(a for a in dp_axes
+                          if (a != "pod" or plan.fsdp_shard_pods)
+                          and sizes.get(a, 1) > 1)
+    else:
+        fsdp_axes = ()
     agg_cfg = agg_mod.from_plan(plan, multi_pod=sizes["pod"] > 1)
-    agg_cfg = dataclasses.replace(
-        agg_cfg,
-        compress_axes=tuple(a for a in agg_cfg.compress_axes
-                            if sizes.get(a, 1) > 1),
-        raw_axes=tuple(a for a in agg_cfg.raw_axes if sizes.get(a, 1) > 1))
+    if plan.dp_mode == "fsdp":
+        # the compressor runs only on the DP axes not folded into FSDP
+        agg_cfg = dataclasses.replace(
+            agg_cfg,
+            compress_axes=tuple(a for a in agg_cfg.compress_axes
+                                if a not in fsdp_axes
+                                and sizes.get(a, 1) > 1),
+            raw_axes=())
+    else:
+        agg_cfg = dataclasses.replace(
+            agg_cfg,
+            compress_axes=tuple(a for a in agg_cfg.compress_axes
+                                if sizes.get(a, 1) > 1),
+            raw_axes=tuple(a for a in agg_cfg.raw_axes
+                           if sizes.get(a, 1) > 1))
     # fail at build time, not mid-step, when a hierarchical plan's intra
     # stage would be empty over the actual reduction axes
     agg_cfg.comm.validate_axes(agg_cfg.raw_axes + agg_cfg.compress_axes)
@@ -181,11 +234,15 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     # fp32 master lives in the owner-sharded optimizer state;
     # param_dtype="bfloat16" gives bf16 weights with fp32 optimizer stats
     bf16 = zero1 or plan.param_dtype == "bfloat16"
-    ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32)
+    ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32,
+                   fsdp_axes=fsdp_axes,
+                   gather_quant=None if plan.gather_quant == "none"
+                   else plan.gather_quant)
     setup = TrainSetup(arch=arch, model=Model(arch, ctx, device=dev),
                        device=dev, dp_axes=dp_axes, agg_cfg=agg_cfg,
                        opt_cfg=ocfg,
-                       layout=None, zero1=zero1, overlap=plan.overlap)
+                       layout=None, zero1=zero1, overlap=plan.overlap,
+                       fsdp_axes=fsdp_axes)
     setup.layout = _bucket_layout(setup)
     return setup
 
@@ -233,7 +290,7 @@ def init_state(setup: TrainSetup, seed: int = 0) -> dict:
         state["opt"] = {"t": 0, "shard": opt_mod.flat_adamw_init(cap, dev)}
         state = _fill_zero1_master(setup, state)
     else:
-        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
+        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg, setup.sharding)
         state["opt"] = opt.init(params)
     state["agg"] = fresh_agg_state(setup, seed + AGG_SEED_OFFSET)
     return state
@@ -376,7 +433,7 @@ def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout,
                                             grads, opt_state, lr)
             return params, new_opt, gnorm
     else:
-        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg)
+        opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg, setup.sharding)
 
         def update(params, grads, opt_state, lr):
             if ov:
@@ -413,14 +470,53 @@ def _fill_zero1_master(setup: TrainSetup, state: dict) -> dict:
 # the step
 # --------------------------------------------------------------------------
 def _to_device(batch: dict, device: torch.device) -> dict:
-    """A batch on ``device``: integer arrays (tokens, labels) as int64,
-    float arrays (the audio family's ``enc_embeds``) in their own
-    dtype."""
+    """A batch on ``device``: integer arrays (tokens, labels,
+    ``mrope_positions``) as int64, float arrays (``enc_embeds``,
+    ``embeds``) in their own dtype."""
     out = {}
     for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v), device=device)
+        t = v.to(device) if isinstance(v, torch.Tensor) \
+            else torch.as_tensor(np.asarray(v), device=device)
         out[k] = t if t.is_floating_point() else t.long()
     return out
+
+
+#: batch inputs whose batch dim is not the first: ``mrope_positions``
+#: (3, B, S) (the JAX package's ``make_batch_specs``)
+BATCH_DIM = {"mrope_positions": 1}
+
+
+def split_batch(batch: dict, n: int, i: int) -> dict:
+    """The ``i``-th of ``n`` equal row blocks of ``batch``: this rank's
+    share of a global batch (or a microbatch), each input split on its
+    batch dim (``BATCH_DIM``, else 0)."""
+    out = {}
+    for k, v in batch.items():
+        dim = BATCH_DIM.get(k, 0)
+        rows = v.shape[dim]
+        if rows % n:
+            raise ValueError(f"{k}: {rows} rows do not split into {n}")
+        per = rows // n
+        sl = [slice(None)] * v.ndim
+        sl[dim] = slice(i * per, (i + 1) * per)
+        out[k] = v[tuple(sl)]
+    return out
+
+
+def microbatches(batch: dict, accum: int) -> list[dict]:
+    """``batch`` split into ``accum`` microbatches.  A batch with
+    ``mrope_positions`` at ``accum > 1`` raises ``ValueError``: the JAX
+    package reshapes every leaf on dim 0 and fails on its (3, B, S)
+    layout, so there is no reference to follow."""
+    if accum > 1 and "mrope_positions" in batch:
+        raise ValueError(
+            "accum > 1 with mrope_positions: the JAX package's microbatch "
+            "split reshapes (3, B, S) on dim 0 and fails; not supported")
+    rows = next(iter(batch.values())).shape[0]
+    if rows % accum:
+        raise ValueError(f"{rows} rows do not split into {accum} "
+                         f"microbatches")
+    return [split_batch(batch, accum, i) for i in range(accum)]
 
 
 def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
@@ -437,8 +533,19 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
     model = setup.model
     aggregator = agg_mod.GradAggregator(setup.agg_cfg)
     dp = setup.dp_axes
-    p_dp = setup.p_dp
+    p_dp, p_fsdp = setup.p_dp, setup.p_fsdp
+    fsdp = setup.fsdp_axes
+    replicated = [fsdp_dim(name) is None
+                  for name, _ in model.named_parameters()]
     update_fn = make_update_fn(setup, setup.layout)
+
+    def norm_replicated_over_fsdp(grads):
+        """The leaves FSDP does not shard never went through the
+        reduce-scatter: their gradient is summed over the FSDP axes."""
+        if not fsdp:
+            return grads
+        return [cp.psum(g, fsdp) if rep else g
+                for g, rep in zip(grads, replicated)]
 
     def aggregate(grads, agg_states):
         if setup.agg_cfg.compressor == "none":
@@ -448,31 +555,29 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
                     for g in grads], agg_states
         if not (setup.agg_cfg.compress_axes or setup.agg_cfg.raw_axes):
             return list(grads), agg_states
-        return aggregator.aggregate_bucketed(grads, agg_states, setup.layout)
+        return aggregator.aggregate_bucketed(list(grads), agg_states,
+                                             setup.layout)
 
     def one_micro(params, batch):
         """(grads in the parameters' dtype, local loss sum, global token
         count, MoE loss) of one microbatch."""
         loss_sum, ntok, aux = model.loss(batch, xent_chunk)
         n_glob = cp.psum(ntok, dp)
-        scaled = loss_sum * (p_dp / n_glob.float())
+        scaled = loss_sum * ((p_dp // p_fsdp) / n_glob.float())
         if setup.arch.moe.n_experts:
-            scaled = scaled + MOE_AUX_COEF * aux / setup.p_fsdp
-        grads = torch.autograd.grad(scaled, params)
+            scaled = scaled + MOE_AUX_COEF * aux / p_fsdp
+        # a table the batch does not read (``embeds`` in place of tokens)
+        # has a zero gradient
+        grads = torch.autograd.grad(scaled, params, allow_unused=True,
+                                    materialize_grads=True)
         return list(grads), loss_sum.detach(), n_glob, aux.detach()
 
     def step(state: dict, batch: dict, lr: float):
         batch = _to_device(batch, setup.device)
         params = state["params"]
         if accum > 1:
-            rows = batch["tokens"].shape[0]
-            if rows % accum:
-                raise ValueError(f"{rows} rows do not split into "
-                                 f"{accum} microbatches")
-            mb = rows // accum
-            for i in range(accum):
-                g, l, n, a = one_micro(params, {k: v[i * mb:(i + 1) * mb]
-                                                for k, v in batch.items()})
+            for i, m in enumerate(microbatches(batch, accum)):
+                g, l, n, a = one_micro(params, m)
                 if i == 0:       # the fp32 sum starts at zero: exact
                     grads = [x.float() for x in g]
                     loss_sum, n_glob, aux = l, n, a
@@ -489,6 +594,7 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
         else:
             grads, loss_sum, n_glob, aux = one_micro(params, batch)
         with torch.no_grad():
+            grads = norm_replicated_over_fsdp(grads)
             if setup.rtob:
                 # no gradient aggregation: the update's owner-aligned
                 # reduce-scatter is the only gradient collective
@@ -516,7 +622,8 @@ def local_sgd_sync(setup: TrainSetup):
     None when the pod axis is absent or of size 1.  As in the JAX package
     only the parameters are averaged, not ZeRO-1's fp32 master shard."""
     axes = tuple(a for a in ("pod",) if a in setup.dp_axes
-                 and mesh_mod.axis_sizes()[a] > 1)
+                 and mesh_mod.axis_sizes()[a] > 1
+                 and a not in setup.fsdp_axes)
     if not axes:
         return None
 

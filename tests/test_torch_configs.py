@@ -6,8 +6,9 @@ JAX package's (``repro.configs``, ``repro.models.registry``).
 * ``param_count`` and ``active_param_count`` equal JAX's exactly at full
   size for every arch the port builds (counted on the ``meta`` device),
   and ``model_flops`` equals JAX's.
-* The vlm family raises ``NotImplementedError`` naming the family from
-  ``Model``, ``param_count`` and ``train_step.build``.
+* The vlm family, the last the port lacked, builds: ``Model``,
+  ``param_count`` (JAX's count) and ``train_step.build`` on its own plan
+  (FSDP) no longer raise ``NotImplementedError``.
 * ``adaptive.controller``'s parameter count goes through the registry, so
   ``resolve_plan`` runs for the MoE, hybrid, ssm and audio archs (they
   raised before).
@@ -37,8 +38,10 @@ COUNTS = {
     "zamba2-2.7b": (2_440_081_568, 2_440_081_568),
     "xlstm-350m": (314_143_912, 314_143_912),
     "seamless-m4t-medium": (877_094_912, 877_094_912),
+    "qwen2-vl-7b": (7_615_487_488, 7_615_487_488),
 }
-#: the families the port does not build yet
+#: the families the port did not build before the vlm slice: arch ->
+#: family (each now builds on its own plan and counts as JAX does)
 NOT_PORTED = {"qwen2-vl-7b": "vlm"}
 
 
@@ -90,18 +93,35 @@ def test_param_counts_equal_jax(name):
             jregistry.model_flops(jcfg, tokens, training)
 
 
+@pytest.fixture
+def own_world():
+    """A one-rank process group that ``train_step.build`` joins is left
+    as the test found it: destroyed after the test when it made one, so
+    a later file in this process can start its own."""
+    import torch.distributed as dist
+    had = dist.is_initialized()
+    yield
+    if not had and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("name", list(NOT_PORTED))
-def test_unported_families_raise_naming_the_family(name):
-    from repro_torch.models.model import Model
+def test_unported_families_raise_naming_the_family(name, own_world):
+    """The family the port refused until the vlm slice now builds: the
+    model on ``meta``, JAX's parameter count, and the step on the arch's
+    own plan (FSDP; one rank drops the size-1 FSDP axis) and on DDP."""
+    from repro_torch.models.model import FAMILIES, Model
     from repro_torch.train import train_step as tts
     fam = NOT_PORTED[name]
+    assert fam in FAMILIES
     cfg = tcfgs.get(name)
-    with pytest.raises(NotImplementedError, match=repr(fam)):
-        Model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=repr(fam)):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError, match=repr(fam)):
-        tts.build(tcfgs.reduced(cfg), "cpu", dp_mode="ddp")
+    model = Model(cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == \
+        cfg.param_count() == jcfgs.get(name).param_count() == COUNTS[name][0]
+    setup = tts.build(tcfgs.reduced(cfg), "cpu")
+    assert setup.arch.plan.dp_mode == "fsdp" and setup.fsdp_axes == ()
+    assert tts.build(tcfgs.reduced(cfg), "cpu", dp_mode="ddp").zero1 is \
+        False
 
 
 def test_controller_param_count_goes_through_the_registry():

@@ -807,8 +807,12 @@ def test_build_runs_the_overlapped_step(world):
     with pytest.raises(ValueError, match="FSDP"):
         overlap.check_supported(arch, dataclasses.replace(
             arch.plan, dp_mode="fsdp"))
-    with pytest.raises(NotImplementedError, match="vlm"):
-        overlap.check_supported(dataclasses.replace(arch, family="vlm"),
+    # every family the port builds is supported (the vlm family since
+    # its slice); a family with no block stack is refused as in JAX
+    overlap.check_supported(dataclasses.replace(arch, family="vlm"),
+                            arch.plan)
+    with pytest.raises(ValueError, match="no scanned block stack"):
+        overlap.check_supported(dataclasses.replace(arch, family="unknown"),
                                 arch.plan)
     assert overlap.supports(arch, arch.plan) == (True, "")
     with pytest.raises(ValueError, match="schedule"):

@@ -146,10 +146,12 @@ def test_two_steps_match_jax(comp, monkeypatch):
 
 # ------------------------------------------------------------ build rules
 @pytest.mark.parametrize("overrides,refused", [
-    (dict(zero1=False, dp_mode="fsdp"), True),
+    # ported (tests/test_torch_fsdp.py): on one rank, as in the JAX
+    # package, the size-1 FSDP axis goes and the step runs unsharded
+    (dict(zero1=False, dp_mode="fsdp"), False),
     # the overlapped DDP step is ported (tests/test_torch_overlap.py); an
-    # overlapped FSDP step is not, in either package
-    (dict(zero1=False, overlap=True, dp_mode="fsdp"), True),
+    # overlapped FSDP step is not, in either package: JAX's ValueError
+    (dict(zero1=False, overlap=True, dp_mode="fsdp"), ValueError),
     # resolved before build (adaptive.controller.resolve_plan); build reads
     # the plan's static fields, as the JAX build does
     (dict(zero1=False, adaptive=True), False),
@@ -164,12 +166,13 @@ def test_two_steps_match_jax(comp, monkeypatch):
 def test_build_refuses_what_is_not_ported(overrides, refused):
     cfg = tcfgs.reduced(tcfgs.get("tinyllama-1.1b"))
     if refused:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(refused):
             tts.build(cfg, "cpu", **overrides)
         return
     setup = tts.build(cfg, "cpu", **overrides)
     assert setup.dp_axes == ("data",)
     assert (setup.agg_cfg.compress_axes, setup.agg_cfg.raw_axes) == ((), ())
+    assert (setup.fsdp_axes, setup.p_fsdp) == ((), 1)
 
 
 def test_init_state_gives_every_bucket_its_own_key():
