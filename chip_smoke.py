@@ -86,12 +86,12 @@ Phases, each fatal on failure:
      kernel's launch count must equal its count per step times the steps
      (``threshold_mask`` is on no path, as in the JAX package: 0).  Each
      run prints the peak of ``torch.cuda.max_memory_allocated`` per step;
-     the runs named in ``PROFILED`` (here ZeRO-1 PowerSGD) then take one
-     more step under ``torch.profiler``, kept out of the step records and
-     launch counts; its device time is printed by layer,
-     with the share of the last unprofiled step's wall time in which no
-     kernel ran, and every compression kernel by name (launches, ms, us
-     per launch).  Then the overlapped step (``train/overlap.py``,
+     the runs named in ``PROFILED`` (here only the overlapped ZeRO-1 PowerSGD
+     run below) then take one more step under ``torch.profiler``, kept out of
+     the step records and launch counts; its device time is printed by layer,
+     with the share of the last unprofiled step's wall time in which no kernel
+     ran, and every compression kernel by name (launches, ms, us per launch).
+     Then the overlapped step (``train/overlap.py``,
      ``overlap=True``: 46 leaf-aligned bf16 buckets flushed between
      backward stages on a side stream): ZeRO-1 3 steps uncompressed, 3
      PowerSGD, 3 PowerSGD ``serial``, 2 SignSGD and 2 QSGD (both run
@@ -114,9 +114,13 @@ Phases, each fatal on failure:
      1 QSGD; the overlapped ZeRO-1 step (12 leaf-aligned buckets, up to
      322,701,312 elements) 2 PowerSGD under ``overlap`` and 2 under
      ``serial``, whose final states and metrics must agree bit for bit;
-     the same checks as above, with finite ``moe_aux``, and the MoE
-     routing, dispatch and combine as a layer of their own in the
-     overlapped PowerSGD run's profile.  Then the hybrid slice
+     the same checks as above, with finite ``moe_aux`` (no run profiled
+     since the TP slice; in any breakdown the MoE routing, dispatch and
+     combine are a layer of their own).  Serial == overlap is checked
+     on fingerprints taken on the card (``pod_worker.fingerprint``: two
+     wrapping int64 sums of each state tensor's bit patterns, the second
+     of a 64-bit hash of each pattern with its position), not on a host
+     copy of the state.  Then the hybrid slice
      (``family_phase("hybrid", ...)``): ``zamba2-2.7b`` at full width and
      depth (54 Mamba2 blocks in 9 groups, d_model
      2560, d_inner 5120, 80 SSD heads of 64, state 64, chunk 256, vocab
@@ -219,7 +223,31 @@ Phases, each fatal on failure:
      must give finite losses, the configured axes, the same shard bits on
      the pod replicas, every gathered parameter the same on every rank
      (and, uncompressed, every unsharded leaf); each rank's peak, the
-     card's memory in use and the step times are printed.
+     card's memory in use and the step times are printed;
+ 11. tp: the ``model`` axis.  Four ``train/pod_worker.py`` ranks on the
+     card as data 2 x model 2 (``--tp 2``; every collective gloo), the
+     cells of ``TP_RUNS`` as ``--variant``s of one torchrun group, the
+     global batch 4 x 512 of step 0 (seed 0): ``tinyllama-1.1b`` at full
+     width and depth on its plan (ZeRO-1, bf16 parameters, SP on),
+     PowerSGD rank 4 over ``data`` on each model rank's 42 shard buckets,
+     the classic step and the overlapped one (34 buckets) with its
+     serial schedule run after it from the same seed; ``qwen2-moe-a2.7b``
+     at full width cut to ``TP_MOE_LAYERS`` = 1 block, DDP with ZeRO-1,
+     30 of the 60 experts on each model rank, PowerSGD;
+     ``tinyllama-1.1b`` at full width cut to ``TP_FSDP_LAYERS`` = 4
+     layers with FSDP over ``data`` and TP over ``model``, uncompressed.
+     Each must give finite losses, the configured axes, a first loss
+     within its limit (``TP_RTOL``, ``TP_MOE_RTOL``) of the first loss
+     of the one-rank ``tp = 1`` run of the train phase on the same seed
+     and batch (a cell cut in depth: of a one-rank forward pass at its
+     depth, ``first_loss``; the FSDP x TP cell also its second loss
+     within ``TP_STEP_RTOL`` of the same plan's second step on one
+     rank, ``two_step_losses``), the same bits on the
+     ranks with the same model index (gathered over ``data`` under FSDP),
+     the leaves replicated over ``model`` the same bits on every rank,
+     the PowerSGD launches per bucket and step, the card under 75 GiB in
+     use, and serial == overlap; each rank's peak and the step times
+     are printed.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
@@ -227,15 +255,19 @@ classic ZeRO-1 step's and the classic fp32 step's, the MoE slice's
 overlapped ZeRO-1 block and tail buckets (185,602,048 and 322,701,312
 elements), the hybrid slice's (83,931,552 and 81,920,000), the ssm
 slice's (26,275,896 and 63,056,896), the audio slice's (16,781,312
-and 271,794,176), the vlm slice's (67,902,464 and 545,000,960) and the
-HSDP shard buckets (6,553,600 and the last, 6,171,136); the ``kernels``
+and 271,794,176), the vlm slice's (67,902,464 and 545,000,960), the
+HSDP shard buckets (6,553,600 and the last, 6,171,136) and the TP
+slice's shard buckets that no earlier shape has (``tp_layouts``: the
+classic ZeRO-1 step's last, the overlapped step's largest block and
+tail, the MoE slice's last); the ``kernels``
 line counts each kernel's launches in
 the overlapped ZeRO-1 run that drives it, in the live cells
 (``experiment_launches``), in the adaptive run (``adaptive_launches``),
 in each MoE run (``moe_launches``), in each hybrid run
 (``hybrid_launches``), in each ssm run (``ssm_launches``), in each audio
 run (``audio_launches``), in each vlm run (``vlm_launches``), per pod
-step and in each FSDP run's rank 0 (``fsdp_launches``).
+step, in each FSDP run's rank 0 (``fsdp_launches``) and in each TP
+run's rank 0 (``tp_launches``).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a GPU the script exits non-zero
@@ -273,16 +305,15 @@ LEVEL_SHARE = 1e-4
 KERNELS = ("powersgd_encode", "powersgd_decode", "pack_signs",
            "popcount_votes", "qsgd_quantize", "threshold_mask")
 #: the full-width runs that take one more step under the profiler: the
-#: classic ZeRO-1 step of the arch as configured, and the overlapped
-#: steps whose side stream the breakdown measures (``stream_overlap``);
-#: an overlap run and the serial run compared with it (``keep``) take the
-#: same steps, so both or neither are here.  No check reads a breakdown,
-#: and one costs 2-18 s of host time (40-50 s for a zamba2 step, minutes
-#: for an xLSTM step of some 10^5 kernels).  The vlm slice's two phases
-#: took the room of three (the classic overlapped PowerSGD run and the
-#: audio overlap/serial pair, ~21 s; their breakdowns are in PERF.md §5)
-PROFILED = ("zero1 powersgd", "zero1 overlap powersgd",
-            "moe zero1 overlap powersgd", "moe zero1 serial powersgd")
+#: overlapped ZeRO-1 PowerSGD step, the paper's optimized baseline, whose
+#: side stream the breakdown measures (``stream_overlap``); an overlap run
+#: and the serial run compared with it (``keep``) take the same steps, so
+#: both or neither are here.  No check reads a breakdown, and one costs
+#: 2-18 s of host time (40-50 s for a zamba2 step, minutes for an xLSTM
+#: step of some 10^5 kernels).  The TP slice took the room of the classic
+#: ZeRO-1 PowerSGD run's and the MoE overlap/serial pair's (~19 s; their
+#: breakdowns are in PERF.md §5)
+PROFILED = ("zero1 overlap powersgd",)
 
 
 def log(msg: str) -> None:
@@ -2016,9 +2047,10 @@ def family_phase(tag: str, name, buckets: dict, hist: dict,
     if not kept.get("same"):
         raise AssertionError(f"{tag}: serial and overlap differ at full "
                              f"width")
-    log(f"[{tag}] serial == overlap bit for bit at full width: "
-        f"{len(kept['tensors'])} state tensors ("
-        f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
+    log(f"[{tag}] serial == overlap at full width, by on-card "
+        f"fingerprints (plain and hashed bit sums): "
+        f"{len(kept['prints'])} state tensors ("
+        f"{kept['elements']:,} elements) and the "
         f"metrics of {len(kept['metrics'])} steps")
     del kept
     log(f"[{tag}] phase in {time.perf_counter() - t0:.1f} s")
@@ -2062,10 +2094,12 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     the run.  With ``schedule`` the step is the overlapped one
     (``overlap=True``) run under that schedule, and the host-side flush
     order of every step is checked against the layout's ``bucket_ready``.
-    With ``keep`` (a dict) the final parameters, ZeRO-1 shards,
-    compressor states and every step's metrics are copied into it, on the
-    host.  A run named in ``PROFILED`` takes one more step after the
-    records, under the profiler."""
+    With ``keep`` (a dict) the fingerprints (``pod_worker.fingerprint``,
+    taken on the card) of the
+    final parameters, ZeRO-1 shards and compressor states and every
+    step's metrics are kept in it; a second run with the same dict
+    compares its own with them.  A run named in ``PROFILED`` takes one
+    more step after the records, under the profiler."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -2077,6 +2111,7 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     from repro_torch.models.model import leaf_dtype
+    from repro_torch.train.pod_worker import fingerprint
     arch = arch or cfgs.get("tinyllama-1.1b")
     wall = {"start": time.perf_counter()}
     torch.cuda.reset_peak_memory_stats()
@@ -2189,20 +2224,19 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         f"{max(r['peak_mem_gb'] for r in history):.2f} GiB "
         f"(torch.cuda.max_memory_allocated in a step); moe_aux "
         f"{[r['moe_aux'] for r in history]}")
-    if keep is not None and "tensors" in keep:
-        # compare with the kept run, one tensor on the card at a time
-        mine = state_tensors(trainer.state)
+    if keep is not None and "prints" in keep:
+        # compare with the kept run's fingerprints, taken on the card
         keep["same"] = keep["metrics"] == [
             (r["loss"], r["grad_norm"], r["moe_aux"])
-            for r in history + extra] and len(mine) == len(
-                keep["tensors"]) and all(
-                    same_bits(a.detach(), b.to(a.device))
-                    for a, b in zip(mine, keep["tensors"]))
+            for r in history + extra] and keep["prints"] == [
+                fingerprint(t) for t in state_tensors(trainer.state)]
     elif keep is not None:
         keep["metrics"] = [(r["loss"], r["grad_norm"], r["moe_aux"])
                            for r in history + extra]
-        keep["tensors"] = [t.detach().cpu() for t in state_tensors(
-            trainer.state)]
+        tensors = state_tensors(trainer.state)
+        keep["prints"] = [fingerprint(t) for t in tensors]
+        keep["elements"] = sum(t.numel() for t in tensors)
+        del tensors
     del trainer, setup, data
     if schedule:
         del step, logged
@@ -2628,8 +2662,14 @@ def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
             proc.communicate()
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"{label}: torchrun exited {proc.returncode}:\n"
-                             f"{out[-2000:]}\n{err[-6000:]}")
+        # the whole of both streams, which a console tail would cut
+        logs = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(logs, exist_ok=True)
+        with open(os.path.join(logs, f"{label}_ranks.log"), "w") as f:
+            f.write(out + "\n" + err)
+        raise AssertionError(f"{label}: torchrun exited {proc.returncode} "
+                             f"(both streams in chiprun_out/{label}"
+                             f"_ranks.log):\n{out[-2000:]}\n{err[-6000:]}")
     return out, wall
 
 
@@ -2819,6 +2859,237 @@ def fsdp_phase(kind: str) -> dict:
     return recs
 
 
+#: the TP phase: one torchrun of the pod worker on 4 ranks of this card as
+#: data 2 x model 2 (``--tp 2``, model innermost), ``tinyllama-1.1b`` at
+#: full width and depth on its plan (ZeRO-1, bf16 parameters, SP on), 25
+#: MB buckets, the global batch 4 x 512 of step 0 (seed 0) that the
+#: one-rank runs of the train phase read first
+TP_WORKER_ARGS = ("--procs", "1", "--local-devices", "2", "--tp", "2",
+                  "--full-width", "--zero1", "--batch", "4", "--seq", "512",
+                  "--bucket-mb", "25", "--json")
+PSGD_PER_BUCKET = {"powersgd_encode": 2, "powersgd_decode": 1}
+#: the MoE TP cell's depth: at the one-rank phase's 2 blocks its ZeRO-1
+#: PowerSGD step held ~19.7 GiB a rank and put the card at 78.93 GiB in
+#: use (measured on one H100)
+TP_MOE_LAYERS = 1
+#: the FSDP x TP cell's depth: at 22 layers a step took 27.8-28.7 s
+#: (measured on one H100), gloo carrying every FSDP gather and
+#: reduce-scatter
+TP_FSDP_LAYERS = 4
+
+#: the TP cells' relative limits on their losses against the one-rank
+#: tp = 1 references, each between the gap measured on one H100 and the
+#: gap there of a planted fault, the sum over ``model`` skipped in one
+#: row-parallel output of the first forward (PERF.md, section 6, PR 25):
+#: first losses 5.1e-6 and 6.3e-6 against 1.2e-3 and 1.2e-4; the MoE
+#: cell's (local routing under SP) 3.3e-4 against 1.3e-3; the FSDP x TP
+#: cell's second loss 1.4e-4 against 5.2e-2 (the activations' gradient
+#: not summed over ``model``) and 1.2e-1
+TP_RTOL = 3e-5
+TP_MOE_RTOL = 6e-4
+TP_STEP_RTOL = 2e-3
+
+#: label -> (the worker's ``--variant`` fields, the one-rank tp = 1
+#: reference (``tp_references``): a run of the train phase by label, whose
+#: first loss the cell's is held to, or for a cell cut in depth
+#: ("forward", arch, layers, parameter dtype), the loss of one forward
+#: pass (``first_loss``), or ("steps", arch, layers), the two losses of
+#: the same plan's two steps on one rank (``two_step_losses``); the
+#: relative limit of each held loss, the FSDP and compress axes,
+#: launches per bucket and step)
+TP_RUNS = {
+    "tp zero1 powersgd": ("compression=powersgd,steps=2", "zero1 powersgd",
+                          (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
+    "tp zero1 overlap powersgd": (
+        "compression=powersgd,overlap=true,serial=true,steps=2",
+        "zero1 powersgd", (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
+    # 30 of the 60 experts on each model rank, cut to TP_MOE_LAYERS
+    # blocks; under SP each model rank routes its own tokens with a
+    # capacity of its own, another routing than the one-rank pass's
+    "ep moe powersgd": (
+        f"arch={MOE_ARCH},layers={TP_MOE_LAYERS},dp_mode=ddp,"
+        f"compression=powersgd,steps=2",
+        ("forward", MOE_ARCH, TP_MOE_LAYERS, "bfloat16"), (TP_MOE_RTOL,),
+        [], ["data"], PSGD_PER_BUCKET),
+    # uncompressed: after one update a wrong gradient shows in the loss
+    "tp fsdp none": (f"dp_mode=fsdp,zero1=false,layers={TP_FSDP_LAYERS},"
+                     f"steps=2", ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS),
+                     (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
+}
+#: the card's memory in use that the TP phase must stay under
+TP_CARD_GIB = 75.0
+
+
+def first_loss(name: str, layers: int, dtype: str) -> float:
+    """The first loss of full-width ``name`` cut to ``layers`` blocks on
+    one rank, tp = 1: parameters of ``dtype`` drawn from seed 0 as
+    ``init_state`` draws them, the global batch 4 x 512 of step 0, one
+    forward pass (the reference of a TP cell cut in depth)."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    from repro_torch.train import train_step as ts
+    arch = dataclasses.replace(cfgs.get(name), n_layers=layers)
+    model = Model(arch, ShardCtx(param_dtype=getattr(torch, dtype)),
+                  device="cuda")
+    model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = ts._to_device(batch_at(DataConfig(
+        vocab=arch.vocab, seq_len=512, global_batch=4, seed=0), 0),
+        torch.device("cuda"))
+    with torch.no_grad():
+        loss, ntok, _ = model.loss(batch)
+        out = (loss / ntok).item()
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_step_losses(name: str, layers: int) -> list[float]:
+    """The two losses of full-width ``name`` cut to ``layers`` blocks on
+    one rank, tp = 1, on the FSDP x TP cell's plan (FSDP, no ZeRO-1,
+    uncompressed; on one rank the replicated step): ``init_state(seed=0)``
+    and two steps at lr 1e-4 on the global batch 4 x 512 of step 0, as
+    the pod worker runs them."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.train import train_step as ts
+    arch = dataclasses.replace(cfgs.get(name), n_layers=layers)
+    setup = ts.build(arch, "cuda", dp_mode="fsdp", zero1=False,
+                     overlap=False, compression="none")
+    state = ts.init_state(setup, seed=0)
+    batch = ts._to_device(batch_at(DataConfig(
+        vocab=arch.vocab, seq_len=512, global_batch=4, seed=0), 0),
+        torch.device("cuda"))
+    step = ts.make_step(setup)
+    out = []
+    for _ in range(2):
+        state, m = step(state, batch, 1e-4)
+        out.append(m["loss"].item())
+    del setup, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_references(hist: dict) -> dict:
+    """``TP_RUNS``' references -> their losses (``hist``: the train
+    phase's records by label)."""
+    out = {}
+    for _, ref, *_ in TP_RUNS.values():
+        if isinstance(ref, str):
+            out[ref] = [hist[ref][0]["loss"]]
+        elif ref[0] == "forward":
+            out[ref] = [first_loss(*ref[1:])]
+        else:
+            out[ref] = two_step_losses(*ref[1:])
+    return out
+
+
+def tp_layouts() -> dict:
+    """The TP phase's bucket layouts on a rank of data 2 x model 2 (no
+    allocation): the classic ZeRO-1 step's and the overlapped one's of
+    ``tinyllama-1.1b``, and the MoE slice's classic ZeRO-1 one."""
+    import torch
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import bucketing
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
+    from repro_torch.train import overlap
+    ctx = ShardCtx(param_dtype=torch.bfloat16, tp=2, seq_parallel=True)
+    dense = Model(cfgs.get("tinyllama-1.1b"), ctx, device="meta")
+    moe = Model(dataclasses.replace(cfgs.get(MOE_ARCH),
+                                    n_layers=TP_MOE_LAYERS), ctx,
+                device="meta")
+    return {"zero1": bucketing.layout_for(list(dense.parameters()), 25),
+            "overlap": overlap.layout_for_model(dense, 25),
+            "moe zero1": bucketing.layout_for(list(moe.parameters()), 25)}
+
+
+def tp_phase(kind: str, first: dict) -> dict:
+    """The TP cells of ``TP_RUNS``: one ``torchrun`` of
+    ``train/pod_worker.py`` on 4 ranks of this card as data 2 x model 2,
+    running each as a ``--variant`` in turn. Each must give finite losses;
+    the configured axes (``tp`` 2, SP on, the FSDP and compress axes); its
+    first losses within their limits of the one-rank tp = 1 reference's
+    (``first``: ``TP_RUNS``' reference -> its losses, ``tp_references``);
+    the same bits on the ranks with the same model index across ``data``
+    (gathered over ``data`` under FSDP); the leaves replicated over
+    ``model`` the same bits on every rank; the PowerSGD launches per
+    bucket and step; the card under ``TP_CARD_GIB`` in use; and the
+    overlapped cell's serial schedule the same bits.  Prints each rank's
+    peak, the step times and every cell's gaps before it fails on any.
+    Returns {label: the worker's record}."""
+    variants = [f"--variant={label}:{fields}"
+                for label, (fields, *_) in TP_RUNS.items()]
+    out, wall = run_ranks(4, "repro_torch.train.pod_worker",
+                          (*TP_WORKER_ARGS, *variants), "tp")
+    got = {rec["label"]: rec
+           for rec in json.loads(out.strip().splitlines()[-1])["variants"]}
+    log(f"[tp] {len(got)} variants in one torchrun group of 4 ranks "
+        f"(data 2 x model 2): {wall:.1f} s")
+    recs, failed = {}, []
+    for label, (_, ref, rtols, fsdp, comp, per_bucket) in TP_RUNS.items():
+        rec = got[label]
+        bad = []
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            bad.append(f"losses {rec['losses']}")
+        if (rec["tp"], rec["seq_parallel"], rec["mesh_shape"],
+                rec["fsdp_axes"], rec["compress_axes"], rec["device"]) != (
+                2, True, [1, 2, 2], fsdp, comp, kind):
+            bad.append(f"tp {rec['tp']} sp {rec['seq_parallel']} mesh "
+                       f"{rec['mesh_shape']} axes {rec['fsdp_axes']} / "
+                       f"{rec['compress_axes']} or device {rec['device']}")
+        want_losses = first[ref]
+        gaps = [abs(got_l - want_l) / abs(want_l) for got_l, want_l
+                in zip(rec["losses"], want_losses)]
+        for i, (gap, rtol) in enumerate(zip(gaps, rtols)):
+            if not gap <= rtol:
+                bad.append(f"loss {i} {rec['losses'][i]!r} vs the one-rank "
+                           f"reference's {want_losses[i]!r} ({ref}): rel "
+                           f"{gap:.3g} > {rtol:g}")
+        if not rec["dp_replicas_identical"]:
+            bad.append("the data replicas of a model index differ")
+        if not rec["model_replicated_identical"]:
+            bad.append("leaves replicated over model differ")
+        if rec["serial_equals_overlap"] is False:
+            bad.append("serial and overlap differ")
+        want = {k: v * rec["n_buckets"] * rec["steps_timed"]
+                for k, v in per_bucket.items()}
+        if rec["launches"] != want:
+            bad.append(f"launches {rec['launches']}, want {want}")
+        if rec["card_used_gb"] >= TP_CARD_GIB:
+            bad.append(f"card in use {rec['card_used_gb']:.2f} GiB")
+        log(f"[tp] {label}: {rec['n_params']:,} parameters ({rec['arch']}, "
+            f"{rec['n_layers']} layers), dp_mode {rec['dp_mode']}, zero1 "
+            f"{rec['zero1']}, overlap {rec['overlap']}, fsdp "
+            f"{rec['fsdp_axes']}, compress {rec['compress_axes']}, "
+            f"{rec['n_buckets']} buckets of {rec['bucket_sizes'][0]:,} "
+            f"(last {rec['bucket_sizes'][-1]:,}); losses {rec['losses']} "
+            f"(one rank, tp 1: {want_losses!r}, rel "
+            f"{[float(f'{g:.3g}') for g in gaps]}, limits {list(rtols)}); "
+            f"step s {rec['step_s']}; peak GiB per rank "
+            f"{rec['peak_mem_gb']}; card in use {rec['card_used_gb']:.2f} "
+            f"GiB; data replicas identical {rec['dp_replicas_identical']}, "
+            f"{rec['model_replicated_leaves']} model-replicated leaves "
+            f"identical {rec['model_replicated_identical']}, serial == "
+            f"overlap {rec['serial_equals_overlap']}; launches "
+            f"{rec['launches']}")
+        log(f"[tp] {label} record: " + json.dumps(rec))
+        if bad:
+            failed.append(f"tp {label}: " + "; ".join(bad))
+        recs[label] = rec
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2908,6 +3179,23 @@ def main() -> int:
     shapes += [(f"hsdp {which}", *matrix_shape(n), n)
                for which, n in (("full", hsdp.bucket_elems),
                                 ("last", hsdp.last_elems))]
+    # the TP slice's buckets on a rank of data 2 x model 2 that no earlier
+    # shape has: the classic ZeRO-1 step's last bucket, the overlapped
+    # step's largest block and tail buckets, the MoE slice's last bucket
+    tpl = tp_layouts()
+    tov = tpl["overlap"]
+    by_stage = list(zip(tov.layout.sizes, tov.bucket_ready))
+    seen = {n for *_, n in shapes}
+    for which, n in (
+            ("zero1 last", tpl["zero1"].last_elems),
+            ("overlap block", max(n for n, r in by_stage
+                                  if r < tov.n_stages)),
+            ("overlap tail", max(n for n, r in by_stage
+                                 if r == tov.n_stages)),
+            ("ep zero1 last", tpl["moe zero1"].last_elems)):
+        if n not in seen:
+            shapes.append((f"tp {which}", *matrix_shape(n), n))
+            seen.add(n)
     log(f"[kernels] shapes (tag, rows, cols, n): {shapes}")
     clocks("before the kernel phase")
     recs = kernel_phase(shapes, arch.plan.powersgd_rank)
@@ -3046,9 +3334,10 @@ def main() -> int:
         if not kept.get("same"):
             raise AssertionError("moe: serial and overlap differ at full "
                                  "width")
-        log(f"[moe] serial == overlap bit for bit at full width: "
-            f"{len(kept['tensors'])} state tensors ("
-            f"{sum(t.numel() for t in kept['tensors']):,} elements) and the "
+        log(f"[moe] serial == overlap at full width, by on-card "
+            f"fingerprints (plain and hashed bit sums): "
+            f"{len(kept['prints'])} state tensors ("
+            f"{kept['elements']:,} elements) and the "
             f"metrics of {len(kept['metrics'])} steps")
         del kept
         log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
@@ -3102,6 +3391,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fsdp = fsdp_phase(kind)
     log(f"[fsdp] {len(fsdp)} cells in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp = tp_phase(kind, tp_references(hist))
+    log(f"[tp] {len(tp)} cells in {time.perf_counter() - t0:.1f} s")
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
@@ -3150,6 +3442,8 @@ def main() -> int:
                for tag, runs in family_runs.items()},
             "fsdp_launches": {label: rec["launches"].get(name, 0)
                               for label, rec in fsdp.items()},
+            "tp_launches": {label: rec["launches"].get(name, 0)
+                            for label, rec in tp.items()},
             "cases": recs[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)

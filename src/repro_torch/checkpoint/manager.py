@@ -145,14 +145,19 @@ def _agg_tree(st):
 
 
 def check_unsharded(setup) -> None:
-    """Refuse a state whose parameters FSDP shards: its leaves are this
-    rank's slices, a file the JAX package could not read.  FSDP
-    checkpoints are a later slice of the port (ROADMAP)."""
+    """Refuse a state whose parameters FSDP or TP shards: its leaves are
+    this rank's slices, a file the JAX package could not read.  Sharded
+    checkpoints (FSDP and TP) are a later slice of the port (ROADMAP)."""
     if getattr(setup, "fsdp_axes", ()):
         raise NotImplementedError(
             f"checkpoints of an FSDP state (parameters sharded over "
             f"{tuple(setup.fsdp_axes)}) are not ported yet: a later slice "
             f"(FSDP checkpoints) writes the gathered JAX layout")
+    if getattr(setup, "tp", 1) > 1:
+        raise NotImplementedError(
+            f"checkpoints of a TP state (parameters sharded over model, "
+            f"tp={setup.tp}) are not ported yet: a later slice (sharded "
+            f"checkpoints) writes the gathered JAX layout")
 
 
 def to_tree(setup, state: dict) -> dict:

@@ -14,7 +14,11 @@ Under FSDP the JAX tree still holds global arrays: ``load_params`` keeps
 this rank's slice of each sharded leaf (``Model.shard_slice``), and
 ``global_params`` / ``to_global`` gather a rank's shards back into global
 tensors (collectives over the FSDP axes: every rank calls them), so that
-comparisons run on global arrays.
+comparisons run on global arrays.  Under TP the same holds along the
+``model`` dim of each leaf (``Model.tp_dims``): the JAX tree's global
+arrays at that ``tp`` (vocabulary, q heads and experts padded as
+``models.model.param_layout`` pads them) are sliced to this rank's
+``model`` index on load and gathered over ``model`` back.
 """
 from __future__ import annotations
 
@@ -76,15 +80,21 @@ def load_params(model: torch.nn.Module, tree: Mapping) -> None:
 def to_global(model: torch.nn.Module, name: str, t: torch.Tensor
               ) -> torch.Tensor:
     """A tensor laid out as leaf ``name``'s local shard (the parameter,
-    its gradient, an AdamW moment) gathered over the FSDP axes into the
-    global leaf, on the host.  A collective of the FSDP group; ``t``
-    itself, on the host, when the leaf is not sharded."""
-    from repro_torch.models.layers import _all_gather, fsdp_dim
+    its gradient, an AdamW moment) gathered over the FSDP axes and over
+    ``model`` into the global leaf, on the host.  A collective of the
+    FSDP and TP groups; ``t`` itself, on the host, when the leaf is not
+    sharded."""
+    from repro_torch.models.layers import fsdp_dim
+    from repro_torch.parallel.collectives import all_gather
     axes = tuple(model.ctx.fsdp_axes)
     dim = fsdp_dim(name)
+    t = t.detach()
     if axes and dim is not None and getattr(model, "fsdp_size", 1) > 1:
-        t = _all_gather(t.detach(), axes, dim % t.ndim)
-    return t.detach().cpu()
+        t = all_gather(t, axes, dim % t.ndim)
+    tdim = getattr(model, "tp_dims", {}).get(name)
+    if tdim is not None:
+        t = all_gather(t, ("model",), tdim)
+    return t.cpu()
 
 
 def global_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:

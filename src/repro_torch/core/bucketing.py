@@ -182,19 +182,24 @@ def to_buckets(leaves: Sequence[torch.Tensor],
 
 
 def read_flat(leaves: Sequence[torch.Tensor], start: int, out: torch.Tensor,
-              dtype: Any) -> torch.Tensor:
+              dtype: Any, scale: "torch.Tensor | None" = None
+              ) -> torch.Tensor:
     """Fill ``out`` with the flat range ``[start, start + len(out))`` of the
     leaves raveled in order and cast to ``dtype`` (then to ``out``'s
     dtype); zeros past the last element.  Copies leaf by leaf: the flat
-    vector itself is never built."""
+    vector itself is never built.  With ``scale`` each leaf's piece is
+    first multiplied by it in the leaf's dtype (the bits of scaling the
+    whole leaf, as ``clip_by_global_norm`` does, without its copy)."""
     end = start + out.shape[0]
     lo = 0
     for t in leaves:
         hi = lo + t.numel()
         a, b = max(lo, start), min(hi, end)
         if a < b:
-            out[a - start:b - start].copy_(
-                t.reshape(-1)[a - lo:b - lo].to(dtype))
+            piece = t.reshape(-1)[a - lo:b - lo]
+            if scale is not None:
+                piece = piece * scale.to(t.dtype)
+            out[a - start:b - start].copy_(piece.to(dtype))
         lo = hi
     if end > lo:
         out[max(lo, start) - start:].zero_()

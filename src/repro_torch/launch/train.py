@@ -27,6 +27,13 @@ SIGINT ends the run after the step under way, with a checkpoint.
 As in the JAX package, a reduction axis of size 1 is dropped, so a
 one-rank run aggregates nothing.
 
+``--tp N`` adds the ``model`` axis of size N, innermost (the JAX
+package's ``make_pod_mesh(..., tp)``; the dense and MoE families): with
+``--mesh local`` the world is ``data x model`` (``launch.mesh.init_mesh``),
+with ``--mesh pod`` ``pod x data x model`` and ``procs x local-devices x
+tp`` ranks.  Each rank reads the rows of its DP coordinate; a TP state
+cannot be checkpointed yet.
+
 Meshes: ``--mesh local`` (default) puts every rank on one ``data`` axis;
 ``--mesh pod`` builds the two-tier ``pod x data`` mesh
 (``launch.mesh.init_pod_mesh``) of ``--procs`` pods of
@@ -66,6 +73,9 @@ def main(argv=None):
                     help="--mesh pod: the pod axis (the slow, gloo tier)")
     ap.add_argument("--local-devices", type=int, default=2,
                     help="--mesh pod: ranks per pod (the data axis)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="the model axis (tensor, sequence and expert "
+                         "parallelism), innermost")
     ap.add_argument("--proc-id", type=int, default=None,
                     help="--mesh pod without torchrun: this process's rank")
     ap.add_argument("--coordinator", default="127.0.0.1:12355",
@@ -122,15 +132,21 @@ def main(argv=None):
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     if args.mesh == "pod" and args.proc_id is not None:
-        mesh_mod.set_rank_env(args.proc_id, args.procs * args.local_devices,
+        mesh_mod.set_rank_env(args.proc_id,
+                              args.procs * args.local_devices * args.tp,
                               args.coordinator)
     dev = mesh_mod.local_device(args.device)
     mesh_mod.init_world(dev)
     data = None
     try:
         if args.mesh == "pod":
-            mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev)
+            mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev,
+                                   tp=args.tp)
+        elif args.tp > 1:
+            mesh_mod.init_mesh(args.tp, dev)
         rank, world = dist.get_rank(), dist.get_world_size()
+        dp_axes = mesh_mod.present_axes()
+        dp_rank, p_dp = mesh_mod.rank(dp_axes), mesh_mod.size(dp_axes)
         arch = cfgs.get(args.arch)
         if not args.full_size:
             arch = cfgs.reduced(arch)
@@ -155,7 +171,7 @@ def main(argv=None):
             if plan.dp_mode != "ddp" and rank == 0:
                 print(f"[train] --adaptive forces dp_mode='ddp' (arch plan "
                       f"had dp_mode={plan.dp_mode!r})", flush=True)
-            plan, decision = actl.resolve_plan(plan, arch, n_dev=world,
+            plan, decision = actl.resolve_plan(plan, arch, n_dev=p_dp,
                                                batch=args.batch,
                                                seq=args.seq)
             if rank == 0:
@@ -176,7 +192,8 @@ def main(argv=None):
                   f"mesh={mesh_mod.axis_sizes()} "
                   f"backends={mesh_mod.backends()} "
                   f"dp_mode={setup.arch.plan.dp_mode} zero1={setup.zero1} "
-                  f"fsdp={setup.fsdp_axes} "
+                  f"fsdp={setup.fsdp_axes} tp={setup.tp} "
+                  f"sp={setup.model.ctx.seq_parallel} "
                   f"optimizer={setup.opt_cfg.name} "
                   f"overlap={setup.overlap}{sched} "
                   f"params={str(setup.layout.dtype).removeprefix('torch.')} "
@@ -187,7 +204,7 @@ def main(argv=None):
                   f"buckets={setup.layout.n_buckets}", flush=True)
         data = Pipeline(DataConfig(vocab=arch.vocab, seq_len=args.seq,
                                    global_batch=args.batch, seed=args.seed),
-                        host=rank, num_hosts=world)
+                        host=dp_rank, num_hosts=p_dp)
         tcfg = TrainerConfig(
             total_steps=args.steps,
             log_every=args.log_every if rank == 0 else 0,

@@ -1,5 +1,5 @@
-"""Primitive layers of the dense decoder (the tensor-parallel degree 1
-subset of ``repro.models.layers``).
+"""Primitive layers of the decoder families.  Counterpart of
+``repro.models.layers``.
 
 Weights are laid out ``(d_in, d_out)`` and applied as ``x @ w``, as in the
 JAX package.  Parameters are stored in ``ShardCtx.param_dtype`` (fp32,
@@ -15,12 +15,32 @@ function whose backward is the reduce-scatter of the cotangent along the
 same dim: the ZeRO-3 gradient reduction.  ``gather_quant="int8"`` sends
 each shard as symmetric int8 with one fp32 scale (JAX
 ``_mk_quantized_gather``); its backward stays the plain reduce-scatter.
+
+Tensor parallelism (``ShardCtx.tp > 1``, the ``model`` axis): the
+Megatron f/g pairs are autograd functions over the ``model`` group
+(``parallel.collectives``).  ``tp_copy`` enters the TP region (identity
+forward, sum backward; under ``seq_parallel`` the sequence all-gather
+forward and its reduce-scatter backward); ``tp_reduce`` leaves it (the
+sum forward, identity backward; under ``seq_parallel`` the sequence
+reduce-scatter forward and its all-gather backward); ``tp_shared`` wraps
+a leaf replicated over ``model`` whose gradient each rank computes only
+in part (identity forward, sum backward).  Every model rank computes the
+whole loss and differentiates its own copy: with these pairs each
+gradient is that of the loss, once.  The vocabulary-parallel
+cross-entropy ends its sums with the same identity-backward sum (where
+the JAX package's raw ``psum`` transposes to a second sum over
+``model``, which is where its gradients pick up a factor of ``tp``).
+Column-parallel weights are sharded over ``model`` on their output dim,
+row-parallel ones and the vocabulary tables on their input (first) dim,
+the MoE experts on the expert dim (``tp_dim``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,40 +51,11 @@ class ShardCtx:
     fsdp_axes: tuple[str, ...] = ()
     #: "int8" quantizes the FSDP parameter all-gather; None = plain
     gather_quant: "str | None" = None
-
-
-def _moved(t: torch.Tensor, axis: int) -> torch.Tensor:
-    return t.movedim(axis, 0).contiguous()
-
-
-def _all_gather(t: torch.Tensor, axes: tuple[str, ...], axis: int
-                ) -> torch.Tensor:
-    """The tiled all-gather of ``t`` along ``axis`` over ``axes``: the
-    shards concatenated in rank order (``jax.lax.all_gather(...,
-    tiled=True)``)."""
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.parallel.commplan import _all_gather_single
-    src = _moved(t, axis)
-    p = mesh_mod.size(axes)
-    out = torch.empty((p * src.shape[0], *src.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    _all_gather_single(out, src, group=mesh_mod.group(axes))
-    return out.movedim(0, axis)
-
-
-def _reduce_scatter(g: torch.Tensor, axes: tuple[str, ...], axis: int
-                    ) -> torch.Tensor:
-    """The tiled sum-reduce-scatter of ``g`` along ``axis`` over ``axes``
-    (``jax.lax.psum_scatter(..., tiled=True)``), in ``g``'s dtype, laid
-    out contiguously like the shard it is the gradient of."""
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.parallel.commplan import _reduce_scatter_single
-    src = _moved(g, axis)
-    p = mesh_mod.size(axes)
-    out = torch.empty((src.shape[0] // p, *src.shape[1:]), dtype=g.dtype,
-                      device=g.device)
-    _reduce_scatter_single(out, src, group=mesh_mod.group(axes))
-    return out.movedim(0, axis).contiguous()
+    #: the size of the ``model`` axis (tensor and expert parallelism)
+    tp: int = 1
+    #: Megatron sequence parallelism: activations between the TP regions
+    #: are sharded over the sequence dim (only with ``tp > 1``)
+    seq_parallel: bool = False
 
 
 def _int8_gather(w: torch.Tensor, axes: tuple[str, ...], axis: int
@@ -99,11 +90,11 @@ class _FsdpGather(torch.autograd.Function):
         ctx.axes, ctx.axis = axes, axis
         if quant:
             return _int8_gather(w, axes, axis)
-        return _all_gather(w, axes, axis)
+        return coll.all_gather(w, axes, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.axes, ctx.axis), None, None, None
+        return coll.reduce_scatter(g, ctx.axes, ctx.axis), None, None, None
 
 
 def fsdp_gather(w: torch.Tensor, ctx: ShardCtx, axis: int = 0
@@ -118,6 +109,185 @@ def fsdp_gather(w: torch.Tensor, ctx: ShardCtx, axis: int = 0
     if ctx.gather_quant not in (None, "int8"):
         raise ValueError(f"gather_quant={ctx.gather_quant!r}")
     return _FsdpGather.apply(w, tuple(ctx.fsdp_axes), axis % w.ndim, quant)
+
+
+# --------------------------------------------------------------------------
+# Megatron f/g pairs over the ``model`` axis
+# --------------------------------------------------------------------------
+class _TpCopy(torch.autograd.Function):
+    """Enter the TP region: identity (or the sequence all-gather under
+    SP) forward; the sum (or the sequence reduce-scatter) backward."""
+
+    @staticmethod
+    def forward(ctx, x, sp, seq_axis):
+        ctx.sp, ctx.seq_axis = sp, seq_axis
+        return coll.all_gather_tp(x, seq_axis) if sp else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sp:
+            return coll.reduce_scatter_tp(g, ctx.seq_axis), None, None
+        return coll.psum_tp(g), None, None
+
+
+class _TpReduce(torch.autograd.Function):
+    """Leave the TP region: the sum (or the sequence reduce-scatter
+    under SP) forward; identity (or the sequence all-gather) backward."""
+
+    @staticmethod
+    def forward(ctx, x, sp, seq_axis):
+        ctx.sp, ctx.seq_axis = sp, seq_axis
+        return coll.reduce_scatter_tp(x, seq_axis) if sp \
+            else coll.psum_tp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.sp:
+            return coll.all_gather_tp(g, ctx.seq_axis), None, None
+        return g, None, None
+
+
+class _TpShared(torch.autograd.Function):
+    """A leaf replicated over ``model`` that each rank reads on its own
+    part of the work: identity forward, the sum of the partial gradients
+    backward."""
+
+    @staticmethod
+    def forward(ctx, w):
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return coll.psum_tp(g)
+
+
+class _GradScale(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale`` backward."""
+
+    @staticmethod
+    def forward(ctx, w, scale):
+        ctx.scale = scale
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _AllToAllTp(torch.autograd.Function):
+    """``collectives.all_to_all_tp`` forward; the same exchange, which is
+    its own inverse, backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return coll.all_to_all_tp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return coll.all_to_all_tp(g)
+
+
+def tp_copy(x: torch.Tensor, ctx: ShardCtx, seq_axis: int = 1
+            ) -> torch.Tensor:
+    if ctx.tp == 1:
+        return x
+    return _TpCopy.apply(x, ctx.seq_parallel, seq_axis)
+
+
+def tp_reduce(x: torch.Tensor, ctx: ShardCtx, seq_axis: int = 1,
+              seq_parallel: "bool | None" = None) -> torch.Tensor:
+    """The sum over ``model`` of partial results (reduce-scattered over
+    the sequence under SP; ``seq_parallel=False`` forces the plain sum)."""
+    if ctx.tp == 1:
+        return x
+    sp = ctx.seq_parallel if seq_parallel is None else seq_parallel
+    return _TpReduce.apply(x, sp, seq_axis)
+
+
+def maybe_tp_shared(w: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    return _TpShared.apply(w) if ctx.tp > 1 else w
+
+
+def sp_shared(w: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """``tp_shared`` for a leaf read on the sequence-sharded activations
+    of SP (the block and final norms): each rank's gradient covers its
+    own tokens.  ``w`` itself without SP, where every rank reads every
+    token and has the whole gradient."""
+    return _TpShared.apply(w) if ctx.tp > 1 and ctx.seq_parallel else w
+
+
+def grad_scale(w: torch.Tensor, scale: float) -> torch.Tensor:
+    return _GradScale.apply(w, scale) if scale != 1.0 else w
+
+
+def all_to_all_tp(x: torch.Tensor) -> torch.Tensor:
+    return _AllToAllTp.apply(x)
+
+
+# --------------------------------------------------------------------------
+# GQA head layout over ``model`` (JAX ``layers.HeadLayout``)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class HeadLayout:
+    n_heads: int          # logical q heads
+    kv_heads: int         # logical kv heads
+    head_dim: int
+    tp: int
+    L: int                # q heads per rank (padded layout)
+    g: int                # logical q heads per kv group
+    g_pad: int            # padded group size
+    n_h_pad: int          # padded total q heads
+    kv_local: int         # kv heads held per rank
+    kv_replicated: bool   # kv weights replicated over model, sliced
+
+    @property
+    def padded(self) -> bool:
+        return self.n_h_pad != self.n_heads
+
+
+def head_layout(n_heads: int, kv_heads: int, head_dim: int,
+                tp: int) -> HeadLayout:
+    """The JAX package's layout: with ``kv_heads >= tp`` each rank holds
+    ``n_heads / tp`` q heads and ``kv_heads / tp`` kv heads; otherwise the
+    kv weights are replicated and each rank reads its group's head, the q
+    heads padded per group so that every rank holds ``L`` of one group."""
+    if n_heads % kv_heads:
+        raise ValueError(f"n_heads={n_heads} kv_heads={kv_heads}")
+    g = n_heads // kv_heads
+    if kv_heads >= tp:
+        if kv_heads % tp or n_heads % tp:
+            raise ValueError(f"heads {n_heads}/{kv_heads} over tp={tp}")
+        return HeadLayout(n_heads, kv_heads, head_dim, tp, L=n_heads // tp,
+                          g=g, g_pad=g, n_h_pad=n_heads,
+                          kv_local=kv_heads // tp, kv_replicated=False)
+    if tp % kv_heads:
+        raise ValueError(f"tp={tp} kv_heads={kv_heads}")
+    r = tp // kv_heads
+    L = -(-n_heads // tp)
+    g_pad = L * (-(-g // L))
+    if g_pad // L != r:
+        raise ValueError(f"unsupported GQA layout n={n_heads} "
+                         f"kv={kv_heads} tp={tp}")
+    return HeadLayout(n_heads, kv_heads, head_dim, tp, L=L, g=g,
+                      g_pad=g_pad, n_h_pad=g_pad * kv_heads, kv_local=1,
+                      kv_replicated=True)
+
+
+def local_head_mask(lay: HeadLayout, m: int,
+                    device=None) -> torch.Tensor:
+    """(L,) bool: which of model rank ``m``'s padded q heads are real."""
+    idx = m * lay.L + torch.arange(lay.L, device=device)
+    return (idx % lay.g_pad) < lay.g
+
+
+def local_kv_slice(kv: torch.Tensor, lay: HeadLayout, m: int
+                   ) -> torch.Tensor:
+    """kv: (B, S, kv_heads, hd), whole (the replicated case) -> model rank
+    ``m``'s head, (B, S, 1, hd); ``kv`` itself otherwise."""
+    if not lay.kv_replicated:
+        return kv
+    head = m // (lay.tp // lay.kv_heads)
+    return kv.narrow(2, head, 1)
 
 
 #: the weights of a column linear ``(d_in, d_out)`` (and the other
@@ -154,6 +324,33 @@ def fsdp_dim(name: str) -> "int | None":
         return -2
     if parts[-1] == "a" and "lora" in parts:
         return -2
+    return None
+
+
+_TP_COLUMN = frozenset(["wq", "wk", "wv", "gate", "up"])
+_TP_ROW = frozenset(["wo", "down"])
+
+
+def tp_dim(name: str, kv_replicated: bool = False) -> "int | None":
+    """The dim, counted from the end, along which ``model`` shards the
+    dense or MoE leaf ``name`` (the JAX package's ``PartitionSpec``): -1
+    for column linears (``wq``, ``wk``, ``wv``, ``gate``, ``up``; not
+    ``wk``/``wv`` when the KV heads are replicated over ``model``), -2
+    for row linears and the vocabulary tables, -3 for the stacked MoE
+    experts ``(.., E, d_in, d_out)``; None for a leaf replicated over
+    ``model`` (norms, the router, the shared-expert gate)."""
+    parts = name.split(".")
+    if len(parts) >= 2 and parts[-2] == "experts":
+        return -3
+    if parts[-1] == "table":
+        return -2
+    if parts[-1] == "w" and len(parts) >= 2:
+        if parts[-2] in ("wk", "wv") and kv_replicated:
+            return None
+        if parts[-2] in _TP_COLUMN:
+            return -1
+        if parts[-2] in _TP_ROW:
+            return -2
     return None
 
 
@@ -264,25 +461,56 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def pad_vocab(vocab: int, tp: int) -> int:
+    return -(-vocab // tp) * tp
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor, ctx: ShardCtx,
                      vocab: int) -> torch.Tensor:
     """ids: (B, S) -> (B, S, d) in the compute dtype (the table gathered
-    along d under FSDP)."""
+    along d under FSDP).  Vocabulary-parallel under TP: each rank looks up
+    the ids of its rows of the table, zeros elsewhere, and the partial
+    sums are summed over ``model`` (reduce-scattered over the sequence
+    under SP, so the result is this rank's ``(B, S/tp, d)``)."""
     table = fsdp_gather(table.to(ctx.compute_dtype), ctx, 1)
-    return torch.nn.functional.embedding(ids.clamp(max=vocab - 1), table)
+    if ctx.tp == 1:
+        return torch.nn.functional.embedding(ids.clamp(max=vocab - 1), table)
+    shard = table.shape[0]
+    local = ids - coll.tp_index() * shard
+    ok = (local >= 0) & (local < shard)
+    emb = torch.nn.functional.embedding(local.clamp(0, shard - 1), table)
+    return tp_reduce(emb * ok[..., None].to(emb.dtype), ctx)
 
 
 def unembed_logits(table: torch.Tensor, x: torch.Tensor,
                    ctx: ShardCtx) -> torch.Tensor:
-    """x: (B, S, d) -> logits (B, S, V) (the table gathered along d under
-    FSDP)."""
+    """x: (B, S, d) -> logits (B, S, V/tp), this rank's vocabulary rows
+    (the table gathered along d under FSDP)."""
     return x @ fsdp_gather(table.to(ctx.compute_dtype), ctx, 1).T
 
 
-def vocab_parallel_xent(logits: torch.Tensor,
-                        labels: torch.Tensor) -> torch.Tensor:
-    """Per-token cross-entropy in fp32: logsumexp - gold logit."""
+def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                        ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """Per-token cross-entropy in fp32: logsumexp - gold logit.  Under TP
+    ``logits`` are this rank's ``(B, S, V/tp)`` and ``labels`` global ids:
+    the maximum (a stabilizer, without gradient), the sum of the
+    exponentials and the gold logit are reduced over ``model`` by sums
+    whose backward is the identity, so each rank's gradient is that of the
+    one loss."""
     ll = logits.float()
-    lse = torch.logsumexp(ll, dim=-1)
-    gold = torch.gather(ll, -1, labels[..., None])[..., 0]
+    if ctx.tp == 1:
+        lse = torch.logsumexp(ll, dim=-1)
+        gold = torch.gather(ll, -1, labels[..., None])[..., 0]
+        return lse - gold
+    shard = ll.shape[-1]
+    with torch.no_grad():
+        m = coll.pmax_tp(ll.amax(dim=-1))
+    sumexp = tp_reduce(torch.exp(ll - m[..., None]).sum(-1), ctx,
+                       seq_parallel=False)
+    lse = m + torch.log(sumexp)
+    local = labels - coll.tp_index() * shard
+    ok = (local >= 0) & (local < shard)
+    gold_local = torch.gather(ll, -1, local.clamp(0, shard - 1)[..., None]
+                              )[..., 0]
+    gold = tp_reduce(gold_local * ok, ctx, seq_parallel=False)
     return lse - gold

@@ -79,6 +79,19 @@ function, the vocabulary tables in the lookup and in each loss chunk.
 rank's slice before it draws the next, so the global parameters are the
 same at every FSDP degree and one leaf is the largest transient.
 
+Tensor parallelism (``ctx.tp > 1``, the dense and MoE families): every
+leaf that ``layers.tp_dim`` names holds this rank's slice along that dim
+(composed with the FSDP dim: a column weight is ``P(fsdp, model)``), at
+the global shapes of the JAX package at that ``tp``: the vocabulary
+padded to a multiple of ``tp`` (``pad_vocab``), the q heads to the
+``head_layout``'s ``n_h_pad``, the experts to ``E_pad``.  The kv weights
+are replicated over ``model`` when ``kv_heads < tp``.  ``init_params``
+draws each global leaf and slices it, so a seed gives the same global
+weights at any ``tp`` where nothing is padded, as the JAX package's init
+does.  The other four families raise ``NotImplementedError`` at
+``tp > 1``.  ``loss`` takes the rotary positions from the labels, which
+hold the whole sequence under SP too.
+
 Whatever the parameter dtype, the MoE ``router`` and ``shared_gate``, the
 Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the xLSTM ``b_if``, ``w_if``,
 ``b_gates``, ``r_gates`` and ``w_gates`` are fp32 (``leaf_dtype``).
@@ -110,8 +123,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm
 from repro_torch.models.layers import (ShardCtx, embedding_lookup, fsdp_dim,
-                                       gather_params, rmsnorm,
-                                       sinusoidal_positions, trunc_normal_)
+                                       gather_params, head_layout, pad_vocab,
+                                       rmsnorm, sinusoidal_positions,
+                                       tp_dim, trunc_normal_)
+from repro_torch.parallel import collectives as coll
 
 BLOCK_PREFIX = "blocks."
 SHARED_PREFIX = "shared."
@@ -122,6 +137,8 @@ STACK_PREFIX = {"dense": BLOCK_PREFIX, "vlm": BLOCK_PREFIX,
                 "moe": BLOCK_PREFIX, "hybrid": "groups.", "ssm": "groups."}
 #: the families the port builds
 FAMILIES = (*STACK_PREFIX, "audio")
+#: the families the port builds at ``tp > 1``
+TP_FAMILIES = ("dense", "moe")
 #: each family's rotary scheme (``ArchConfig.rope``): the ssm family has
 #: no positional input, the audio family adds sinusoidal positions under
 #: "none", the vlm family rotates by M-RoPE
@@ -144,10 +161,10 @@ def _mlp_layout(prefix: str, lead: tuple, d: int, d_ff: int) -> list:
             (prefix + "up.w", (*lead, d, d_ff), 1 / math.sqrt(d))]
 
 
-def _moe_layout(cfg) -> list:
+def _moe_layout(cfg, tp: int = 1) -> list:
     L, d, f = (cfg.n_layers,), cfg.d_model, cfg.d_ff
     mc = cfg.moe
-    e = moe_mod.pad_experts(mc.n_experts, 1)
+    e = moe_mod.pad_experts(mc.n_experts, tp)
     out = _mlp_layout("blocks.moe.dense.", L, d, f) \
         if mc.dense_residual else []
     out += [("blocks.moe.experts.down", (*L, e, f, d), 1 / math.sqrt(f)),
@@ -160,17 +177,21 @@ def _moe_layout(cfg) -> list:
     return out
 
 
-def _attn_layout(cfg, prefix: str, lead: tuple) -> list:
-    """The pre-norm attention half of a dense block, and its two norms."""
+def _attn_layout(cfg, prefix: str, lead: tuple, tp: int = 1) -> list:
+    """The pre-norm attention half of a dense block, and its two norms
+    (the q heads padded as ``head_layout`` pads them at ``tp``)."""
     d, hd = cfg.d_model, cfg.head_dim
-    q_out, kv_out = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    n_q = head_layout(cfg.n_heads, cfg.n_kv_heads, hd, tp).n_h_pad \
+        if tp > 1 else cfg.n_heads
+    q_out, kv_out = n_q * hd, cfg.n_kv_heads * hd
     out = []
     if cfg.qk_norm:
         out += [(prefix + "attn.k_norm.scale", (*lead, hd), None),
                 (prefix + "attn.q_norm.scale", (*lead, hd), None)]
     return out + [
         (prefix + "attn.wk.w", (*lead, d, kv_out), 1 / math.sqrt(d)),
-        (prefix + "attn.wo.w", (*lead, q_out, d), 1 / math.sqrt(q_out)),
+        (prefix + "attn.wo.w", (*lead, q_out, d),
+         1 / math.sqrt(cfg.n_heads * hd)),
         (prefix + "attn.wq.w", (*lead, d, q_out), 1 / math.sqrt(d)),
         (prefix + "attn.wv.w", (*lead, d, kv_out), 1 / math.sqrt(d)),
         (prefix + "ln1.scale", (*lead, d), None),
@@ -204,17 +225,20 @@ def _xlstm_layout(cfg) -> list:
         + xlstm.slstm_layout(cfg, (g,), "groups.slstm.")
 
 
-def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
-                                    "float | str | None"]]:
-    """(name, shape, init) of every leaf, in leaf order.  ``init`` is a
-    truncated-normal std, None for ones, ``"zeros"``, or the name of a
-    Mamba2 or xLSTM draw (``mamba2.param_layout``,
-    ``xlstm.mlstm_layout``, ``xlstm.slstm_layout``)."""
+def param_layout(cfg, tp: int = 1) -> list[tuple[str, tuple[int, ...],
+                                                  "float | str | None"]]:
+    """(name, shape, init) of every leaf, in leaf order, at its global
+    shape for tensor-parallel degree ``tp`` (padded as the JAX package
+    pads).  ``init`` is a truncated-normal std, None for ones,
+    ``"zeros"``, or the name of a Mamba2 or xLSTM draw
+    (``mamba2.param_layout``, ``xlstm.mlstm_layout``,
+    ``xlstm.slstm_layout``)."""
     d = cfg.d_model
-    io = [("embed.table", (cfg.vocab, d), 0.02),
+    v = pad_vocab(cfg.vocab, tp)
+    io = [("embed.table", (v, d), 0.02),
           ("final_norm.scale", (d,), None)]
     tail = [] if cfg.tie_embeddings \
-        else [("unembed.table", (cfg.vocab, d), 0.02)]
+        else [("unembed.table", (v, d), 0.02)]
     if cfg.family == "hybrid":
         return io + _hybrid_layout(cfg) + tail
     if cfg.family == "ssm":
@@ -223,9 +247,9 @@ def param_layout(cfg) -> list[tuple[str, tuple[int, ...],
         return encdec.dec_layout(cfg, (cfg.n_layers,), DEC_PREFIX) + io[:1] \
             + encdec.enc_layout(cfg, (cfg.encdec.enc_layers,), ENC_PREFIX) \
             + [("enc_norm.scale", (d,), None)] + io[1:] + tail
-    out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,))
+    out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,), tp)
     if cfg.family == "moe":
-        out += _moe_layout(cfg)
+        out += _moe_layout(cfg, tp)
     else:
         out += _mlp_layout("blocks.mlp.", (cfg.n_layers,), d, cfg.d_ff)
     return out + io + tail
@@ -242,16 +266,32 @@ def param_dims(cfg) -> dict[str, "int | None"]:
     return out
 
 
-def local_shape(name: str, shape: tuple, p: int) -> tuple:
-    """The shape of this rank's shard of ``name`` at FSDP degree ``p``."""
-    dim = fsdp_dim(name)
-    if dim is None or p == 1:
-        return tuple(shape)
+def tp_dims(cfg, tp: int) -> dict[str, "int | None"]:
+    """name -> the dim of the leaf (counted from its first) that ``model``
+    shards at ``tp``, or None (every leaf at ``tp == 1``): the dims of
+    the JAX package's ``abstract_init`` specs that name ``model``."""
+    kv_rep = tp > 1 and head_layout(cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, tp).kv_replicated
+    out = {}
+    for name, shape, _ in param_layout(cfg, tp):
+        dim = tp_dim(name, kv_rep) if tp > 1 else None
+        out[name] = None if dim is None else dim % len(shape)
+    return out
+
+
+def local_shape(name: str, shape: tuple, p: int, tp: int = 1,
+                tdim: "int | None" = None) -> tuple:
+    """The shape of this rank's shard of ``name`` at FSDP degree ``p``,
+    and at TP degree ``tp`` along ``tdim`` (``tp_dims``)."""
     out = list(shape)
-    if out[dim] % p:
-        raise ValueError(f"{name}: dim {dim % len(shape)} of {tuple(shape)} "
-                         f"does not split over {p} FSDP ranks")
-    out[dim] //= p
+    for dim, n, what in ((fsdp_dim(name), p, "FSDP"), (tdim, tp, "TP")):
+        if dim is None or n == 1:
+            continue
+        if out[dim] % n:
+            raise ValueError(f"{name}: dim {dim % len(shape)} of "
+                             f"{tuple(shape)} does not split over {n} "
+                             f"{what} ranks")
+        out[dim] //= n
     return tuple(out)
 
 
@@ -294,12 +334,20 @@ class Model(nn.Module):
         """Parameters of ``leaf_dtype``, uninitialised, on ``device``:
         ``cuda`` unless the caller asks for ``cpu`` or ``meta``.  Under
         ``ctx.fsdp_axes`` each sharded leaf has its local shape at the
-        axes' size (``fsdp_size``, else read from the process group)."""
+        axes' size (``fsdp_size``, else read from the process group); at
+        ``ctx.tp > 1`` each leaf ``model`` shards has its slice's."""
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported "
                 f"(the port has {', '.join(FAMILIES)})")
+        if ctx.tp > 1 and cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: tensor parallelism (tp={ctx.tp}) of the "
+                f"{cfg.family!r} family is not ported yet; the port runs "
+                f"it for the {' and '.join(TP_FAMILIES)} families, and TP "
+                f"of the hybrid, ssm, audio and vlm families is the next "
+                f"slice (ROADMAP)")
         if cfg.rope != ROPE.get(cfg.family, "rope"):
             raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r} in "
                                       f"the {cfg.family!r} family")
@@ -313,9 +361,11 @@ class Model(nn.Module):
             fsdp_size = mesh_mod.size(ctx.fsdp_axes) if ctx.fsdp_axes else 1
         #: the FSDP degree the leaves are sharded at (1: global shapes)
         self.fsdp_size = fsdp_size
+        #: name -> the dim ``model`` shards (None: replicated over it)
+        self.tp_dims = tp_dims(cfg, ctx.tp)
         self._init = {}
         self._global = {}
-        for name, shape, init in param_layout(cfg):
+        for name, shape, init in param_layout(cfg, ctx.tp):
             *path, leaf = name.split(".")
             node: nn.Module = self
             for part in path:
@@ -323,7 +373,8 @@ class Model(nn.Module):
                     node.add_module(part, nn.Module())
                 node = getattr(node, part)
             node.register_parameter(leaf, nn.Parameter(torch.empty(
-                local_shape(name, shape, fsdp_size),
+                local_shape(name, shape, fsdp_size, ctx.tp,
+                            self.tp_dims[name]),
                 dtype=leaf_dtype(name, ctx), device=device)))
             self._init[name] = init
             self._global[name] = tuple(shape)
@@ -342,18 +393,23 @@ class Model(nn.Module):
             yield prefix + ("." if prefix else "") + name, params[name]
 
     def global_shape(self, name: str) -> tuple:
-        """The leaf's shape before FSDP sharding."""
+        """The leaf's shape before FSDP and TP sharding."""
         return self._global[name]
 
     def shard_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the global leaf ``full`` (``full`` itself
-        when the leaf is not sharded)."""
+        when the leaf is not sharded): along its FSDP dim at its index
+        along the FSDP axes, along its TP dim at its ``model`` index."""
         dim = fsdp_dim(name)
-        if dim is None or self.fsdp_size == 1:
-            return full
-        n = full.shape[dim] // self.fsdp_size
-        return full.narrow(dim % full.ndim,
-                           mesh_mod.rank(self.ctx.fsdp_axes) * n, n)
+        if dim is not None and self.fsdp_size > 1:
+            n = full.shape[dim] // self.fsdp_size
+            full = full.narrow(dim % full.ndim,
+                               mesh_mod.rank(self.ctx.fsdp_axes) * n, n)
+        tdim = self.tp_dims[name]
+        if tdim is not None:
+            n = full.shape[tdim] // self.ctx.tp
+            full = full.narrow(tdim, coll.tp_index() * n, n)
+        return full
 
     def init_params(self, generator: torch.Generator) -> None:
         """Every leaf as ``param_layout`` says (truncated-normal weights,
@@ -598,7 +654,7 @@ class Model(nn.Module):
         memory = self.encode(batch["enc_embeds"]) \
             if self.cfg.family == "audio" else None
         x = self.stage_input(batch)
-        positions = positions_of(x[..., 0])
+        positions = positions_of(labels)
         shared = self.shared_params()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p_l in self._slices(self.stacks[0][0]):

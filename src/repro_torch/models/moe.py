@@ -1,8 +1,8 @@
-"""Mixture-of-Experts FFN at expert-parallel degree 1.  Counterpart of
-``repro.models.moe`` (``pad_experts``, ``capacity``, ``_route``,
-``_dispatch_indices``, ``moe_apply``, ``_aux_loss``, ``moe_block_apply``)
-without the expert-parallel ``all_to_all``: the port has no TP axis, so
-every expert lives on every rank.
+"""Mixture-of-Experts FFN with expert parallelism over ``model``.
+Counterpart of ``repro.models.moe`` (``pad_experts``, ``capacity``,
+``_route``, ``_dispatch_indices``, ``_ep_all_to_all``, ``moe_apply``,
+``_aux_loss``, ``moe_block_apply``).  At ``ctx.tp == 1`` every expert
+lives on every rank and nothing is exchanged.
 
 Routing is top-k softmax over fp32 router logits, renormalised over the
 k picks, with a fixed per-expert capacity; a token's pick beyond its
@@ -30,6 +30,25 @@ backward is deterministic: the token gather of step 3 is an ``expand`` of
 ``k`` axis of a ``(T, k, d)`` view, so neither has a scatter-add
 backward; the slot writes and reads move each kept value once, and a
 dropped assignment's value is zero.
+
+Expert parallelism (``ctx.tp > 1``; the JAX package's training layout,
+its ``moe_ep_axis=None``; the 2-D serving layout is not ported): the
+experts, padded to ``E_pad``, a multiple of ``tp``, with ``-inf`` router
+logits on the padding, are stacked ``(E_pad / tp, ...)`` on each model
+rank.  The ``(E_pad, C, d)`` buffer
+goes through the ``model`` all-to-all (``_ep_all_to_all``) to
+``(E_pad / tp, tp·C, d)``, the local experts run, and the result comes
+back the same way.  The shared experts and arctic's dense residual are
+TP MLPs (``transformer.mlp_apply``).  Under SP each rank routes its own
+slice of the sequence with a capacity of its own (JAX ``moe.py``: the
+all-to-all mixes the tokens across ``model`` anyway), the router and
+the shared-expert gate are read under ``tp_shared`` (each rank's
+gradient covers its tokens), and the load-balancing loss is this rank's
+tokens'.  Without SP every model rank routes every token, as in the
+JAX package, so each expert receives ``tp`` copies of each token; the
+forward is that of ``tp = 1`` and the experts' gradient, summed over the
+copies, is scaled by ``1 / tp`` (``layers.grad_scale``) so that it is
+the gradient of the loss once (JAX's is ``tp`` times it).
 """
 from __future__ import annotations
 
@@ -39,7 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.models.layers import ShardCtx, rmsnorm
+from repro_torch.models.layers import (ShardCtx, all_to_all_tp, grad_scale,
+                                       rmsnorm, sp_shared)
 from repro_torch.models.transformer import attn_apply, mlp_apply
 
 #: the ``blocks.`` leaves the MoE layer keeps in fp32 whatever the
@@ -87,12 +107,31 @@ def _dispatch_indices(top_i: torch.Tensor, e_pad: int, cap: int):
     return flat_e, slot_of.long(), slot_of < cap
 
 
+def _ep_all_to_all(buf: torch.Tensor, ep: int, forward: bool
+                   ) -> torch.Tensor:
+    """(E_pad, C, d) <-> (E_pad / ep, ep·C, d) over ``model``: the leading
+    dim of the exchange indexes the destination rank before it and the
+    source rank after it."""
+    if ep == 1:
+        return buf
+    if forward:
+        e_pad, c, d = buf.shape
+        out = all_to_all_tp(buf.reshape(ep, e_pad // ep, c, d))
+        return out.transpose(0, 1).reshape(e_pad // ep, ep * c, d)
+    e_local, epc, d = buf.shape
+    c = epc // ep
+    out = all_to_all_tp(buf.reshape(e_local, ep, c, d).transpose(0, 1))
+    return out.reshape(e_local * ep, c, d)
+
+
 def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
-    """x: (B, S, d), the normed block input.  Returns (the MoE output of
-    x's shape and dtype, the load-balancing loss).  ``p`` holds one layer's
-    leaves under ``blocks.`` (``"moe.router"``, ``"moe.experts.gate"``,
-    ...).  The caller adds the residual."""
-    ep = 1                     # every expert on every rank: no TP axis
+    """x: (B, S, d), the normed block input (this rank's slice of the
+    sequence under SP).  Returns (the MoE output of x's shape and dtype,
+    the load-balancing loss).  ``p`` holds one layer's leaves under
+    ``blocks.`` (``"moe.router"``, ``"moe.experts.gate"``, ...), the
+    experts this rank's ``(E_pad / tp, ...)``.  The caller adds the
+    residual."""
+    ep = ctx.tp
     mc = cfg.moe
     b, s, d = x.shape
     t, k = b * s, mc.top_k
@@ -102,7 +141,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
 
     xt = x.reshape(t, d)
     with record_function(DISPATCH):
-        probs, top_i, logits = _route(p["moe.router"], xt, mc, e_pad)
+        probs, top_i, logits = _route(sp_shared(p["moe.router"], ctx), xt,
+                                      mc, e_pad)
         expert_of, slot_of, keep = _dispatch_indices(top_i, e_pad, cap)
         # each token to its k slots; dropped ones to the spare slot cap
         src = xt.to(cd)[:, None, :].expand(t, k, d).reshape(t * k, d)
@@ -110,10 +150,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
         buf = torch.zeros(e_pad * (cap + 1), d, dtype=cd, device=x.device)
         buf = buf.index_copy(0, dest, src).view(e_pad, cap + 1, d)[:, :cap]
 
-    # ---- the batched expert SwiGLU
-    h_g = torch.bmm(buf, p["moe.experts.gate"].to(cd))
-    h_u = torch.bmm(buf, p["moe.experts.up"].to(cd))
-    out = torch.bmm(F.silu(h_g) * h_u, p["moe.experts.down"].to(cd))
+    # ---- the EP exchange and the batched expert SwiGLU
+    buf = _ep_all_to_all(buf, ep, forward=True)       # (E_pad/ep, ep·C, d)
+    # without SP each expert sees ep copies of each token
+    dup = 1.0 if ctx.seq_parallel else 1.0 / ep
+    w_g, w_u, w_d = (grad_scale(p["moe.experts." + n], dup).to(cd)
+                     for n in ("gate", "up", "down"))
+    h_g = torch.bmm(buf, w_g)
+    h_u = torch.bmm(buf, w_u)
+    out = torch.bmm(F.silu(h_g) * h_u, w_d)
+    out = _ep_all_to_all(out, ep, forward=False)      # (E_pad, C, d)
 
     with record_function(COMBINE):
         # the slots back to their tokens, weighted by the router
@@ -126,7 +172,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
     # ---- shared experts behind a sigmoid gate / the dense residual
     if mc.n_shared:
         sh = mlp_apply(p, x, ctx, prefix="moe.shared.")
-        gate = torch.sigmoid(x.float() @ p["moe.shared_gate"].float())
+        gate = torch.sigmoid(
+            x.float() @ sp_shared(p["moe.shared_gate"], ctx).float())
         y = y + sh * gate.to(x.dtype)
     if mc.dense_residual:
         y = y + mlp_apply(p, x, ctx, prefix="moe.dense.")
@@ -148,8 +195,8 @@ def moe_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                     cfg, ctx: ShardCtx):
     """Pre-norm attention, then the pre-norm MoE FFN.  Returns (the
     block's output, its load-balancing loss)."""
-    x = x + attn_apply(p, rmsnorm(p["ln1.scale"], x, cfg.norm_eps),
-                       positions, cfg, ctx)
-    m, aux = moe_apply(p, rmsnorm(p["ln2.scale"], x, cfg.norm_eps), cfg,
-                       ctx)
+    x = x + attn_apply(p, rmsnorm(sp_shared(p["ln1.scale"], ctx), x,
+                                  cfg.norm_eps), positions, cfg, ctx)
+    m, aux = moe_apply(p, rmsnorm(sp_shared(p["ln2.scale"], ctx), x,
+                                  cfg.norm_eps), cfg, ctx)
     return x + m, aux

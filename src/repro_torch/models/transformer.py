@@ -1,6 +1,6 @@
 """Dense transformer backbone: the pre-norm GQA attention + SwiGLU block
 and the chunked LM loss.  Counterpart of the dense-family parts of
-``repro.models.transformer`` at tensor-parallel degree 1, qk-norm
+``repro.models.transformer``, qk-norm
 included (``cfg.qk_norm``: an RMSNorm over ``head_dim`` of each q and k
 head after the projection, before the rotation, as qwen3 has it).  The
 enc-dec family (``repro_torch.models.encdec``) reads the attention
@@ -14,6 +14,19 @@ profiler ranges ``GELU_MLP`` and ``LM_LOSS``.
 A block's parameters arrive as a dict keyed by their names under
 ``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
 the stacked leaves.
+
+Tensor parallelism (``ctx.tp > 1``): the MLP and the attention run
+between ``tp_copy`` and ``tp_reduce`` (JAX ``mlp_apply``,
+``attn_apply``) on this rank's columns and rows; the attention holds the
+``head_layout``'s ``L`` q heads and ``kv_local`` kv heads (the kv
+weights replicated under ``tp_shared`` and sliced when ``kv_heads <
+tp``; padded q heads masked before ``wo``); the qk-norm scales are read
+under ``tp_shared``.  Under SP the activations between the regions hold
+this rank's slice of the sequence, the norms on them read their scales
+under ``sp_shared``, and the rotary positions stay those of the whole
+sequence, which the attention sees after the gather.  The loss gathers
+the sequence once (``tp_copy``) after the final norm and runs the
+vocabulary-parallel cross-entropy on each chunk.
 """
 from __future__ import annotations
 
@@ -24,8 +37,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention
 from repro_torch.models.layers import (ShardCtx, apply_mrope, apply_rope,
-                                       linear, rmsnorm, unembed_logits,
+                                       head_layout, linear, local_head_mask,
+                                       local_kv_slice, maybe_tp_shared,
+                                       rmsnorm, sp_shared, tp_copy,
+                                       tp_reduce, unembed_logits,
                                        vocab_parallel_xent)
+from repro_torch.parallel.collectives import tp_index
 
 #: the profiler ranges around the GELU MLP and one chunk of the loss head
 GELU_MLP, LM_LOSS = "mlp.gelu", "lm_loss.chunk"
@@ -34,10 +51,12 @@ GELU_MLP, LM_LOSS = "mlp.gelu", "lm_loss.chunk"
 def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
               prefix: str = "mlp.") -> torch.Tensor:
     """The SwiGLU MLP whose weights are ``p[prefix + "{gate,up,down}.w"]``
-    (the MoE family's shared experts and dense residual use it too)."""
-    g = linear(p[prefix + "gate.w"], x, ctx)
-    u = linear(p[prefix + "up.w"], x, ctx)
-    return linear(p[prefix + "down.w"], F.silu(g) * u, ctx)
+    (the MoE family's shared experts and dense residual use it too),
+    column- then row-parallel between ``tp_copy`` and ``tp_reduce``."""
+    h = tp_copy(x, ctx)
+    g = linear(p[prefix + "gate.w"], h, ctx)
+    u = linear(p[prefix + "up.w"], h, ctx)
+    return tp_reduce(linear(p[prefix + "down.w"], F.silu(g) * u, ctx), ctx)
 
 
 def gelu_mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
@@ -59,14 +78,28 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     q and k are rotated unless ``cfg.rope == "none"``, by M-RoPE over
     ``mrope_positions`` (3, B, S) under ``cfg.rope == "mrope"``;
     ``causal=False`` lets every query see every key."""
-    b, s, _ = x.shape
+    lay = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ctx.tp)
+    m = tp_index() if ctx.tp > 1 else 0
+    h = tp_copy(x, ctx)                     # the whole sequence under SP
+    b, s, _ = h.shape
     hd = cfg.head_dim
-    q = linear(p[prefix + "wq.w"], x, ctx).reshape(b, s, cfg.n_heads, hd)
-    k = linear(p[prefix + "wk.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(p[prefix + "wv.w"], x, ctx).reshape(b, s, cfg.n_kv_heads, hd)
+    q = linear(p[prefix + "wq.w"], h, ctx).reshape(b, s, lay.L, hd)
+    if lay.kv_replicated:
+        cd = ctx.compute_dtype
+        wk = maybe_tp_shared(p[prefix + "wk.w"].to(cd), ctx)
+        wv = maybe_tp_shared(p[prefix + "wv.w"].to(cd), ctx)
+        k = local_kv_slice((h @ wk).reshape(b, s, lay.kv_heads, hd), lay, m)
+        v = local_kv_slice((h @ wv).reshape(b, s, lay.kv_heads, hd), lay, m)
+    else:
+        k = linear(p[prefix + "wk.w"], h, ctx).reshape(b, s, lay.kv_local,
+                                                       hd)
+        v = linear(p[prefix + "wv.w"], h, ctx).reshape(b, s, lay.kv_local,
+                                                       hd)
     if cfg.qk_norm:
-        q = rmsnorm(p[prefix + "q_norm.scale"], q, cfg.norm_eps)
-        k = rmsnorm(p[prefix + "k_norm.scale"], k, cfg.norm_eps)
+        q = rmsnorm(maybe_tp_shared(p[prefix + "q_norm.scale"], ctx), q,
+                    cfg.norm_eps)
+        k = rmsnorm(maybe_tp_shared(p[prefix + "k_norm.scale"], ctx), k,
+                    cfg.norm_eps)
     if cfg.rope == "mrope":
         if mrope_positions is None:
             raise KeyError("mrope_positions")
@@ -76,25 +109,30 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, positions, positions, causal=causal)
-    return linear(p[prefix + "wo.w"], out.reshape(b, s, cfg.n_heads * hd),
-                  ctx)
+    if lay.padded:
+        out = out * local_head_mask(lay, m, out.device)[:, None].to(
+            out.dtype)
+    out = linear(p[prefix + "wo.w"], out.reshape(b, s, lay.L * hd), ctx)
+    return tp_reduce(out, ctx)
 
 
 def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cfg, ctx: ShardCtx,
                       mrope_positions: "torch.Tensor | None" = None
                       ) -> torch.Tensor:
-    x = x + attn_apply(p, rmsnorm(p["ln1.scale"], x, cfg.norm_eps),
+    x = x + attn_apply(p, rmsnorm(sp_shared(p["ln1.scale"], ctx), x,
+                                  cfg.norm_eps),
                        positions, cfg, ctx,
                        mrope_positions=mrope_positions)
-    return x + mlp_apply(p, rmsnorm(p["ln2.scale"], x, cfg.norm_eps), ctx)
+    return x + mlp_apply(p, rmsnorm(sp_shared(p["ln2.scale"], ctx), x,
+                                    cfg.norm_eps), ctx)
 
 
 def _chunk_loss(table: torch.Tensor, xb: torch.Tensor, lb: torch.Tensor,
                 ctx: ShardCtx) -> torch.Tensor:
     with record_function(LM_LOSS):
         logits = unembed_logits(table, xb, ctx)
-        per_tok = vocab_parallel_xent(logits, lb.clamp(min=0))
+        per_tok = vocab_parallel_xent(logits, lb.clamp(min=0), ctx)
         return (per_tok * (lb >= 0)).sum()
 
 
@@ -104,8 +142,9 @@ def lm_loss(final_scale: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
     """Memory-bounded LM loss: the logits are produced and consumed one
     sequence chunk at a time, each chunk recomputed in the backward pass,
     so peak memory holds one chunk of logits.  labels < 0 are masked out.
-    Returns (sum of token losses, token count), both local."""
-    x = rmsnorm(final_scale, x, cfg.norm_eps)
+    Returns (sum of token losses, token count), both local (the same on
+    every model rank: the sequence is gathered after the final norm)."""
+    x = tp_copy(rmsnorm(sp_shared(final_scale, ctx), x, cfg.norm_eps), ctx)
     s = x.shape[1]
     chunk = min(xent_chunk, s)
     pad = (-s) % chunk

@@ -10,7 +10,8 @@ column statistics ``{"r", "c"}`` over the trailing two dims (leaves with
 two dims or more) or a full second moment ``{"v"}``.
 
 Under DDP the parameters are replicated over the data axis (fp32, or
-bf16 working copies), so the global norm needs no collective.  Under FSDP
+bf16 working copies), so the global norm needs no collective; under TP
+each leaf ``model`` shards adds its squares over ``model``.  Under FSDP
 (``Sharding``: the FSDP axes and, per leaf, the dim they shard or None)
 two places need the sharding, as in the JAX package: the global norm sums
 each sharded leaf's squares over the FSDP axes (leaves grouped by their
@@ -51,13 +52,35 @@ class OptConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """How FSDP shards the parameters: the mesh axes, and per leaf (in
-    parameter order) the dim they shard, or None for a replicated leaf."""
+    """How FSDP and TP shard the parameters: the FSDP axes, and per leaf
+    (in parameter order) the dim they shard, or None for a leaf they
+    replicate; per leaf the dim ``model`` shards, or None (``tp_dims``,
+    empty without TP).  Dims count from the end."""
     axes: tuple[str, ...]
     dims: tuple["int | None", ...]
+    tp_dims: tuple["int | None", ...] = ()
 
     def leaf_axes(self, i: int) -> tuple[str, ...]:
-        return self.axes if self.dims[i] is not None else ()
+        out = self.axes if self.dims[i] is not None else ()
+        if self.tp_dims and self.tp_dims[i] is not None:
+            out = out + ("model",)
+        return out
+
+    def dim_axes(self, i: int, ndim: int) -> list[tuple[str, ...]]:
+        """Per dim of leaf ``i`` (of ``ndim`` dims), the axes that shard
+        it."""
+        out: list = [()] * ndim
+        if self.dims[i] is not None:
+            out[self.dims[i] % ndim] = tuple(self.axes)
+        if self.tp_dims and self.tp_dims[i] is not None:
+            out[self.tp_dims[i] % ndim] += ("model",)
+        return out
+
+    def reordered(self, index: Sequence[int]) -> "Sharding":
+        """The sharding of the leaves ``index`` (parameter positions)."""
+        return Sharding(self.axes, tuple(self.dims[i] for i in index),
+                        tuple(self.tp_dims[i] for i in index)
+                        if self.tp_dims else ())
 
 
 def _psum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -70,7 +93,7 @@ def global_norm(grads: Sequence[torch.Tensor],
     ``sharding`` the global gradient's: the leaves grouped by the axes
     that shard them (in order of first appearance), each group's sum of
     squares summed over its axes, as the JAX package groups them."""
-    if sharding is None or not sharding.axes:
+    if sharding is None or not (sharding.axes or sharding.tp_dims):
         total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
         for g in grads:
             total = total + g.float().square().sum()
@@ -222,10 +245,9 @@ class Adafactor:
 
     def _dim_axes(self, i: int, ndim: int) -> list[tuple[str, ...]]:
         """Per dim of leaf ``i``, the axes that shard it."""
-        out: list = [()] * ndim
-        if self.sharding is not None and self.sharding.dims[i] is not None:
-            out[self.sharding.dims[i] % ndim] = self.sharding.axes
-        return out
+        if self.sharding is None:
+            return [()] * ndim
+        return self.sharding.dim_axes(i, ndim)
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         def st(p):

@@ -46,8 +46,9 @@ all (the exchange is folded into ZeRO-1's update), so the backward runs
 ``raw``.  ``effective_schedule`` reports the resolution.
 
 The MoE family's blocks also return a load-balancing loss: each block's
-backward is seeded with ``MOE_AUX_COEF / (L * p_fsdp)`` on that output,
-the derivative of the classic step's ``MOE_AUX_COEF * mean / p_fsdp``,
+backward is seeded with ``MOE_AUX_COEF / (L * aux_div)`` on that
+output, the derivative of the classic step's ``MOE_AUX_COEF * mean /
+aux_div`` (``p_fsdp``, times ``tp`` under SP),
 and the step reports the mean over the layers as ``moe_aux``.
 
 The hybrid family's stage is a zamba2 group, whose leaves (``groups.``)
@@ -80,6 +81,14 @@ through ``train_step.zero1_apply`` on the ordered leaves, and ``accum >
 1`` (microbatches 0..N-2 run ``raw`` into an fp32 sum; each bucket is
 flushed once, during the final microbatch's backward).  FSDP is refused
 with the JAX package's ``ValueError``.
+
+Tensor parallelism: each stage's graph holds its ``model`` collectives
+(``models.layers``), run by its backward on the main thread in stage
+order, the same on every rank; the flushes reduce over the DP group of
+this rank's model index, another group, so the two orders never
+interleave within a group.  Under SP the embedding stage ends in the
+sequence reduce-scatter, so each stage's detached input is this rank's
+slice of the sequence.
 """
 from __future__ import annotations
 
@@ -420,7 +429,7 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
     with torch.enable_grad():
         x0 = model.stage_embeds(batch["embeds"]) if "embeds" in batch \
             else model.stage_embed(leaves["embed.table"], batch["tokens"])
-        positions = positions_of(x0[..., 0])
+        positions = positions_of(labels)
         x = _leaf(x0)
         stages = []
         for layer in range(seg.n_layers):
@@ -438,7 +447,7 @@ def _backward_stack(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
     if model.has_aux:
         moe_aux = sum(outs[1].detach() for _, _, outs in stages) / L
         # a fill on the device, not a copy from the host
-        aux_seed = (moe_aux.new_full((), MOE_AUX_COEF / (L * setup.p_fsdp)),)
+        aux_seed = (moe_aux.new_full((), MOE_AUX_COEF / (L * setup.aux_div)),)
     else:
         moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
         aux_seed = ()
@@ -709,6 +718,16 @@ def make_unfused_step(setup, xent_chunk: int = 1024):
 # --------------------------------------------------------------------------
 # leaf order
 # --------------------------------------------------------------------------
+def _ordered_index(ov: OverlapLayout) -> list[int]:
+    """Per ordered leaf (:func:`_ordered_leaves`), the position in
+    parameter order of the parameter it is a view of."""
+    out = []
+    for seg, at in zip(ov.stacks, ov.stack_params):
+        for _ in range(seg.n_layers):
+            out.extend(at)
+    return out + list(ov.rest)
+
+
 def _ordered_leaves(ov: OverlapLayout, leaves: Sequence[torch.Tensor]
                     ) -> list[torch.Tensor]:
     """Leaves in parameter order -> the backward-completion order

@@ -30,19 +30,19 @@ bucket of this rank's fp32 gradient under each comm plan over
 launches of the timed steps; each axis's collective backend; the peak
 device memory of every rank.
 
-FSDP (``--plan dp_mode=fsdp``, with ``fsdp_shard_pods`` and
-``gather_quant`` as further ``--plan`` fields): the classic FSDP step
-(``train_step.make_step``; there is no overlapped FSDP step) on the
-same mesh, ``--warmup + --reps`` steps on this rank's rows, each timed
-on its own (``step_s``).  ``--variant LABEL:FIELD=VALUE,...`` (repeatable)
-runs each plan variant in turn in the same processes (one start, one set
-of gloo connections), ``steps=N`` its step count; the record is then
-``{"variants": [one record each]}``.  HSDP shards the parameters over
-``data`` and runs the compressor over ``pod`` on gradient shards;
-``fsdp_shard_pods`` shards over both axes.  For a vlm arch each rank's batch gets seeded
-fp32 ``embeds`` and the ``vlm_positions`` (``launch.inputs``).  Checked
-and recorded: every loss; the ranks with the same index along the FSDP
-axes (one per pod under HSDP) hold the same shard bits
+FSDP (``--plan dp_mode=fsdp``, with ``fsdp_shard_pods`` and ``gather_quant`` as
+further ``--plan`` fields): the classic FSDP step (``train_step.make_step``;
+there is no overlapped FSDP step) on the same mesh, ``--warmup + --reps`` steps
+on this rank's rows of step 0's global batch (``batch_at``, split over the DP
+ranks: the same global batch at any mesh), each timed on its own (``step_s``).
+``--variant LABEL:FIELD=VALUE,...`` (repeatable) runs each plan variant in turn
+in the same processes (one start, one set of gloo connections), ``steps=N`` its
+step count; the record is then ``{"variants": [one record each]}``. HSDP shards
+the parameters over ``data`` and runs the compressor over ``pod`` on gradient
+shards; ``fsdp_shard_pods`` shards over both axes. For a vlm arch each rank's
+batch gets seeded fp32 ``embeds`` and the ``vlm_positions``
+(``launch.inputs``). Checked and recorded: every loss; the ranks with the same
+index along the FSDP axes (one per pod under HSDP) hold the same shard bits
 (``replicas_identical``); every sharded parameter gathered over the FSDP
 axes has the same bits on every rank (``gathered_identical``); whether
 the leaves FSDP does not shard have the same bits on every rank
@@ -52,6 +52,22 @@ shards through the lossy exchange and drift apart across ``data``, in the
 JAX package too); the kernel
 launches; each rank's peak device memory and the card's memory in use
 after the steps (``card_used_gb``, from ``torch.cuda.mem_get_info``).
+
+Tensor parallelism (``--tp N``, the counterpart of ``make_pod_mesh(...,
+tp=N)``): the mesh is ``pod x data x model`` with ``model`` innermost, so
+the world has ``procs x local-devices x tp`` ranks, and each rank reads
+the rows of its DP coordinate.  With ``--tp`` or ``--variant`` the
+variant runs of the FSDP cell serve the DDP step too (classic, or
+overlapped under ``overlap=true``; ``serial=true`` also runs the serial
+schedule from the same seed and batches and records whether every
+rank's parameters, optimizer and compressor state and losses have the
+same bits as the overlapped run's: ``serial_equals_overlap``).  A
+variant may name its own ``arch=`` and ``layers=``.  Checked and recorded
+beside the FSDP fields: ``tp`` and the mesh's axes; whether the ranks
+with the same model index hold the same bits, gathered over the FSDP
+axes (``dp_replicas_identical``); whether the leaves replicated over
+``model`` hold the same bits on every rank (``model_replicated_identical``);
+the bucket sizes the compressor saw.
 
 Every rank runs the same program; rank 0's last stdout line is the JSON
 record, the other ranks keep stdout silent (logs go to stderr).  The
@@ -90,6 +106,9 @@ def main(argv=None) -> dict:
                     help="without torchrun: host:port that rank 0 binds")
     ap.add_argument("--local-devices", type=int, default=2,
                     help="ranks per pod (the 'data' axis)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="ranks per model group (the 'model' axis, "
+                         "innermost)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -137,15 +156,18 @@ def main(argv=None) -> dict:
     from repro_torch.train.overlap_bench import timed_interleaved
 
     t_start = time.perf_counter()
-    world = args.procs * args.local_devices
+    world = args.procs * args.local_devices * args.tp
     if args.proc_id is not None:
         mesh_mod.set_rank_env(args.proc_id, world, args.coordinator)
     dev = mesh_mod.local_device(args.device)
     cuda = dev.type == "cuda"
     mesh_mod.init_world(dev)
     try:
-        mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev)
+        mesh_mod.init_pod_mesh(args.procs, args.local_devices, dev,
+                               tp=args.tp)
         rank = dist.get_rank()
+        p_dp = args.procs * args.local_devices
+        dp_rank = mesh_mod.rank(("pod", "data"))
 
         def log(msg: str) -> None:
             print(f"[pod_worker {rank}] {msg}", file=sys.stderr, flush=True)
@@ -162,25 +184,45 @@ def main(argv=None) -> dict:
         plan_fields = dict(dp_mode="ddp", zero1=args.zero1, overlap=True,
                            compression=args.method, bucket_mb=args.bucket_mb,
                            comm=args.comm)
+        if args.tp > 1:
+            # the variants name the schedule; the classic step by default
+            plan_fields["overlap"] = False
         plan_fields.update(plan_overrides)
         if plan_fields["dp_mode"] == "fsdp":
             plan_fields["overlap"] = False     # no overlapped FSDP step
         cfg = dataclasses.replace(cfg, plan=dataclasses.replace(
             cfg.plan, **plan_fields))
         backends = mesh_mod.backends()
-        log(f"mesh {mesh_mod.axis_sizes()} (p_dp={world}) on {dev}, "
+        log(f"mesh {mesh_mod.axis_sizes()} (p_dp={p_dp}) on {dev}, "
             f"backends {backends}")
-        if cfg.plan.dp_mode == "fsdp":
+        if cfg.plan.dp_mode == "fsdp" or args.variant or args.tp > 1:
             variants = [_variant(v, args.warmup + args.reps)
                         for v in args.variant] \
                 or [("fsdp", {}, args.warmup + args.reps)]
             recs = []
             for label, fields, n_steps in variants:
-                plan = dataclasses.replace(cfg.plan, **fields)
-                rec = _fsdp_run(args, dataclasses.replace(cfg, plan=plan),
-                                dev, log, t_start, n_steps)
+                vcfg = cfg
+                named = dict(fields)
+                name, layers = fields.pop("arch", None), \
+                    fields.pop("layers", None)
+                serial = bool(fields.pop("serial", False))
+                if name:
+                    vcfg = base.get(name)
+                    if not args.full_width:
+                        vcfg = base.reduced(vcfg)
+                    vcfg = dataclasses.replace(vcfg, plan=dataclasses.replace(
+                        vcfg.plan, **plan_fields))
+                if layers:
+                    vcfg = dataclasses.replace(vcfg, n_layers=int(layers))
+                plan = dataclasses.replace(vcfg.plan, **fields)
+                if plan.dp_mode == "fsdp":
+                    plan = dataclasses.replace(plan, overlap=False)
+                rec = _variant_run(args, dataclasses.replace(
+                    vcfg, plan=plan), dev, log, t_start, n_steps, serial)
+                # what the variant named: plan fields, arch, layers, serial
                 rec.update(label=label, plan_overrides={
-                    **plan_overrides, **fields} or None, backends=backends)
+                    **plan_overrides, **named} or None,
+                    backends=backends)
                 recs.append(rec)
                 gc.collect()
                 if cuda:
@@ -199,7 +241,7 @@ def main(argv=None) -> dict:
             * torch.empty((), dtype=ov.layout.dtype).element_size()
         batch = next(Pipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                          global_batch=args.batch),
-                              host=rank, num_hosts=world, prefetch=0))
+                              host=dp_rank, num_hosts=p_dp, prefetch=0))
         steps = {k: overlap.make_step(setups[k], k, accum=args.accum)
                  for k in names}
         if cuda:
@@ -259,8 +301,7 @@ def main(argv=None) -> dict:
             local_devices=args.local_devices, zero1=args.zero1,
             accum=args.accum, comm=args.comm,
             plan_overrides=plan_overrides or None, **shape,
-            mesh_axes=list(mesh_mod.AXES),
-            mesh_shape=[args.procs, args.local_devices],
+            **_mesh_desc(args),
             grad_bytes=grad_bytes, batch=args.batch, seq=args.seq,
             reps=args.reps, warmup=args.warmup,
             t_serial_us=t_serial * 1e6, t_overlap_us=t_overlap * 1e6,
@@ -287,10 +328,23 @@ def main(argv=None) -> dict:
         dist.destroy_process_group()
 
 
-def _fingerprint(t) -> tuple[int, int]:
-    """Two int64 sums of ``t``'s bit patterns (plain, and weighted by the
-    position mod 65521), taken on its device a chunk at a time: equal
-    bits give equal fingerprints."""
+#: odd 64-bit multipliers (splitmix64's), as the signed int64 they wrap to
+_MIX = tuple(k - (1 << 64) if k >= 1 << 63 else k
+             for k in (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9,
+                       0x94D049BB133111EB))
+
+
+def _shr(x, n: int):
+    """The logical right shift of an int64 tensor."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def fingerprint(t) -> tuple[int, int]:
+    """Two wrapping int64 sums over ``t``'s bit patterns, taken on its
+    device a chunk at a time: the plain sum, and the sum of a 64-bit
+    mix (splitmix64's finalizer) of each pattern with its position.
+    Equal bits give equal fingerprints; another value, or two values
+    swapped, changes the second sum except with odds near 2^-64."""
     import torch
     flat = t.detach().reshape(-1)
     view = {1: torch.int8, 2: torch.int16, 4: torch.int32,
@@ -301,9 +355,12 @@ def _fingerprint(t) -> tuple[int, int]:
     chunk = 1 << 24
     for a in range(0, bits.numel(), chunk):
         b = bits[a:a + chunk].long()
-        w = torch.arange(a, a + b.numel(), device=t.device) % 65521 + 1
+        x = b + (torch.arange(a, a + b.numel(), device=t.device) + 1) \
+            * _MIX[0]
+        x = (x ^ _shr(x, 30)) * _MIX[1]
+        x = (x ^ _shr(x, 27)) * _MIX[2]
         s1 += b.sum()
-        s2 += (b * w).sum()
+        s2 += (x ^ _shr(x, 31)).sum()
     return int(s1.item()), int(s2.item())
 
 
@@ -318,40 +375,25 @@ def _variant(spec: str, default_steps: int) -> tuple[str, dict, int]:
     return label, fields, int(fields.pop("steps", default_steps))
 
 
-def _fsdp_run(args, cfg, dev, log, t_start, n_steps: int) -> dict:
-    """The FSDP cell: build, ``n_steps`` timed steps, the checks; returns
-    the record (every rank)."""
+def _mesh_desc(args) -> dict:
+    """The record's ``mesh_axes`` and ``mesh_shape`` (``model`` only when
+    it has more than one rank)."""
+    axes, shape = ["pod", "data"], [args.procs, args.local_devices]
+    if args.tp > 1:
+        axes.append("model")
+        shape.append(args.tp)
+    return dict(mesh_axes=axes, mesh_shape=shape)
+
+
+def _run_steps(setup, make, batch, n_steps: int, cuda: bool, dev):
+    """``n_steps`` steps of ``make(setup)`` from ``init_state(seed=0)`` on
+    ``batch``, each timed on its own; returns (state, losses, step
+    seconds)."""
     import torch
-    import torch.distributed as dist
 
-    from repro_torch.data.pipeline import Pipeline
-    from repro_torch.data.synthetic import DataConfig
-    from repro_torch.kernels import build as kbuild
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.inputs import with_vlm_inputs
-    from repro_torch.models.layers import _all_gather, fsdp_dim
     from repro_torch.train import train_step as ts
-
-    cuda = dev.type == "cuda"
-    rank, world = dist.get_rank(), dist.get_world_size()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-    setup = ts.build(cfg, dev)
     state = ts.init_state(setup, seed=0)
-    model = setup.model
-    n_params = sum(math.prod(model.global_shape(n))
-                   for n, _ in model.named_parameters())
-    data = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                               global_batch=args.batch),
-                    host=rank, num_hosts=world, prefetch=0)
-    batch = with_vlm_inputs(cfg, next(data), seed=rank)
-    data.close()
-    log(f"fsdp: {n_params:,} parameters, fsdp_axes {setup.fsdp_axes} "
-        f"(p_fsdp {setup.p_fsdp}), compress {setup.agg_cfg.compressor}@"
-        f"{setup.agg_cfg.compress_axes}, {setup.layout.n_buckets} shard "
-        f"buckets, gather_quant {model.ctx.gather_quant}")
-    step = ts.make_step(setup)
-    kbuild.reset_launches()
+    step = make(setup)
     losses, step_s = [], []
     for _ in range(n_steps):
         if cuda:
@@ -362,38 +404,107 @@ def _fsdp_run(args, cfg, dev, log, t_start, n_steps: int) -> dict:
             torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
         losses.append(m["loss"].item())
+    return state, losses, step_s
+
+
+def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
+              serial: bool = False) -> dict:
+    """One variant cell (FSDP, or under ``--tp`` the DDP step too):
+    build, ``n_steps`` timed steps, the checks; with ``serial`` (an
+    overlapped DDP plan) the serial schedule's run from the same seed
+    and batch after it, compared bit for bit.  Returns the record (every
+    rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.inputs import with_vlm_inputs
+    from repro_torch.models.layers import fsdp_dim
+    from repro_torch.parallel.collectives import all_gather
+    from repro_torch.train import overlap
+    from repro_torch.train import train_step as ts
+
+    cuda = dev.type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup = ts.build(cfg, dev)
+    model = setup.model
+    n_params = sum(math.prod(model.global_shape(n))
+                   for n, _ in model.named_parameters())
+    # this rank's rows of the global batch of step 0, whatever the mesh
+    dp_rank = mesh_mod.rank(setup.dp_axes)
+    batch = with_vlm_inputs(cfg, ts.split_batch(batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), 0),
+        setup.p_dp, dp_rank), seed=dp_rank)
+    log(f"{cfg.plan.dp_mode}: {n_params:,} parameters, tp {setup.tp} (sp "
+        f"{model.ctx.seq_parallel}), fsdp_axes {setup.fsdp_axes} (p_fsdp "
+        f"{setup.p_fsdp}), compress {setup.agg_cfg.compressor}@"
+        f"{setup.agg_cfg.compress_axes}, {setup.layout.n_buckets} "
+        f"buckets, zero1 {setup.zero1}, overlap {setup.overlap}, "
+        f"gather_quant {model.ctx.gather_quant}")
+    kbuild.reset_launches()
+    state, losses, step_s = _run_steps(setup, ts.make_step, batch, n_steps,
+                                       cuda, dev)
     launches = dict(kbuild.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
     used = None
     if cuda:
         free, total = torch.cuda.mem_get_info(dev)
         used = (total - free) / 2**30
+    same_serial = None
+    if serial:
+        prints = [fingerprint(t) for t in _state_tensors(state)]
+        del state
+        gc.collect()
+        s_state, s_losses, _ = _run_steps(
+            setup, lambda st: overlap.make_step(st, "serial"), batch,
+            n_steps, cuda, dev)
+        same_serial = s_losses == losses and prints == [
+            fingerprint(t) for t in _state_tensors(s_state)]
+        del s_state
     # the replicas: the ranks with the same index along the FSDP axes
+    # (and the same model index)
     coords = mesh_mod.coords()
-    key = tuple(coords[a] for a in setup.fsdp_axes)
-    local = [_fingerprint(p) for p in model.parameters()]
-    gathered, unsharded = [], []
+    key = tuple(coords[a] for a in (*setup.fsdp_axes, "model")
+                if a in coords)
+    local = [fingerprint(p) for p in model.parameters()]
+    gathered, unsharded, full = [], [], []
     for name, p in model.named_parameters():
         dim = fsdp_dim(name)
         if dim is None or not setup.fsdp_axes:
-            unsharded.append(_fingerprint(p))
+            unsharded.append(fingerprint(p))
+            full.append(fingerprint(p))
             continue
-        full = _all_gather(p.detach(), setup.fsdp_axes, dim % p.ndim)
-        gathered.append(_fingerprint(full))
-        del full
+        g = all_gather(p.detach(), setup.fsdp_axes, dim % p.ndim)
+        gathered.append(fingerprint(g))
+        full.append(gathered[-1])
+        del g
+    rep = setup.model_replicated()
     everyone = [None] * world
-    dist.all_gather_object(everyone, dict(key=key, local=local,
-                                          gathered=gathered,
-                                          unsharded=unsharded, peak=peak,
-                                          used=used))
+    dist.all_gather_object(everyone, dict(
+        key=key, model=coords.get("model", 0), local=local,
+        gathered=gathered, unsharded=unsharded, full=full, peak=peak,
+        used=used, serial=same_serial))
     by_key: dict = {}
     for e in everyone:
         by_key.setdefault(tuple(e["key"]), []).append(e["local"])
     replicas = all(all(x == v[0] for x in v) for v in by_key.values())
+    by_model: dict = {}
+    for e in everyone:
+        by_model.setdefault(e["model"], []).append(e)
+
+    def same_within_model(field):
+        return all(all(e[field] == v[0][field] for e in v)
+                   for v in by_model.values())
     return dict(
         arch=cfg.name, n_layers=cfg.n_layers, n_params=n_params,
-        dp_mode="fsdp", method=cfg.plan.compression, workers=world,
-        procs=args.procs, local_devices=args.local_devices,
+        dp_mode=cfg.plan.dp_mode, zero1=setup.zero1,
+        overlap=setup.overlap, method=cfg.plan.compression, workers=world,
+        procs=args.procs, local_devices=args.local_devices, tp=setup.tp,
+        seq_parallel=model.ctx.seq_parallel,
         fsdp_axes=list(setup.fsdp_axes), p_fsdp=setup.p_fsdp,
         fsdp_shard_pods=cfg.plan.fsdp_shard_pods,
         gather_quant=model.ctx.gather_quant,
@@ -401,8 +512,7 @@ def _fsdp_run(args, cfg, dev, log, t_start, n_steps: int) -> dict:
         raw_axes=list(setup.agg_cfg.raw_axes),
         n_buckets=setup.layout.n_buckets,
         bucket_sizes=list(setup.layout.sizes),
-        mesh_axes=list(mesh_mod.AXES),
-        mesh_shape=[args.procs, args.local_devices],
+        **_mesh_desc(args),
         batch=args.batch, seq=args.seq,
         losses=losses, step_s=step_s, steps_timed=len(step_s),
         launches=launches,
@@ -412,11 +522,29 @@ def _fsdp_run(args, cfg, dev, log, t_start, n_steps: int) -> dict:
                           if e["used"] is not None), default=None),
         replica_groups=len(by_key),
         replicas_identical=replicas,
-        gathered_identical=all(e["gathered"] == everyone[0]["gathered"]
-                               for e in everyone),
-        unsharded_identical=all(e["unsharded"] == everyone[0]["unsharded"]
-                                for e in everyone),
+        gathered_identical=same_within_model("gathered"),
+        unsharded_identical=same_within_model("unsharded"),
+        dp_replicas_identical=same_within_model("full"),
+        model_replicated_identical=all(
+            [f for f, r in zip(e["full"], rep) if r]
+            == [f for f, r in zip(everyone[0]["full"], rep) if r]
+            for e in everyone),
+        model_replicated_leaves=sum(rep),
+        serial_equals_overlap=None if same_serial is None
+        else all(e["serial"] for e in everyone),
         wall_s=time.perf_counter() - t_start)
+
+
+def _state_tensors(state) -> list:
+    """Every tensor of a train state, in a fixed order."""
+    import torch
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _state_tensors(state[k])]
+    if isinstance(state, (list, tuple)):
+        return [t for v in state for t in _state_tensors(v)]
+    return []
 
 
 def _same_bits(states) -> bool:

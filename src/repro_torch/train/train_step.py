@@ -81,6 +81,26 @@ global norm (and Adafactor its factored means) over the FSDP axes
 (``optimizer.Sharding``).  ZeRO-1 is DDP only, and the overlapped step
 refuses FSDP with the JAX package's ``ValueError``.
 
+Tensor parallelism (a mesh with a ``model`` axis: ``launch.mesh.init_mesh``
+or ``init_pod_mesh(..., tp=)``, the dense and MoE families): ``build``
+reads the degree from the mesh and builds ``ShardCtx(tp=...,
+seq_parallel=plan.seq_parallel and tp > 1)``, as the JAX package does.
+The DP axes stay ``pod``/``data``: every DP reduction (the loss's token
+count, the buckets, ZeRO-1's owner plan and its collectives) runs on
+this rank's local leaves over the DP group of its model index, so the
+compressors see each model rank's 1/tp shard, the paper's quantity under
+such a mesh.  Each rank's batch is the rows of its DP coordinate
+(``split_batch`` with ``mesh.rank(dp_axes)``), the same on every model
+rank.  The gradients are the loss's, once (``models.layers``); where a
+leaf replicated over ``model`` rides a lossy compressor with each model
+rank's other leaves, the ranks would receive different values, so the
+update first gives every model rank the aggregated gradient of those
+leaves from model rank 0 (``sync_model_replicated``), and the replicas
+stay bit-identical.  The optimizer sums its global norm over ``model``
+for the leaves ``model`` shards (``optimizer.Sharding``); under SP the
+MoE load-balancing loss is each rank's own tokens' and enters the loss
+divided by ``tp`` too (the mean over the model ranks).
+
 A batch carrying ``mrope_positions`` (the vlm family, ``(3, B, S)``) is
 split over ranks on dim 1 (``split_batch``).  The JAX package's
 microbatch split reshapes every leaf on dim 0 and fails on it at
@@ -102,7 +122,8 @@ from repro_torch.core import bucketing
 from repro_torch.core.compression import base as cbase
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import ShardCtx, fsdp_dim
-from repro_torch.models.model import FAMILIES, Model
+from repro_torch.models.model import FAMILIES, TP_FAMILIES, Model
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import overlap as overlap_mod
@@ -129,6 +150,8 @@ class TrainSetup:
     overlap: bool = False
     # the axes the parameters are sharded over (dp_mode="fsdp"); () = none
     fsdp_axes: tuple[str, ...] = ()
+    # the size of the mesh's model axis (tensor and expert parallelism)
+    tp: int = 1
 
     @property
     def comm(self) -> cp.CommPlan:
@@ -154,21 +177,47 @@ class TrainSetup:
         return cp.axes_p(self.fsdp_axes) if self.fsdp_axes else 1
 
     @property
+    def aux_div(self) -> int:
+        """The MoE load-balancing loss enters the differentiated loss as
+        ``MOE_AUX_COEF * moe_aux / aux_div``: ``p_fsdp``, times ``tp``
+        under SP (each model rank's term is its own tokens')."""
+        sp = self.model.ctx.seq_parallel and self.tp > 1
+        return self.p_fsdp * (self.tp if sp else 1)
+
+    @property
     def sharding(self) -> "Optional[opt_mod.Sharding]":
-        """The optimizer's view of the FSDP sharding, None without it."""
-        if not self.fsdp_axes:
+        """The optimizer's view of the FSDP and TP sharding, None
+        without either."""
+        if not self.fsdp_axes and self.tp == 1:
             return None
+        named = list(self.model.named_parameters())
+        tp = ()
+        if self.tp > 1:
+            tp = tuple(None if self.model.tp_dims[n] is None
+                       else self.model.tp_dims[n] - p.ndim
+                       for n, p in named)
         return opt_mod.Sharding(
-            self.fsdp_axes, tuple(fsdp_dim(name) for name, _
-                                  in self.model.named_parameters()))
+            tuple(self.fsdp_axes),
+            tuple(fsdp_dim(name) if self.fsdp_axes else None
+                  for name, _ in named), tp)
+
+    def model_replicated(self) -> list[bool]:
+        """Per parameter (parameter order): is it replicated over a
+        ``model`` axis of more than one rank?"""
+        return [self.tp > 1 and self.model.tp_dims[n] is None
+                for n, _ in self.model.named_parameters()]
 
 
-def _check_ported(arch: ArchConfig, plan) -> None:
+def _check_ported(arch: ArchConfig, plan, tp: int = 1) -> None:
     if plan.dp_mode not in ("ddp", "fsdp"):
         raise ValueError(f"dp_mode={plan.dp_mode!r}")
     todo = []
     if arch.family not in FAMILIES:
         todo.append(f"the {arch.family!r} family")
+    if tp > 1 and arch.family not in TP_FAMILIES:
+        todo.append(f"tensor parallelism (tp={tp}) of the {arch.family!r} "
+                    f"family: the next slice, after the "
+                    f"{' and '.join(TP_FAMILIES)} families")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if todo:
@@ -193,7 +242,6 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
         raise cp.CommPlanError(
             "comm='reduce_to_owner_broadcast' needs an owner-sharded "
             "update: dp_mode='ddp' with zero1=True")
-    _check_ported(arch, plan)
     ocfg = opt_cfg or opt_mod.OptConfig(name=plan.optimizer)
     if zero1 and ocfg.name != "adamw":
         raise ValueError(f"zero1 shards flat AdamW state; optimizer="
@@ -205,6 +253,8 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     mesh_mod.init_world(dev)
     sizes = mesh_mod.axis_sizes()
     dp_axes = mesh_mod.present_axes()
+    tp = mesh_mod.tp_size()
+    _check_ported(arch, plan, tp)
     if plan.dp_mode == "fsdp":
         fsdp_axes = tuple(a for a in dp_axes
                           if (a != "pod" or plan.fsdp_shard_pods)
@@ -237,12 +287,14 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     ctx = ShardCtx(param_dtype=torch.bfloat16 if bf16 else torch.float32,
                    fsdp_axes=fsdp_axes,
                    gather_quant=None if plan.gather_quant == "none"
-                   else plan.gather_quant)
+                   else plan.gather_quant,
+                   tp=tp,
+                   seq_parallel=bool(plan.seq_parallel and tp > 1))
     setup = TrainSetup(arch=arch, model=Model(arch, ctx, device=dev),
                        device=dev, dp_axes=dp_axes, agg_cfg=agg_cfg,
                        opt_cfg=ocfg,
                        layout=None, zero1=zero1, overlap=plan.overlap,
-                       fsdp_axes=fsdp_axes)
+                       fsdp_axes=fsdp_axes, tp=tp)
     setup.layout = _bucket_layout(setup)
     return setup
 
@@ -320,27 +372,52 @@ def _zero1_plan(setup: TrainSetup) -> bucketing.OwnerPlan:
 
 def _zero1_flat(layout: bucketing.BucketLayout,
                 leaves: Sequence[torch.Tensor], start: int,
-                out: torch.Tensor) -> torch.Tensor:
+                out: torch.Tensor,
+                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out`` <- the fp32 range ``[start, start + len(out))`` of the
-    owner-sliceable flat vector: the leaves raveled into buckets of the
-    layout's dtype, cast to fp32 and zero-padded past the end.  The JAX
-    package builds that vector and slices it; the port copies the range
-    leaf by leaf, so the flat vector never exists."""
-    return bucketing.read_flat(leaves, start, out, layout.dtype)
+    owner-sliceable flat vector: the leaves (each times ``scale`` in its
+    dtype, when given) raveled into buckets of the layout's dtype, cast
+    to fp32 and zero-padded past the end.  The JAX package builds that
+    vector and slices it; the port copies the range leaf by leaf, so the
+    flat vector never exists."""
+    return bucketing.read_flat(leaves, start, out, layout.dtype, scale)
 
 
 def _zero1_own_slice(setup: TrainSetup, layout: bucketing.BucketLayout,
                      plan: bucketing.OwnerPlan,
-                     leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """This DP rank's owned shard, ``(cap,)`` fp32."""
+                     leaves: Sequence[torch.Tensor],
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """This DP rank's owned shard, ``(cap,)`` fp32 (of the leaves times
+    ``scale``, when given)."""
     out = torch.empty(plan.cap, dtype=torch.float32, device=setup.device)
     return _zero1_flat(layout, leaves,
-                       plan.starts[mesh_mod.rank(setup.dp_axes)], out)
+                       plan.starts[mesh_mod.rank(setup.dp_axes)], out, scale)
+
+
+def _rtob_norm_weights(setup: TrainSetup, plan: bucketing.OwnerPlan,
+                       sizes: Sequence[int],
+                       replicated: Sequence[bool]) -> torch.Tensor:
+    """(cap,) fp32 weights of this rank's owned range for the global norm
+    at ``tp > 1``: 1 on the elements of leaves ``model`` shards, ``1 /
+    tp`` on those of leaves it replicates, whose squares the sum over
+    ``model`` counts ``tp`` times; 0 past the owned length.  ``sizes``
+    and ``replicated`` are per leaf of the flat space, in its order."""
+    w = torch.zeros(plan.cap, dtype=torch.float32, device=setup.device)
+    start = plan.starts[mesh_mod.rank(setup.dp_axes)]
+    end = start + plan.lengths[mesh_mod.rank(setup.dp_axes)]
+    at = 0
+    for n, rep in zip(sizes, replicated):
+        lo, hi = max(at, start), min(at + n, end)
+        if lo < hi:
+            w[lo - start:hi - start] = 1.0 / setup.tp if rep else 1.0
+        at += n
+    return w
 
 
 def _zero1_rtob_own_grad(setup: TrainSetup, layout: bucketing.BucketLayout,
                          plan: bucketing.OwnerPlan,
-                         grads: Sequence[torch.Tensor]):
+                         grads: Sequence[torch.Tensor],
+                         weights: Optional[torch.Tensor] = None):
     """The ``reduce_to_owner_broadcast`` gradient leg: lay the RAW local
     gradient out as owner-aligned ``(p_dp · cap)`` fp32 tiles and run ONE
     reduce-scatter, so each rank receives the sum of exactly its owned
@@ -348,7 +425,9 @@ def _zero1_rtob_own_grad(setup: TrainSetup, layout: bucketing.BucketLayout,
     gradient is the square root of the psum of each rank's owned sum of
     squares (the cap-padded tail of a tile overlaps the next rank's region
     and does not count), and the clip scales the shard as
-    ``clip_by_global_norm`` scales the leaves.
+    ``clip_by_global_norm`` scales the leaves.  At ``tp > 1`` the squares
+    are weighted by ``weights`` (``_rtob_norm_weights``) and summed over
+    ``model`` too.
 
     Returns ``(g_own_mean_clipped, grad_norm)``."""
     cap, p = plan.cap, setup.p_dp
@@ -359,8 +438,12 @@ def _zero1_rtob_own_grad(setup: TrainSetup, layout: bucketing.BucketLayout,
     g_own = cp.owner_reduce_scatter(tiles, dp)
     del tiles
     g_own.div_(p)
-    owned = g_own[:plan.lengths[mesh_mod.rank(dp)]]
-    gnorm = cp.psum(torch.dot(owned, owned), dp).sqrt()
+    if weights is None:
+        owned = g_own[:plan.lengths[mesh_mod.rank(dp)]]
+        gnorm = cp.psum(torch.dot(owned, owned), dp).sqrt()
+    else:
+        gnorm = cp.psum(torch.dot(g_own * weights, g_own),
+                        (*dp, "model")).sqrt()
     c = setup.opt_cfg
     if c.grad_clip:
         g_own.mul_(torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -370,10 +453,13 @@ def _zero1_rtob_own_grad(setup: TrainSetup, layout: bucketing.BucketLayout,
 
 def zero1_apply(setup: TrainSetup, layout: bucketing.BucketLayout,
                 plan: bucketing.OwnerPlan, params: list, grads: list,
-                opt_state: dict, lr: float):
+                opt_state: dict, lr: float,
+                sharding: "Optional[opt_mod.Sharding]" = None,
+                norm_weights: Optional[torch.Tensor] = None):
     """Owner-sharded ZeRO-1 AdamW step:
 
-      1. clip grads by global norm (as ``AdamW.update`` does),
+      1. clip grads by global norm (as ``AdamW.update`` does; the scale
+         is applied to the owned range only),
       2. slice this rank's owned range out of the aggregated gradient —
          or, under ``reduce_to_owner_broadcast``, reduce the raw gradient
          straight to its owners (``_zero1_rtob_own_grad``),
@@ -384,18 +470,25 @@ def zero1_apply(setup: TrainSetup, layout: bucketing.BucketLayout,
          (``OwnerPlan.pieces``; a bucket split across owners is the
          concatenation of its per-owner slices).
 
+    ``sharding`` is that of ``grads``, in their order (TP: the global
+    norm sums over ``model``), ``norm_weights`` the rtob norm's
+    (``_rtob_norm_weights``).  ``grads`` (a list) is emptied once read.
     Returns ``(params, new_opt_state, grad_norm)``."""
     c = setup.opt_cfg
     t = opt_state["t"] + 1
     if setup.rtob:
-        g_own, gnorm = _zero1_rtob_own_grad(setup, layout, plan, grads)
+        g_own, gnorm = _zero1_rtob_own_grad(setup, layout, plan, grads,
+                                            norm_weights)
     else:
-        if c.grad_clip:
-            grads, gnorm = opt_mod.clip_by_global_norm(grads, c.grad_clip)
-        else:
-            gnorm = opt_mod.global_norm(grads)
-        g_own = _zero1_own_slice(setup, layout, plan, grads)
-    del grads
+        # the clip of ``clip_by_global_norm``, applied to the owned range
+        # only: the same bits, without a clipped copy of every leaf
+        gnorm = opt_mod.global_norm(grads, sharding)
+        scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0) if c.grad_clip else None
+        g_own = _zero1_own_slice(setup, layout, plan, grads, scale)
+    # the gradient is read: the caller's list is emptied so that its
+    # tensors go before the parameter gather (the callers read it no more)
+    grads.clear()
     st = opt_state["shard"]
     master, mv = opt_mod.flat_adamw_update(
         st["master"], g_own, {"m": st["m"], "v": st["v"]}, t, lr, c)
@@ -423,24 +516,51 @@ def make_update_fn(setup: TrainSetup, layout: bucketing.BucketLayout,
     ordered leaves of ``ov``: ZeRO-1 reads them as they are and writes
     through the per-layer parameter views ``p[l]`` in the same order (in
     place, so autograd keeps its leaves); the replicated optimizer gets
-    them stacked back."""
+    them stacked back.  At ``tp > 1`` the leaves replicated over
+    ``model`` first take model rank 0's aggregated gradient
+    (``sync_model_replicated``)."""
+    order = overlap_mod._ordered_index(ov) if ov \
+        else list(range(len(list(setup.model.parameters()))))
+    replicated = setup.model_replicated()
+    synced = [i for i, at in enumerate(order) if replicated[at]]
     if setup.zero1:
         plan = _zero1_plan(setup)
+        sharding = setup.sharding.reordered(order) \
+            if setup.sharding is not None else None
+        weights = _rtob_norm_weights(
+            setup, plan, [v.numel() for v in _flat_order(
+                setup, list(setup.model.parameters()))],
+            [replicated[at] for at in order]) \
+            if setup.rtob and setup.tp > 1 else None
 
         def update(params, grads, opt_state, lr):
+            sync_model_replicated([grads[i] for i in synced])
             views = overlap_mod._ordered_leaves(ov, params) if ov else params
             _, new_opt, gnorm = zero1_apply(setup, layout, plan, views,
-                                            grads, opt_state, lr)
+                                            grads, opt_state, lr, sharding,
+                                            weights)
             return params, new_opt, gnorm
     else:
         opt = opt_mod.make(setup.opt_cfg.name, setup.opt_cfg, setup.sharding)
 
         def update(params, grads, opt_state, lr):
+            sync_model_replicated([grads[i] for i in synced])
             if ov:
                 grads = overlap_mod._unordered_tree(ov, grads)
             params, new_opt, om = opt.update(grads, opt_state, params, lr)
             return params, new_opt, om["grad_norm"]
     return update
+
+
+def sync_model_replicated(grads: Sequence[torch.Tensor]) -> None:
+    """In place: the gradients of leaves replicated over ``model`` take
+    the bits of model rank 0's (a no-op without such leaves).  They are
+    the same on every model rank out of the backward, and stay so through
+    an exact aggregation; a lossy compressor mixes each bucket's leaves,
+    which differ across ``model``, and would give each model rank other
+    values."""
+    if grads:
+        coll.broadcast_from_first(list(grads), ("model",))
 
 
 def train_metrics(setup: TrainSetup, loss_sum: torch.Tensor,
@@ -519,6 +639,27 @@ def microbatches(batch: dict, accum: int) -> list[dict]:
     return [split_batch(batch, accum, i) for i in range(accum)]
 
 
+def local_grads(setup: TrainSetup, batch: dict,
+                params: Optional[Sequence[torch.Tensor]] = None,
+                xent_chunk: int = 1024):
+    """(this rank's gradients of the scaled loss, in the parameters'
+    dtype and order, before any aggregation; local loss sum; global token
+    count; MoE loss) of one batch on the device.  The scale is the
+    step's: ``loss_sum * (p_dp / p_fsdp) / n_global``, plus the MoE term
+    ``MOE_AUX_COEF * moe_aux / aux_div``."""
+    params = list(setup.model.parameters()) if params is None else params
+    loss_sum, ntok, aux = setup.model.loss(batch, xent_chunk)
+    n_glob = cp.psum(ntok, setup.dp_axes)
+    scaled = loss_sum * ((setup.p_dp // setup.p_fsdp) / n_glob.float())
+    if setup.arch.moe.n_experts:
+        scaled = scaled + MOE_AUX_COEF * aux / setup.aux_div
+    # a table the batch does not read (``embeds`` in place of tokens) has
+    # a zero gradient
+    grads = torch.autograd.grad(scaled, params, allow_unused=True,
+                                materialize_grads=True)
+    return list(grads), loss_sum.detach(), n_glob, aux.detach()
+
+
 def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
     """Returns ``step(state, batch, lr) -> (state, metrics)``.  ``batch``
     holds this rank's ``tokens`` and ``labels`` (numpy or tensors), and
@@ -530,13 +671,10 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
         return overlap_mod.make_step(setup, "overlap", accum, xent_chunk)
     if accum < 1:
         raise ValueError(f"accum={accum}")
-    model = setup.model
     aggregator = agg_mod.GradAggregator(setup.agg_cfg)
-    dp = setup.dp_axes
-    p_dp, p_fsdp = setup.p_dp, setup.p_fsdp
     fsdp = setup.fsdp_axes
     replicated = [fsdp_dim(name) is None
-                  for name, _ in model.named_parameters()]
+                  for name, _ in setup.model.named_parameters()]
     update_fn = make_update_fn(setup, setup.layout)
 
     def norm_replicated_over_fsdp(grads):
@@ -558,26 +696,12 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
         return aggregator.aggregate_bucketed(list(grads), agg_states,
                                              setup.layout)
 
-    def one_micro(params, batch):
-        """(grads in the parameters' dtype, local loss sum, global token
-        count, MoE loss) of one microbatch."""
-        loss_sum, ntok, aux = model.loss(batch, xent_chunk)
-        n_glob = cp.psum(ntok, dp)
-        scaled = loss_sum * ((p_dp // p_fsdp) / n_glob.float())
-        if setup.arch.moe.n_experts:
-            scaled = scaled + MOE_AUX_COEF * aux / p_fsdp
-        # a table the batch does not read (``embeds`` in place of tokens)
-        # has a zero gradient
-        grads = torch.autograd.grad(scaled, params, allow_unused=True,
-                                    materialize_grads=True)
-        return list(grads), loss_sum.detach(), n_glob, aux.detach()
-
     def step(state: dict, batch: dict, lr: float):
         batch = _to_device(batch, setup.device)
         params = state["params"]
         if accum > 1:
             for i, m in enumerate(microbatches(batch, accum)):
-                g, l, n, a = one_micro(params, m)
+                g, l, n, a = local_grads(setup, m, params, xent_chunk)
                 if i == 0:       # the fp32 sum starts at zero: exact
                     grads = [x.float() for x in g]
                     loss_sum, n_glob, aux = l, n, a
@@ -592,7 +716,8 @@ def make_step(setup: TrainSetup, accum: int = 1, xent_chunk: int = 1024):
                     acc.div_(accum)
             aux = aux / accum
         else:
-            grads, loss_sum, n_glob, aux = one_micro(params, batch)
+            grads, loss_sum, n_glob, aux = local_grads(setup, batch, params,
+                                                       xent_chunk)
         with torch.no_grad():
             grads = norm_replicated_over_fsdp(grads)
             if setup.rtob:
