@@ -145,14 +145,14 @@ Phases, each fatal on failure:
      and 12 decoder blocks, d_model 1024, 16 heads, d_ff 4096, two
      untied vocabulary tables of 256,206; 877,094,912 parameters) on its
      own plan (DDP, ZeRO-1, ``remat="full"``), each batch with a seeded
-     fp32 ``enc_embeds`` (``with_frames``): ZeRO-1 (67 bf16 buckets) 2
-     PowerSGD steps, 1 SignSGD and 1 QSGD; the overlapped ZeRO-1 step (24
-     leaf-aligned buckets, the decoder's stages first, then the
-     encoder's) 2 PowerSGD under ``overlap`` and 2 under ``serial``,
-     which must agree bit for bit; the classic fp32 step 1 step
-     uncompressed; the same checks (no run profiled since the vlm
-     slice; the cross-attention, the GELU MLPs and the loss head are
-     layers of their own in any breakdown).  Then the vlm slice
+     fp32 ``enc_embeds`` (``launch.inputs.with_frontend_inputs``):
+     ZeRO-1 (67 bf16 buckets) 2 PowerSGD steps, 1 SignSGD and 1 QSGD; the
+     overlapped ZeRO-1 step (24 leaf-aligned buckets, the decoder's stages
+     first, then the encoder's) 2 PowerSGD under ``overlap`` and 2 under
+     ``serial``, which must agree bit for bit; the classic fp32 step 1 step
+     uncompressed; the same checks (no run profiled since the vlm slice; the
+     cross-attention, the GELU MLPs and the loss head are layers of their own
+     in any breakdown).  Then the vlm slice
      (``family_phase("vlm", vlm_arch(), ...)``): ``qwen2-vl-7b`` at full
      width (d_model 3584, 28
      heads and 4 KV heads of 128, d_ff 18944, two untied vocabulary
@@ -235,14 +235,22 @@ Phases, each fatal on failure:
      at full width cut to ``TP_MOE_LAYERS`` = 1 block, DDP with ZeRO-1,
      30 of the 60 experts on each model rank, PowerSGD;
      ``tinyllama-1.1b`` at full width cut to ``TP_FSDP_LAYERS`` = 4
-     layers with FSDP over ``data`` and TP over ``model``, uncompressed.
-     Each must give finite losses, the configured axes, a first loss
-     within its limit (``TP_RTOL``, ``TP_MOE_RTOL``) of the first loss
-     of the one-rank ``tp = 1`` run of the train phase on the same seed
-     and batch (a cell cut in depth: of a one-rank forward pass at its
-     depth, ``first_loss``; the FSDP x TP cell also its second loss
-     within ``TP_STEP_RTOL`` of the same plan's second step on one
-     rank, ``two_step_losses``), the same bits on the
+     layers with FSDP over ``data`` and TP over ``model``, uncompressed;
+     ``seamless-m4t-medium`` at full width and depth on its plan (ZeRO-1,
+     ``remat="full"``), the overlapped step with PowerSGD over ``data``
+     on each model rank's shard buckets and its serial schedule after
+     it, the frames of the global batch drawn from seed 0 as the train
+     phase draws them (``launch.inputs.with_frontend_inputs``);
+     ``qwen2-vl-7b`` at full width cut to ``FSDP_LAYERS`` = 1 block on
+     its plan (FSDP over ``data``, TP over ``model``), uncompressed, with
+     seeded fp32 ``embeds`` and M-RoPE positions.  Each must give finite
+     losses, the configured axes, a first loss within its limit
+     (``TP_RTOL``, ``TP_MOE_RTOL``) of the first loss of the one-rank
+     ``tp = 1`` run of the train phase on the same seed and batch (a
+     cell cut in depth: of a one-rank forward pass at its depth,
+     ``first_loss``; the FSDP x TP cells also their second loss within
+     ``TP_STEP_RTOL`` of the same plan's second step on one rank,
+     ``two_step_losses``), the same bits on the
      ranks with the same model index (gathered over ``data`` under FSDP),
      the leaves replicated over ``model`` the same bits on every rank,
      the PowerSGD launches per bucket and step, the card under 75 GiB in
@@ -259,7 +267,8 @@ and 271,794,176), the vlm slice's (67,902,464 and 545,000,960), the
 HSDP shard buckets (6,553,600 and the last, 6,171,136) and the TP
 slice's shard buckets that no earlier shape has (``tp_layouts``: the
 classic ZeRO-1 step's last, the overlapped step's largest block and
-tail, the MoE slice's last); the ``kernels``
+tail, the MoE slice's last, the audio cell's overlapped largest block
+and tail); the ``kernels``
 line counts each kernel's launches in
 the overlapped ZeRO-1 run that drives it, in the live cells
 (``experiment_launches``), in the adaptive run (``adaptive_launches``),
@@ -1755,25 +1764,6 @@ FAMILY_PHASES = (("hybrid", HYBRID_ARCH), ("ssm", SSM_ARCH),
                  ("audio", AUDIO_ARCH))
 
 
-def with_frames(arch, batch: dict, seed: int) -> dict:
-    """``batch`` and, for the audio family, its ``enc_embeds``: the
-    stubbed frontend's frames, a standard normal ``(B, S, d_model)`` in
-    fp32 from ``seed``, the encoder as long as the decoder; for the vlm
-    family its seeded fp32 ``embeds`` and ``mrope_positions``
-    (``launch.inputs.with_vlm_inputs``)."""
-    import torch
-
-    from repro_torch.launch.inputs import with_vlm_inputs
-    if arch.family == "vlm":
-        return with_vlm_inputs(arch, batch, seed)
-    if arch.family != "audio":
-        return batch
-    b, s = batch["tokens"].shape
-    gen = torch.Generator().manual_seed(seed)
-    return {**batch, "enc_embeds": torch.randn(b, s, arch.d_model,
-                                               generator=gen)}
-
-
 def audio_block_params(arch, ctx, device, gen) -> dict:
     """Layer 0's parameters of each stack (``"enc"`` and ``"dec"``: names
     under ``enc_blocks.`` and ``dec_blocks.``, sliced) of ``arch`` at its
@@ -2105,6 +2095,7 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     from repro_torch.configs import base as cfgs
     from repro_torch.data.synthetic import DataConfig, batch_at
     from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.inputs import with_frontend_inputs
     from repro_torch.train import overlap
     from repro_torch.train import train_step as ts
     from repro_torch.train.schedule import ScheduleConfig
@@ -2123,7 +2114,7 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
     setup.agg_cfg = dataclasses.replace(setup.agg_cfg,
                                         compress_axes=("data",), raw_axes=())
     dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
-    data = (with_frames(arch, batch_at(dcfg, s), s)
+    data = (with_frontend_inputs(arch, batch_at(dcfg, s), s)
             for s in range(steps + 1))
     tcfg = TrainerConfig(total_steps=steps, log_every=1, accum=accum,
                          schedule=ScheduleConfig(peak_lr=3e-4,
@@ -2199,7 +2190,8 @@ def train_phase(label: str, steps: int, per_step: dict[str, int],
         def one_step():
             trainer.state, _ = trainer.step_fn(
                 trainer.state,
-                with_frames(arch, batch_at(dcfg, steps + 1), steps + 1), 3e-4)
+                with_frontend_inputs(arch, batch_at(dcfg, steps + 1),
+                                     steps + 1), 3e-4)
         syncs = host_syncs(one_step)
         torch.cuda.synchronize()
         log(f"[train] {label}: one more step under the sync debug mode "
@@ -2896,7 +2888,9 @@ TP_STEP_RTOL = 2e-3
 #: pass (``first_loss``), or ("steps", arch, layers), the two losses of
 #: the same plan's two steps on one rank (``two_step_losses``); the
 #: relative limit of each held loss, the FSDP and compress axes,
-#: launches per bucket and step)
+#: launches per bucket and step).  The audio and vlm cells read their
+#: frontend inputs drawn once for the global batch (seed 0) as the
+#: one-rank runs draw them.
 TP_RUNS = {
     "tp zero1 powersgd": ("compression=powersgd,steps=2", "zero1 powersgd",
                           (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
@@ -2915,6 +2909,19 @@ TP_RUNS = {
     "tp fsdp none": (f"dp_mode=fsdp,zero1=false,layers={TP_FSDP_LAYERS},"
                      f"steps=2", ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS),
                      (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
+    # full width and depth on its plan (ZeRO-1, remat="full"): the
+    # two-stack overlapped backward, the memory's tp_copy and the SP slice
+    # of the frames and of both stacks' sinusoids
+    "tp audio zero1 overlap powersgd": (
+        f"arch={AUDIO_ARCH},compression=powersgd,overlap=true,serial=true,"
+        f"steps=2", "audio zero1 overlap powersgd", (TP_RTOL,), [],
+        ["data"], PSGD_PER_BUCKET),
+    # its plan (FSDP over data, TP over model), cut to FSDP_LAYERS: the SP
+    # slice of the embeds and M-RoPE under TP
+    "tp vlm fsdp none": (
+        f"arch={VLM_ARCH},layers={FSDP_LAYERS},dp_mode=fsdp,zero1=false,"
+        f"steps=2", ("steps", VLM_ARCH, FSDP_LAYERS),
+        (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
 }
 #: the card's memory in use that the TP phase must stay under
 TP_CARD_GIB = 75.0
@@ -2950,21 +2957,23 @@ def first_loss(name: str, layers: int, dtype: str) -> float:
 
 def two_step_losses(name: str, layers: int) -> list[float]:
     """The two losses of full-width ``name`` cut to ``layers`` blocks on
-    one rank, tp = 1, on the FSDP x TP cell's plan (FSDP, no ZeRO-1,
+    one rank, tp = 1, on the FSDP x TP cells' plan (FSDP, no ZeRO-1,
     uncompressed; on one rank the replicated step): ``init_state(seed=0)``
-    and two steps at lr 1e-4 on the global batch 4 x 512 of step 0, as
-    the pod worker runs them."""
+    and two steps at lr 1e-4 on the global batch 4 x 512 of step 0 and
+    its frontend inputs drawn from seed 0 (a vlm arch's ``embeds`` and
+    M-RoPE positions), as the pod worker runs them."""
     import torch
 
     from repro_torch.configs import base as cfgs
     from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.launch.inputs import with_frontend_inputs
     from repro_torch.train import train_step as ts
     arch = dataclasses.replace(cfgs.get(name), n_layers=layers)
     setup = ts.build(arch, "cuda", dp_mode="fsdp", zero1=False,
                      overlap=False, compression="none")
     state = ts.init_state(setup, seed=0)
-    batch = ts._to_device(batch_at(DataConfig(
-        vocab=arch.vocab, seq_len=512, global_batch=4, seed=0), 0),
+    batch = ts._to_device(with_frontend_inputs(arch, batch_at(DataConfig(
+        vocab=arch.vocab, seq_len=512, global_batch=4, seed=0), 0), 0),
         torch.device("cuda"))
     step = ts.make_step(setup)
     out = []
@@ -2994,7 +3003,8 @@ def tp_references(hist: dict) -> dict:
 def tp_layouts() -> dict:
     """The TP phase's bucket layouts on a rank of data 2 x model 2 (no
     allocation): the classic ZeRO-1 step's and the overlapped one's of
-    ``tinyllama-1.1b``, and the MoE slice's classic ZeRO-1 one."""
+    ``tinyllama-1.1b``, the MoE slice's classic ZeRO-1 one and the audio
+    cell's overlapped ZeRO-1 one (``seamless-m4t-medium``)."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -3007,9 +3017,11 @@ def tp_layouts() -> dict:
     moe = Model(dataclasses.replace(cfgs.get(MOE_ARCH),
                                     n_layers=TP_MOE_LAYERS), ctx,
                 device="meta")
+    audio = Model(cfgs.get(AUDIO_ARCH), ctx, device="meta")
     return {"zero1": bucketing.layout_for(list(dense.parameters()), 25),
             "overlap": overlap.layout_for_model(dense, 25),
-            "moe zero1": bucketing.layout_for(list(moe.parameters()), 25)}
+            "moe zero1": bucketing.layout_for(list(moe.parameters()), 25),
+            "audio overlap": overlap.layout_for_model(audio, 25)}
 
 
 def tp_phase(kind: str, first: dict) -> dict:
@@ -3181,18 +3193,23 @@ def main() -> int:
                                 ("last", hsdp.last_elems))]
     # the TP slice's buckets on a rank of data 2 x model 2 that no earlier
     # shape has: the classic ZeRO-1 step's last bucket, the overlapped
-    # step's largest block and tail buckets, the MoE slice's last bucket
+    # step's largest block and tail buckets, the MoE slice's last bucket,
+    # the audio cell's overlapped largest block and tail buckets
     tpl = tp_layouts()
-    tov = tpl["overlap"]
-    by_stage = list(zip(tov.layout.sizes, tov.bucket_ready))
+
+    def block_tail(tov) -> tuple[int, int]:
+        by_stage = list(zip(tov.layout.sizes, tov.bucket_ready))
+        return (max(n for n, r in by_stage if r < tov.n_stages),
+                max(n for n, r in by_stage if r == tov.n_stages))
     seen = {n for *_, n in shapes}
+    dense_ov, audio_ov = block_tail(tpl["overlap"]), \
+        block_tail(tpl["audio overlap"])
     for which, n in (
             ("zero1 last", tpl["zero1"].last_elems),
-            ("overlap block", max(n for n, r in by_stage
-                                  if r < tov.n_stages)),
-            ("overlap tail", max(n for n, r in by_stage
-                                 if r == tov.n_stages)),
-            ("ep zero1 last", tpl["moe zero1"].last_elems)):
+            ("overlap block", dense_ov[0]), ("overlap tail", dense_ov[1]),
+            ("ep zero1 last", tpl["moe zero1"].last_elems),
+            ("audio overlap block", audio_ov[0]),
+            ("audio overlap tail", audio_ov[1])):
         if n not in seen:
             shapes.append((f"tp {which}", *matrix_shape(n), n))
             seen.add(n)

@@ -9,7 +9,8 @@ input is replicated (no DP axes, or a context-parallel batch too small to
 split).  ``mrope_positions`` ``(3, B, S)`` is split on dim 1, every
 other input on dim 0.  The modality frontends are stubs, as in the JAX
 package: the vlm family gets precomputed patch and text ``embeds`` and
-the audio family precomputed frame ``enc_embeds``.
+the audio family precomputed frame ``enc_embeds``;
+``with_frontend_inputs`` draws them for a real batch.
 """
 from __future__ import annotations
 
@@ -98,15 +99,18 @@ def vlm_positions(b: int, s: int, image: int = 64, grid: int = 8
     return rows[:, None, :].expand(3, b, s).contiguous()
 
 
-def with_vlm_inputs(arch: ArchConfig, batch: dict, seed: int) -> dict:
-    """``batch`` and, for the vlm family, the stubbed frontend's inputs
-    for its rows: ``embeds``, a standard normal ``(B, S, d_model)`` in fp32
-    from ``seed``, and ``vlm_positions``.  Other families' batches pass
-    through."""
-    if arch.family != "vlm":
+def with_frontend_inputs(arch: ArchConfig, batch: dict, seed: int) -> dict:
+    """``batch`` and the stubbed frontends' inputs for its rows: a
+    standard normal ``(B, S, d_model)`` in fp32 from ``seed``, the vlm
+    family's ``embeds`` (with the ``vlm_positions``) or the audio
+    family's ``enc_embeds`` (the encoder as long as the decoder).  Other
+    families' batches pass through.  Given a global batch and split
+    after, the draw is the same at every mesh."""
+    if arch.family not in ("vlm", "audio"):
         return batch
     b, s = batch["tokens"].shape
     gen = torch.Generator().manual_seed(seed)
-    return {**batch,
-            "embeds": torch.randn(b, s, arch.d_model, generator=gen),
-            "mrope_positions": vlm_positions(b, s)}
+    frames = torch.randn(b, s, arch.d_model, generator=gen)
+    if arch.family == "audio":
+        return {**batch, "enc_embeds": frames}
+    return {**batch, "embeds": frames, "mrope_positions": vlm_positions(b, s)}

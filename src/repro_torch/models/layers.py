@@ -327,18 +327,19 @@ def fsdp_dim(name: str) -> "int | None":
     return None
 
 
-_TP_COLUMN = frozenset(["wq", "wk", "wv", "gate", "up"])
-_TP_ROW = frozenset(["wo", "down"])
+_TP_COLUMN = frozenset(["wq", "wk", "wv", "gate", "up", "fc1"])
+_TP_ROW = frozenset(["wo", "down", "fc2"])
 
 
 def tp_dim(name: str, kv_replicated: bool = False) -> "int | None":
     """The dim, counted from the end, along which ``model`` shards the
-    dense or MoE leaf ``name`` (the JAX package's ``PartitionSpec``): -1
-    for column linears (``wq``, ``wk``, ``wv``, ``gate``, ``up``; not
-    ``wk``/``wv`` when the KV heads are replicated over ``model``), -2
-    for row linears and the vocabulary tables, -3 for the stacked MoE
-    experts ``(.., E, d_in, d_out)``; None for a leaf replicated over
-    ``model`` (norms, the router, the shared-expert gate)."""
+    dense, MoE, vlm or enc-dec leaf ``name`` (the JAX package's
+    ``PartitionSpec``): -1 for column linears (``wq``, ``wk``, ``wv``,
+    ``gate``, ``up``, ``fc1``; not ``wk``/``wv`` when the KV heads are
+    replicated over ``model``), -2 for row linears (``wo``, ``down``,
+    ``fc2``) and the vocabulary tables, -3 for the stacked MoE experts
+    ``(.., E, d_in, d_out)``; None for a leaf replicated over ``model``
+    (norms, the router, the shared-expert gate)."""
     parts = name.split(".")
     if len(parts) >= 2 and parts[-2] == "experts":
         return -3
@@ -459,6 +460,18 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
                                             device=positions.device) / half))
     ang = positions[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sp_scatter_embeds(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A whole-sequence ``(B, S, ...)`` input (precomputed embeddings,
+    frames, positional encodings) -> this model rank's slice ``[m S/tp,
+    (m + 1) S/tp)`` along dim 1 under SP at ``tp > 1``, ``x`` itself
+    otherwise (JAX ``sp_scatter_embeds``).  A plain slice, with no
+    collective: what it slices is an input, and no gradient leaves it."""
+    if not (ctx.seq_parallel and ctx.tp > 1):
+        return x
+    n = x.shape[1] // ctx.tp
+    return x.narrow(1, coll.tp_index() * n, n)
 
 
 def pad_vocab(vocab: int, tp: int) -> int:

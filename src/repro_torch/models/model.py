@@ -1,6 +1,6 @@
 """The model as an ``nn.Module``: every family of
 ``repro.models.model.Model`` (dense, vlm, MoE, hybrid, ssm and audio;
-init and loss), at tensor-parallel degree 1.
+init and loss).
 
 The parameters are stored as the JAX package stores them: one stacked
 leaf per block weight, weights laid out ``(d_in, d_out)``, under the JAX
@@ -79,18 +79,24 @@ function, the vocabulary tables in the lookup and in each loss chunk.
 rank's slice before it draws the next, so the global parameters are the
 same at every FSDP degree and one leaf is the largest transient.
 
-Tensor parallelism (``ctx.tp > 1``, the dense and MoE families): every
-leaf that ``layers.tp_dim`` names holds this rank's slice along that dim
-(composed with the FSDP dim: a column weight is ``P(fsdp, model)``), at
-the global shapes of the JAX package at that ``tp``: the vocabulary
-padded to a multiple of ``tp`` (``pad_vocab``), the q heads to the
-``head_layout``'s ``n_h_pad``, the experts to ``E_pad``.  The kv weights
-are replicated over ``model`` when ``kv_heads < tp``.  ``init_params``
-draws each global leaf and slices it, so a seed gives the same global
-weights at any ``tp`` where nothing is padded, as the JAX package's init
-does.  The other four families raise ``NotImplementedError`` at
-``tp > 1``.  ``loss`` takes the rotary positions from the labels, which
-hold the whole sequence under SP too.
+Tensor parallelism (``ctx.tp > 1``, the dense, MoE, audio and vlm
+families): every leaf that ``layers.tp_dim`` names holds this rank's
+slice along that dim (composed with the FSDP dim: a column weight is
+``P(fsdp, model)``), at the global shapes of the JAX package at that
+``tp``: the vocabulary padded to a multiple of ``tp`` (``pad_vocab``),
+the q heads to the ``head_layout``'s ``n_h_pad``, the experts to
+``E_pad``.  The kv weights are replicated over ``model`` when ``kv_heads
+< tp``.  ``init_params`` draws each global leaf and slices it, so a seed
+gives the same global weights at any ``tp`` where nothing is padded, as
+the JAX package's init does.  The hybrid and ssm families raise
+``NotImplementedError`` at ``tp > 1``.  ``loss`` takes the rotary
+positions from the labels, which hold the whole sequence under SP too.
+Under SP a whole-sequence float input (the vlm ``embeds``, the audio
+``enc_embeds`` and both stacks' sinusoidal positions, built over the
+whole sequence) is sliced to this rank's part of the sequence
+(``layers.sp_scatter_embeds``); the memory enters the decoder through
+``tp_copy`` (gathered under SP), so every cross-attention reads it whole
+and its gradient is summed over ``model`` once.
 
 Whatever the parameter dtype, the MoE ``router`` and ``shared_gate``, the
 Mamba2 ``A_log``, ``D`` and ``dt_bias``, and the xLSTM ``b_if``, ``w_if``,
@@ -125,6 +131,7 @@ from repro_torch.models import xlstm
 from repro_torch.models.layers import (ShardCtx, embedding_lookup, fsdp_dim,
                                        gather_params, head_layout, pad_vocab,
                                        rmsnorm, sinusoidal_positions,
+                                       sp_scatter_embeds, sp_shared, tp_copy,
                                        tp_dim, trunc_normal_)
 from repro_torch.parallel import collectives as coll
 
@@ -138,7 +145,7 @@ STACK_PREFIX = {"dense": BLOCK_PREFIX, "vlm": BLOCK_PREFIX,
 #: the families the port builds
 FAMILIES = (*STACK_PREFIX, "audio")
 #: the families the port builds at ``tp > 1``
-TP_FAMILIES = ("dense", "moe")
+TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 #: each family's rotary scheme (``ArchConfig.rope``): the ssm family has
 #: no positional input, the audio family adds sinusoidal positions under
 #: "none", the vlm family rotates by M-RoPE
@@ -244,8 +251,9 @@ def param_layout(cfg, tp: int = 1) -> list[tuple[str, tuple[int, ...],
     if cfg.family == "ssm":
         return io + _xlstm_layout(cfg) + tail
     if cfg.family == "audio":
-        return encdec.dec_layout(cfg, (cfg.n_layers,), DEC_PREFIX) + io[:1] \
-            + encdec.enc_layout(cfg, (cfg.encdec.enc_layers,), ENC_PREFIX) \
+        return encdec.dec_layout(cfg, (cfg.n_layers,), DEC_PREFIX, tp) \
+            + io[:1] + encdec.enc_layout(cfg, (cfg.encdec.enc_layers,),
+                                         ENC_PREFIX, tp) \
             + [("enc_norm.scale", (d,), None)] + io[1:] + tail
     out = _attn_layout(cfg, BLOCK_PREFIX, (cfg.n_layers,), tp)
     if cfg.family == "moe":
@@ -345,9 +353,9 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: tensor parallelism (tp={ctx.tp}) of the "
                 f"{cfg.family!r} family is not ported yet; the port runs "
-                f"it for the {' and '.join(TP_FAMILIES)} families, and TP "
-                f"of the hybrid, ssm, audio and vlm families is the next "
-                f"slice (ROADMAP)")
+                f"it for the {', '.join(TP_FAMILIES)} families, and TP "
+                f"of the hybrid and ssm families is the next slice "
+                f"(ROADMAP)")
         if cfg.rope != ROPE.get(cfg.family, "rope"):
             raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r} in "
                                       f"the {cfg.family!r} family")
@@ -431,17 +439,19 @@ class Model(nn.Module):
     # ---- autograd graph, the overlapped step one graph per stage ----------
     def stage_embed(self, table: torch.Tensor, tokens: torch.Tensor
                     ) -> torch.Tensor:
-        """tokens (B, S) -> the first block's input (B, S, d); the audio
-        family's decoder adds its sinusoidal positions."""
+        """tokens (B, S) -> the first block's input (B, S, d), this rank's
+        (B, S/tp, d) under SP; the audio family's decoder adds its
+        sinusoidal positions."""
         x = embedding_lookup(table, tokens, self.ctx, self.cfg.vocab)
         if self.cfg.family == "audio":
-            x = self._add_positions(x)
+            x = self._add_positions(x, tokens.shape[1])
         return x
 
     def stage_embeds(self, embeds: torch.Tensor) -> torch.Tensor:
         """Precomputed embeddings (B, S, d) (the vlm family's stubbed
-        frontend) -> the first block's input, in the compute dtype."""
-        return embeds.to(self.ctx.compute_dtype)
+        frontend) -> the first block's input, in the compute dtype (this
+        rank's slice of the sequence under SP)."""
+        return sp_scatter_embeds(embeds.to(self.ctx.compute_dtype), self.ctx)
 
     def mrope_positions(self, batch: dict) -> "torch.Tensor | None":
         """The batch's ``(3, B, S)`` M-RoPE positions under
@@ -450,23 +460,32 @@ class Model(nn.Module):
         return batch["mrope_positions"] if self.cfg.rope == "mrope" \
             else None
 
-    def _add_positions(self, x: torch.Tensor) -> torch.Tensor:
-        """``x + sinusoidal_positions`` cast to ``x``'s dtype first, as
+    def _add_positions(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        """``x`` (this rank's slice of a sequence of ``s`` under SP) plus
+        the sinusoids of its global positions, built over the whole
+        sequence, sliced as ``x`` is and cast to ``x``'s dtype first, as
         the JAX package rounds them."""
-        pos = torch.arange(x.shape[1], device=x.device)
-        return x + sinusoidal_positions(pos, self.cfg.d_model).to(x.dtype)
+        pe = sinusoidal_positions(torch.arange(s, device=x.device),
+                                  self.cfg.d_model)
+        pe = sp_scatter_embeds(pe.expand(x.shape[0], *pe.shape), self.ctx)
+        return x + pe.to(x.dtype)
 
     def stage_encoder_in(self, enc_embeds: torch.Tensor) -> torch.Tensor:
         """The audio family's frame embeddings (B, S_enc, d) -> the first
-        encoder block's input: cast to the compute dtype, plus the
-        sinusoidal positions."""
-        return self._add_positions(enc_embeds.to(self.ctx.compute_dtype))
+        encoder block's input: cast to the compute dtype (this rank's
+        slice of the frames under SP), plus the sinusoidal positions."""
+        x = sp_scatter_embeds(enc_embeds.to(self.ctx.compute_dtype), self.ctx)
+        return self._add_positions(x, enc_embeds.shape[1])
 
     def stage_memory(self, enc_norm: torch.Tensor, x: torch.Tensor
                      ) -> torch.Tensor:
         """The last encoder block's output -> the memory every decoder
-        block's cross-attention reads (``enc_norm``)."""
-        return rmsnorm(enc_norm, x, self.cfg.norm_eps)
+        block's cross-attention reads: ``enc_norm`` (its scale under
+        ``sp_shared``), then ``tp_copy``, which gathers the frames under
+        SP and whose backward sums the memory's gradient over ``model``
+        (JAX ``Model._encode``)."""
+        return tp_copy(rmsnorm(sp_shared(enc_norm, self.ctx), x,
+                               self.cfg.norm_eps), self.ctx)
 
     @property
     def has_aux(self) -> bool:
@@ -623,7 +642,7 @@ class Model(nn.Module):
         """The audio family's encoder: frame embeddings (B, S_enc, d) ->
         the memory (B, S_enc, d)."""
         x = self.stage_encoder_in(enc_embeds)
-        positions = positions_of(x[..., 0])
+        positions = positions_of(enc_embeds[..., 0])
         for p_l in self._slices(ENC_PREFIX):
             x = self.stage_block(p_l, x, positions)
         return self.stage_memory(self.enc_norm.scale, x)

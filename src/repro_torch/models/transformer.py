@@ -15,16 +15,17 @@ A block's parameters arrive as a dict keyed by their names under
 ``blocks.`` (``"attn.wq.w"``, ``"ln1.scale"``, ...), one layer's slice of
 the stacked leaves.
 
-Tensor parallelism (``ctx.tp > 1``): the MLP and the attention run
-between ``tp_copy`` and ``tp_reduce`` (JAX ``mlp_apply``,
-``attn_apply``) on this rank's columns and rows; the attention holds the
-``head_layout``'s ``L`` q heads and ``kv_local`` kv heads (the kv
-weights replicated under ``tp_shared`` and sliced when ``kv_heads <
-tp``; padded q heads masked before ``wo``); the qk-norm scales are read
-under ``tp_shared``.  Under SP the activations between the regions hold
-this rank's slice of the sequence, the norms on them read their scales
-under ``sp_shared``, and the rotary positions stay those of the whole
-sequence, which the attention sees after the gather.  The loss gathers
+Tensor parallelism (``ctx.tp > 1``): the MLPs (SwiGLU and the enc-dec
+GELU MLP) and the attention run between ``tp_copy`` and ``tp_reduce``
+(JAX ``mlp_apply``, ``attn_apply``) on this rank's columns and rows; the
+attention holds the ``head_layout``'s ``L`` q heads and ``kv_local`` kv
+heads (the kv weights replicated under ``tp_shared`` and sliced when
+``kv_heads < tp``; padded q heads masked before ``wo``); the qk-norm
+scales are read under ``tp_shared``.  Under SP the activations between
+the regions hold this rank's slice of the sequence, the norms on them
+read their scales under ``sp_shared``, and the rotary positions stay
+those of the whole sequence, which the attention sees after the
+gather.  The loss gathers
 the sequence once (``tp_copy``) after the final norm and runs the
 vocabulary-parallel cross-entropy on each chunk.
 """
@@ -36,11 +37,11 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention
-from repro_torch.models.layers import (ShardCtx, apply_mrope, apply_rope,
-                                       head_layout, linear, local_head_mask,
-                                       local_kv_slice, maybe_tp_shared,
-                                       rmsnorm, sp_shared, tp_copy,
-                                       tp_reduce, unembed_logits,
+from repro_torch.models.layers import (HeadLayout, ShardCtx, apply_mrope,
+                                       apply_rope, head_layout, linear,
+                                       local_head_mask, local_kv_slice,
+                                       maybe_tp_shared, rmsnorm, sp_shared,
+                                       tp_copy, tp_reduce, unembed_logits,
                                        vocab_parallel_xent)
 from repro_torch.parallel.collectives import tp_index
 
@@ -62,10 +63,34 @@ def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
 def gelu_mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
     """The two-matrix MLP of the enc-dec blocks,
     ``mlp.fc2(gelu(mlp.fc1(x)))``, with the tanh form of the GELU:
-    ``jax.nn.gelu``'s default."""
+    ``jax.nn.gelu``'s default; column- then row-parallel between
+    ``tp_copy`` and ``tp_reduce``."""
     with record_function(GELU_MLP):
-        h = F.gelu(linear(p["mlp.fc1.w"], x, ctx), approximate="tanh")
-        return linear(p["mlp.fc2.w"], h, ctx)
+        h = F.gelu(linear(p["mlp.fc1.w"], tp_copy(x, ctx), ctx),
+                   approximate="tanh")
+        return tp_reduce(linear(p["mlp.fc2.w"], h, ctx), ctx)
+
+
+def kv_project(p: dict, prefix: str, h: torch.Tensor, lay: HeadLayout,
+               m: int, ctx: ShardCtx) -> tuple[torch.Tensor, torch.Tensor]:
+    """h: (B, S, d), whole over ``model`` -> model rank ``m``'s k and v
+    (B, S, kv_local, hd) from ``p[prefix + "{wk,wv}.w"]``: its columns of
+    the kv weights, or where ``kv_heads < tp`` the replicated weights
+    under ``tp_shared`` and its group's head sliced out."""
+    b, s, _ = h.shape
+    hd = lay.head_dim
+    if lay.kv_replicated:
+        cd = ctx.compute_dtype
+        wk = maybe_tp_shared(p[prefix + "wk.w"].to(cd), ctx)
+        wv = maybe_tp_shared(p[prefix + "wv.w"].to(cd), ctx)
+        return (local_kv_slice((h @ wk).reshape(b, s, lay.kv_heads, hd),
+                               lay, m),
+                local_kv_slice((h @ wv).reshape(b, s, lay.kv_heads, hd),
+                               lay, m))
+    return (linear(p[prefix + "wk.w"], h, ctx).reshape(b, s, lay.kv_local,
+                                                       hd),
+            linear(p[prefix + "wv.w"], h, ctx).reshape(b, s, lay.kv_local,
+                                                       hd))
 
 
 def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
@@ -84,17 +109,7 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     b, s, _ = h.shape
     hd = cfg.head_dim
     q = linear(p[prefix + "wq.w"], h, ctx).reshape(b, s, lay.L, hd)
-    if lay.kv_replicated:
-        cd = ctx.compute_dtype
-        wk = maybe_tp_shared(p[prefix + "wk.w"].to(cd), ctx)
-        wv = maybe_tp_shared(p[prefix + "wv.w"].to(cd), ctx)
-        k = local_kv_slice((h @ wk).reshape(b, s, lay.kv_heads, hd), lay, m)
-        v = local_kv_slice((h @ wv).reshape(b, s, lay.kv_heads, hd), lay, m)
-    else:
-        k = linear(p[prefix + "wk.w"], h, ctx).reshape(b, s, lay.kv_local,
-                                                       hd)
-        v = linear(p[prefix + "wv.w"], h, ctx).reshape(b, s, lay.kv_local,
-                                                       hd)
+    k, v = kv_project(p, prefix, h, lay, m, ctx)
     if cfg.qk_norm:
         q = rmsnorm(maybe_tp_shared(p[prefix + "q_norm.scale"], ctx), q,
                     cfg.norm_eps)

@@ -87,8 +87,10 @@ Tensor parallelism: each stage's graph holds its ``model`` collectives
 order, the same on every rank; the flushes reduce over the DP group of
 this rank's model index, another group, so the two orders never
 interleave within a group.  Under SP the embedding stage ends in the
-sequence reduce-scatter, so each stage's detached input is this rank's
-slice of the sequence.
+sequence reduce-scatter of the token lookup, or in the slice of
+``layers.sp_scatter_embeds`` (precomputed embeddings, frames), so each
+stage's detached input is this rank's slice of the sequence; the audio
+decoder's memory leaf is whole.
 """
 from __future__ import annotations
 
@@ -492,7 +494,10 @@ def _backward_encdec(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
     then ``enc_norm``, then the encoder blocks in reverse (stages
     ``L_dec..``), handing each stage's leaf gradients to ``flush``; the
     tail sums the loss head's, the decoder embedding's and ``enc_norm``'s
-    gradients.  Returns what ``_backward_stack`` returns."""
+    gradients.  At ``tp > 1`` the memory's graph ends in
+    ``stage_memory``'s ``tp_copy``, so the summed gradient crosses
+    ``model`` once, after the decoder, as in the JAX package's scan.
+    Returns what ``_backward_stack`` returns."""
     from repro_torch.models.model import DEC_PREFIX, ENC_PREFIX
 
     model = setup.model
@@ -525,7 +530,7 @@ def _backward_encdec(setup, ov: OverlapLayout, batch: dict, flush: _Flush,
         # reaches them, nor the first encoder block's input
         x = model.stage_encoder_in(batch["enc_embeds"])
         enc_stages, x_e = run(ENC_PREFIX, enc_seg.n_layers, x,
-                              positions_of(x[..., 0]))
+                              positions_of(batch["enc_embeds"][..., 0]))
         memory = model.stage_memory(leaves["enc_norm.scale"], x_e)
         mem = _leaf(memory)
         x0 = model.stage_embed(leaves["embed.table"], tokens)

@@ -39,18 +39,19 @@ ranks: the same global batch at any mesh), each timed on its own (``step_s``).
 in the same processes (one start, one set of gloo connections), ``steps=N`` its
 step count; the record is then ``{"variants": [one record each]}``. HSDP shards
 the parameters over ``data`` and runs the compressor over ``pod`` on gradient
-shards; ``fsdp_shard_pods`` shards over both axes. For a vlm arch each rank's
-batch gets seeded fp32 ``embeds`` and the ``vlm_positions``
-(``launch.inputs``). Checked and recorded: every loss; the ranks with the same
-index along the FSDP axes (one per pod under HSDP) hold the same shard bits
-(``replicas_identical``); every sharded parameter gathered over the FSDP
-axes has the same bits on every rank (``gathered_identical``); whether
-the leaves FSDP does not shard have the same bits on every rank
-(``unsharded_identical``: they do when nothing is compressed; under
-HSDP with a compressor they ride buckets of each ``data`` rank's own
-shards through the lossy exchange and drift apart across ``data``, in the
-JAX package too); the kernel
-launches; each rank's peak device memory and the card's memory in use
+shards; ``fsdp_shard_pods`` shards over both axes. For a vlm or audio arch the
+stubbed frontends' inputs (fp32 ``embeds`` and the ``vlm_positions``, or fp32
+``enc_embeds``) are drawn once for that global batch from seed 0
+(``launch.inputs.with_frontend_inputs``) and split with it, so a TP cell reads
+the one-rank reference's batch. Checked and recorded: every loss; the ranks
+with the same index along the FSDP axes (one per pod under HSDP) hold the same
+shard bits (``replicas_identical``); every sharded parameter gathered over the
+FSDP axes has the same bits on every rank (``gathered_identical``); whether the
+leaves FSDP does not shard have the same bits on every rank
+(``unsharded_identical``: they do when nothing is compressed; under HSDP with a
+compressor they ride buckets of each ``data`` rank's own shards through the
+lossy exchange and drift apart across ``data``, in the JAX package too); the
+kernel launches; each rank's peak device memory and the card's memory in use
 after the steps (``card_used_gb``, from ``torch.cuda.mem_get_info``).
 
 Tensor parallelism (``--tp N``, the counterpart of ``make_pod_mesh(...,
@@ -420,7 +421,7 @@ def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
     from repro_torch.data.synthetic import DataConfig, batch_at
     from repro_torch.kernels import build as kbuild
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch.inputs import with_vlm_inputs
+    from repro_torch.launch.inputs import with_frontend_inputs
     from repro_torch.models.layers import fsdp_dim
     from repro_torch.parallel.collectives import all_gather
     from repro_torch.train import overlap
@@ -434,11 +435,12 @@ def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
     model = setup.model
     n_params = sum(math.prod(model.global_shape(n))
                    for n, _ in model.named_parameters())
-    # this rank's rows of the global batch of step 0, whatever the mesh
+    # this rank's rows of the global batch of step 0 and of its frontend
+    # inputs (drawn once, from seed 0), whatever the mesh
     dp_rank = mesh_mod.rank(setup.dp_axes)
-    batch = with_vlm_inputs(cfg, ts.split_batch(batch_at(DataConfig(
-        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), 0),
-        setup.p_dp, dp_rank), seed=dp_rank)
+    batch = ts.split_batch(with_frontend_inputs(cfg, batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch), 0), 0),
+        setup.p_dp, dp_rank)
     log(f"{cfg.plan.dp_mode}: {n_params:,} parameters, tp {setup.tp} (sp "
         f"{model.ctx.seq_parallel}), fsdp_axes {setup.fsdp_axes} (p_fsdp "
         f"{setup.p_fsdp}), compress {setup.agg_cfg.compressor}@"

@@ -82,8 +82,8 @@ global norm (and Adafactor its factored means) over the FSDP axes
 refuses FSDP with the JAX package's ``ValueError``.
 
 Tensor parallelism (a mesh with a ``model`` axis: ``launch.mesh.init_mesh``
-or ``init_pod_mesh(..., tp=)``, the dense and MoE families): ``build``
-reads the degree from the mesh and builds ``ShardCtx(tp=...,
+or ``init_pod_mesh(..., tp=)``; the dense, MoE, audio and vlm families):
+``build`` reads the degree from the mesh and builds ``ShardCtx(tp=...,
 seq_parallel=plan.seq_parallel and tp > 1)``, as the JAX package does.
 The DP axes stay ``pod``/``data``: every DP reduction (the loss's token
 count, the buckets, ZeRO-1's owner plan and its collectives) runs on
@@ -217,7 +217,7 @@ def _check_ported(arch: ArchConfig, plan, tp: int = 1) -> None:
     if tp > 1 and arch.family not in TP_FAMILIES:
         todo.append(f"tensor parallelism (tp={tp}) of the {arch.family!r} "
                     f"family: the next slice, after the "
-                    f"{' and '.join(TP_FAMILIES)} families")
+                    f"{', '.join(TP_FAMILIES)} families")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if todo:

@@ -1,10 +1,12 @@
 """The ``model`` axis of the port in one process: the head and vocabulary
 layouts, the sharded dim and global shape of every leaf, the slicing of
-global parameters to each model rank and back, the mesh's coordinates,
-and the refusals (the hybrid, ssm, audio and vlm families at ``tp > 1``;
-TP checkpoints).  Each layout is held against the JAX package's
-(``layers.head_layout``, ``layers.pad_vocab``, ``Model.abstract_init``
-specs); the multi-rank step is ``test_torch_tp_step.py``."""
+global parameters to each model rank and back, the sinusoidal positions
+of each sequence-parallel slice, the mesh's coordinates, and the
+refusals (the hybrid and ssm families at ``tp > 1``; TP checkpoints).
+Each layout is held against the JAX package's (``layers.head_layout``,
+``layers.pad_vocab``, ``Model.abstract_init`` specs); the multi-rank
+steps are ``test_torch_tp_step.py`` (dense, MoE) and
+``test_torch_tp_families.py`` (audio, vlm)."""
 import dataclasses
 import types
 
@@ -13,8 +15,10 @@ import pytest
 
 DENSE_MOE = ("tinyllama-1.1b", "granite-8b", "mistral-nemo-12b", "qwen3-32b",
              "qwen2-moe-a2.7b", "arctic-480b")
-OTHER = ("zamba2-2.7b", "xlstm-350m", "seamless-m4t-medium", "qwen2-vl-7b")
-ALL = DENSE_MOE + OTHER
+AUDIO_VLM = ("seamless-m4t-medium", "qwen2-vl-7b")
+#: the families that still refuse ``tp > 1``
+OTHER = ("zamba2-2.7b", "xlstm-350m")
+ALL = DENSE_MOE + AUDIO_VLM + OTHER
 
 
 def _layout_or_error(fn, *args):
@@ -84,7 +88,7 @@ def _jax_specs(cfg, tp, fsdp):
     return dims, glob
 
 
-@pytest.mark.parametrize("name", DENSE_MOE)
+@pytest.mark.parametrize("name", DENSE_MOE + AUDIO_VLM)
 @pytest.mark.parametrize("tp, full", [(2, False), (4, False), (16, True)])
 def test_tp_dims_and_shapes_match_jax_specs(name, tp, full):
     """Every leaf's global shape at ``tp`` (padded vocabulary, q heads and
@@ -133,7 +137,11 @@ def test_kv_heads_replicate_past_tp():
 @pytest.mark.parametrize("name, tp, fsdp", [("tinyllama-1.1b", 2, 1),
                                             ("tinyllama-1.1b", 4, 2),
                                             ("qwen2-moe-a2.7b", 2, 2),
-                                            ("arctic-480b", 2, 1)])
+                                            ("arctic-480b", 2, 1),
+                                            ("seamless-m4t-medium", 2, 2),
+                                            ("seamless-m4t-medium", 4, 1),
+                                            ("qwen2-vl-7b", 2, 1),
+                                            ("qwen2-vl-7b", 4, 2)])
 def test_load_slices_and_concatenation_round_trip(monkeypatch, name, tp,
                                                   fsdp):
     """``convert.load_params`` keeps each rank's slice of the JAX global
@@ -202,11 +210,58 @@ def test_mesh_coords_follow_jax_device_order():
                                       ("data", "model"), ("pod", "data")]
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("sp", [False, True])
+def test_sp_slices_take_the_global_sinusoids(monkeypatch, tp, sp):
+    """The reduced ``seamless-m4t-medium`` at ``tp`` on every model rank:
+    ``stage_encoder_in`` and the decoder's ``stage_embed`` add the
+    sinusoids of the global positions of the rank's slice of the sequence
+    under SP (JAX ``sinusoidal_positions`` over the whole sequence, sliced
+    as ``sp_scatter_embeds`` slices), the whole sequence's without SP;
+    ``sp_scatter_embeds`` keeps the same slice of any input."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.models.layers import sinusoidal_positions
+    from repro_torch.configs import base as tcfgs
+    from repro_torch.models import layers as tl
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import collectives as coll
+    cfg = tcfgs.reduced(tcfgs.get("seamless-m4t-medium"))
+    b, s, d = 2, 24, cfg.d_model
+    pe = np.asarray(sinusoidal_positions(jnp.arange(s), d))
+    frames = torch.randn(b, s, d, generator=torch.Generator().manual_seed(1))
+    tokens = torch.arange(b * s).reshape(b, s) % cfg.vocab
+    n = s // tp if sp else s
+    for m in range(tp):
+        monkeypatch.setattr(coll, "tp_index", lambda m=m: m)
+        ctx = tl.ShardCtx(compute_dtype=torch.float32, tp=tp,
+                          seq_parallel=sp)
+        model = Model(cfg, ctx, device="cpu")
+        lo = m * n if sp else 0
+        want = pe[lo:lo + n]
+        got = model.stage_encoder_in(frames)
+        np.testing.assert_allclose(got.numpy(), frames[:, lo:lo + n].numpy()
+                                   + want, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(tl.sp_scatter_embeds(frames, ctx),
+                                      frames[:, lo:lo + n])
+        # the token lookup at tp > 1 sums over model: its positions only
+        monkeypatch.setattr(
+            "repro_torch.models.model.embedding_lookup",
+            lambda table, ids, ctx, vocab: torch.zeros(
+                b, n, d, dtype=ctx.compute_dtype))
+        dec = model.stage_embed(model.embed.table, tokens)
+        np.testing.assert_allclose(dec.detach().numpy(),
+                                   np.broadcast_to(want, (b, n, d)),
+                                   rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_refuse_tp(name):
-    """The hybrid, ssm, audio and vlm families raise at ``tp > 1``, from
-    ``Model`` and from ``train_step``'s check, naming the next slice; at
-    ``tp = 1`` they build."""
+    """The hybrid and ssm families raise at ``tp > 1``, from ``Model`` and
+    from ``train_step``'s check, naming the next slice; at ``tp = 1`` they
+    build.  The audio and vlm families build at ``tp`` 2 and 4, with SP
+    and without (``test_audio_and_vlm_build_at_tp``)."""
     from repro_torch.configs import base as tcfgs
     from repro_torch.models.layers import ShardCtx
     from repro_torch.models.model import Model
@@ -218,6 +273,58 @@ def test_other_families_refuse_tp(name):
         tts._check_ported(cfg, cfg.plan, tp=2)
     Model(cfg, ShardCtx(), device="meta")
     tts._check_ported(cfg, cfg.plan, tp=1)
+
+
+@pytest.mark.parametrize("name", AUDIO_VLM)
+def test_audio_and_vlm_build_at_tp(name):
+    """``Model`` builds the reduced arch at ``tp`` 2 and 4, with SP and
+    without, each leaf at its local shape, and ``train_step``'s check
+    passes them."""
+    from repro_torch.configs import base as tcfgs
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model, local_shape, param_layout
+    from repro_torch.train import train_step as tts
+    cfg = tcfgs.reduced(tcfgs.get(name))
+    for tp in (2, 4):
+        tts._check_ported(cfg, cfg.plan, tp=tp)
+        for sp in (False, True):
+            model = Model(cfg, ShardCtx(tp=tp, seq_parallel=sp),
+                          device="meta")
+            for (leaf, shape, _), (_, p) in zip(param_layout(cfg, tp),
+                                                model.named_parameters()):
+                assert tuple(p.shape) == local_shape(
+                    leaf, shape, 1, tp, model.tp_dims[leaf]), leaf
+
+
+@pytest.mark.parametrize("name", AUDIO_VLM)
+def test_frontend_inputs_are_drawn_for_the_global_batch(name):
+    """``launch.inputs.with_frontend_inputs`` draws the stubbed frontend's
+    fp32 ``(B, S, d_model)`` input of a global batch from its seed (the
+    audio ``enc_embeds``; the vlm ``embeds`` and M-RoPE positions), so the
+    rows each DP rank takes of it (``split_batch``, as the pod worker
+    does) are the same at every mesh, and concatenate to the draw."""
+    import torch
+
+    from repro_torch.configs import base as tcfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.launch.inputs import with_frontend_inputs
+    from repro_torch.train import train_step as tts
+    cfg = tcfgs.reduced(tcfgs.get(name))
+    glob = with_frontend_inputs(cfg, batch_at(DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=4), 0), 0)
+    key = "enc_embeds" if cfg.family == "audio" else "embeds"
+    want = torch.randn(4, 16, cfg.d_model,
+                       generator=torch.Generator().manual_seed(0))
+    assert torch.equal(glob[key], want)
+    if cfg.family == "vlm":
+        assert tuple(glob["mrope_positions"].shape) == (3, 4, 16)
+    for n in (1, 2, 4):
+        parts = [tts.split_batch(glob, n, i) for i in range(n)]
+        assert torch.equal(torch.cat([p[key] for p in parts]), want)
+        if cfg.family == "vlm":
+            assert torch.equal(torch.cat([p["mrope_positions"]
+                                          for p in parts], 1),
+                               glob["mrope_positions"])
 
 
 def test_tp_checkpoints_are_refused():
