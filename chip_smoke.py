@@ -178,7 +178,8 @@ Phases, each fatal on failure:
      data iterator sends SIGTERM to its own process at the second batch
      and must save step 2 and return (B); a fresh ``Trainer`` that
      restores step 2, seeks the data cursor and takes step 3 (C).  Fatal
-     unless C's loss and ``state_digest`` equal A's bit for bit; prints
+     unless C's loss and state equal A's bit for bit (on-card
+     fingerprints of every state tensor, ``state_prints``); prints
      the bytes, the save and restore seconds and the peak memory;
   8. schedules: ``overlap_bench`` at full width as one ``kind="train"``
      cell through ``MeasuredBackend`` (a process of its own), ZeRO-1
@@ -243,19 +244,27 @@ Phases, each fatal on failure:
      phase draws them (``launch.inputs.with_frontend_inputs``);
      ``qwen2-vl-7b`` at full width cut to ``FSDP_LAYERS`` = 1 block on
      its plan (FSDP over ``data``, TP over ``model``), uncompressed, with
-     seeded fp32 ``embeds`` and M-RoPE positions.  Each must give finite
-     losses, the configured axes, a first loss within its limit
-     (``TP_RTOL``, ``TP_MOE_RTOL``) of the first loss of the one-rank
-     ``tp = 1`` run of the train phase on the same seed and batch (a
-     cell cut in depth: of a one-rank forward pass at its depth,
-     ``first_loss``; the FSDP x TP cells also their second loss within
-     ``TP_STEP_RTOL`` of the same plan's second step on one rank,
-     ``two_step_losses``), the same bits on the
-     ranks with the same model index (gathered over ``data`` under FSDP),
-     the leaves replicated over ``model`` the same bits on every rank,
-     the PowerSGD launches per bucket and step, the card under 75 GiB in
-     use, and serial == overlap; each rank's peak and the step times
-     are printed.
+     seeded fp32 ``embeds`` and M-RoPE positions; ``zamba2-2.7b`` at full
+     width cut to ``TP_HYBRID_LAYERS`` = 12 layers (2 of 9 groups) on its
+     plan (ZeRO-1, ``remat="full"``), the overlapped step with PowerSGD
+     over ``data`` on each model rank's shard buckets (40 of the 80 SSD
+     heads a rank; the shared block's gradient summed over the two
+     groups and their LoRAs) and its serial schedule after it;
+     ``xlstm-350m`` at full width cut to ``TP_SSM_LAYERS`` = 8 layers (1
+     of 3 groups: 7 mLSTM blocks, 2 of 4 heads a rank, and the
+     replicated sLSTM block) on its plan (ZeRO-1), uncompressed.  Each
+     must give finite losses, the configured axes, a first loss within
+     its limit (``TP_RTOL``, ``TP_MOE_RTOL``, ``TP_HYBRID_RTOL``) of the
+     first loss of the one-rank ``tp = 1`` run of the train phase on the
+     same seed and batch (a cell cut in depth: of a one-rank forward
+     pass at its depth, ``first_loss``; the FSDP x TP cells and the xLSTM
+     cell also their second loss within ``TP_STEP_RTOL`` of the same
+     plan's second step on one rank, ``two_step_losses``), the same bits
+     on the ranks with the same model index (gathered over ``data`` under
+     FSDP), the leaves replicated over ``model`` the same bits on every
+     rank, the PowerSGD launches per bucket and step, the card under 75
+     GiB in use, and serial == overlap; each rank's peak and the step
+     times are printed.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
@@ -267,8 +276,8 @@ and 271,794,176), the vlm slice's (67,902,464 and 545,000,960), the
 HSDP shard buckets (6,553,600 and the last, 6,171,136) and the TP
 slice's shard buckets that no earlier shape has (``tp_layouts``: the
 classic ZeRO-1 step's last, the overlapped step's largest block and
-tail, the MoE slice's last, the audio cell's overlapped largest block
-and tail); the ``kernels``
+tail, the MoE slice's last, the audio and hybrid cells' overlapped
+largest block and tail); the ``kernels``
 line counts each kernel's launches in
 the overlapped ZeRO-1 run that drives it, in the live cells
 (``experiment_launches``), in the adaptive run (``adaptive_launches``),
@@ -837,6 +846,24 @@ def state_tensors(obj) -> list:
     if isinstance(obj, (list, tuple)):
         return [t for v in obj for t in state_tensors(v)]
     return []
+
+
+def state_prints(obj) -> list:
+    """A train state's fingerprints taken on the card: every tensor's
+    ``pod_worker.fingerprint`` (dicts in key order, lists and tuples in
+    order) and every other leaf's ``repr``.  Equal lists mean the same
+    bits but with odds near 2^-64 a tensor, without a copy to the host."""
+    import torch
+
+    from repro_torch.train.pod_worker import fingerprint
+    if isinstance(obj, torch.Tensor):
+        return [fingerprint(obj)]
+    if isinstance(obj, dict):
+        return [p for k in sorted(obj) for p in [repr(k)]
+                + state_prints(obj[k])]
+    if isinstance(obj, (list, tuple)):
+        return ["["] + [p for v in obj for p in state_prints(v)] + ["]"]
+    return [repr(obj)]
 
 
 def live_state(state, n: int, gen):
@@ -2478,8 +2505,9 @@ def checkpoint_phase(n_buckets: int) -> dict:
     ``Trainer`` with a checkpoint directory, gets SIGTERM from its own data
     iterator at batch ``CKPT_KILL_AT`` and must save that step and return;
     run C, a fresh ``Trainer`` on the directory, restores it and takes the
-    remaining steps.  Fatal unless C's losses and final ``state_digest``
-    equal A's bit for bit.  Returns the sizes and times."""
+    remaining steps.  Fatal unless C's losses equal A's and C's final
+    state has A's bits (``state_prints``, fingerprints taken on the
+    card).  Returns the sizes and times."""
     import resource
     import shutil
     import tempfile
@@ -2538,8 +2566,8 @@ def checkpoint_phase(n_buckets: int) -> dict:
                              f"expected {want}")
     a_loss = [r["loss"] for r in a.history]
     t0 = time.perf_counter()
-    a_digest = ts.state_digest(a.state)
-    digest_s = time.perf_counter() - t0
+    a_prints = state_prints(a.state)
+    prints_s = time.perf_counter() - t0
     del a
     free()
     d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2569,14 +2597,14 @@ def checkpoint_phase(n_buckets: int) -> dict:
         c.run()
         c_steps = [r["step"] for r in c.history]
         c_loss = [r["loss"] for r in c.history]
-        same = ts.state_digest(c.state) == a_digest
+        same = state_prints(c.state) == a_prints
         peak = torch.cuda.max_memory_allocated() / 2**30
         del c
         free()
     finally:
         shutil.rmtree(d, ignore_errors=True)
     rec = {"bytes": nbytes, "save_s": saves, "restore_s": restores,
-           "digest_s": digest_s, "peak_gib": peak,
+           "prints_s": prints_s, "peak_gib": peak,
            "host_peak_gib": resource.getrusage(
                resource.RUSAGE_SELF).ru_maxrss / 2**20,
            "a_loss": a_loss, "b_loss": b_loss, "c_loss": c_loss,
@@ -2868,6 +2896,18 @@ TP_MOE_LAYERS = 1
 #: (measured on one H100), gloo carrying every FSDP gather and
 #: reduce-scatter
 TP_FSDP_LAYERS = 4
+#: the hybrid TP cell's depth, 2 of zamba2's 9 groups: at full depth the
+#: one-rank ZeRO-1 step peaks at 68.5 GiB (measured on one H100), and four
+#: ranks would put about 78 GiB on the card
+TP_HYBRID_LAYERS = 12
+#: the ssm TP cell's depth, 1 of xLSTM's 3 groups: the sLSTM scan is
+#: host-bound (~2 x 10^5 launches a one-rank step, 4.6-8.0 s, measured on
+#: one H100), every model rank scans the whole sequence under SP, and
+#: four processes share the host
+TP_SSM_LAYERS = 8
+#: the plans of the one-rank two-step references (``two_step_losses``)
+FSDP_PLAN = (("dp_mode", "fsdp"), ("zero1", False))
+ZERO1_PLAN = (("dp_mode", "ddp"), ("zero1", True))
 
 #: the TP cells' relative limits on their losses against the one-rank
 #: tp = 1 references, each between the gap measured on one H100 and the
@@ -2880,14 +2920,21 @@ TP_FSDP_LAYERS = 4
 TP_RTOL = 3e-5
 TP_MOE_RTOL = 6e-4
 TP_STEP_RTOL = 2e-3
+#: the hybrid cell's first-loss limit (PERF.md, section 6, PR 27): its
+#: clean gap, 3.39e-5 on one H100, is bf16 rounding (each model rank
+#: rounds its partial block outputs before the sum; at the reduced size
+#: on the CPU the gap is 1.2e-4 in bf16 and 0 in fp32), past TP_RTOL;
+#: the planted fault (A_log, D, dt_bias of model rank 0 on every rank)
+#: gave 1.45e-3
+TP_HYBRID_RTOL = 2e-4
 
 #: label -> (the worker's ``--variant`` fields, the one-rank tp = 1
 #: reference (``tp_references``): a run of the train phase by label, whose
 #: first loss the cell's is held to, or for a cell cut in depth
 #: ("forward", arch, layers, parameter dtype), the loss of one forward
-#: pass (``first_loss``), or ("steps", arch, layers), the two losses of
-#: the same plan's two steps on one rank (``two_step_losses``); the
-#: relative limit of each held loss, the FSDP and compress axes,
+#: pass (``first_loss``), or ("steps", arch, layers, plan), the two
+#: losses of the same plan's two steps on one rank (``two_step_losses``);
+#: the relative limit of each held loss, the FSDP and compress axes,
 #: launches per bucket and step).  The audio and vlm cells read their
 #: frontend inputs drawn once for the global batch (seed 0) as the
 #: one-rank runs draw them.
@@ -2907,7 +2954,8 @@ TP_RUNS = {
         [], ["data"], PSGD_PER_BUCKET),
     # uncompressed: after one update a wrong gradient shows in the loss
     "tp fsdp none": (f"dp_mode=fsdp,zero1=false,layers={TP_FSDP_LAYERS},"
-                     f"steps=2", ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS),
+                     f"steps=2", ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS,
+                                  FSDP_PLAN),
                      (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
     # full width and depth on its plan (ZeRO-1, remat="full"): the
     # two-stack overlapped backward, the memory's tp_copy and the SP slice
@@ -2920,8 +2968,25 @@ TP_RUNS = {
     # slice of the embeds and M-RoPE under TP
     "tp vlm fsdp none": (
         f"arch={VLM_ARCH},layers={FSDP_LAYERS},dp_mode=fsdp,zero1=false,"
-        f"steps=2", ("steps", VLM_ARCH, FSDP_LAYERS),
+        f"steps=2", ("steps", VLM_ARCH, FSDP_LAYERS, FSDP_PLAN),
         (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
+    # its plan (ZeRO-1, remat="full") cut to TP_HYBRID_LAYERS: the
+    # overlapped hybrid branch under TP, the shared block summed over two
+    # groups with their own LoRAs, PowerSGD on the hybrid shard buckets
+    "tp hybrid zero1 overlap powersgd": (
+        f"arch={HYBRID_ARCH},layers={TP_HYBRID_LAYERS},compression=powersgd,"
+        f"overlap=true,serial=true,steps=2",
+        ("forward", HYBRID_ARCH, TP_HYBRID_LAYERS, "bfloat16"),
+        (TP_HYBRID_RTOL,), [], ["data"], PSGD_PER_BUCKET),
+    # its plan (ZeRO-1) cut to TP_SSM_LAYERS, uncompressed: a partial
+    # gradient of a replicated leaf (the sLSTM under SP, the mLSTM q/k and
+    # gates) moves no forward, only the loss after an update, and a
+    # compressed step has no one-rank oracle for that loss
+    "tp ssm zero1 none": (
+        f"arch={SSM_ARCH},layers={TP_SSM_LAYERS},dp_mode=ddp,"
+        f"compression=none,steps=2",
+        ("steps", SSM_ARCH, TP_SSM_LAYERS, ZERO1_PLAN),
+        (TP_RTOL, TP_STEP_RTOL), [], [], {}),
 }
 #: the card's memory in use that the TP phase must stay under
 TP_CARD_GIB = 75.0
@@ -2955,13 +3020,14 @@ def first_loss(name: str, layers: int, dtype: str) -> float:
     return out
 
 
-def two_step_losses(name: str, layers: int) -> list[float]:
+def two_step_losses(name: str, layers: int, plan: tuple) -> list[float]:
     """The two losses of full-width ``name`` cut to ``layers`` blocks on
-    one rank, tp = 1, on the FSDP x TP cells' plan (FSDP, no ZeRO-1,
-    uncompressed; on one rank the replicated step): ``init_state(seed=0)``
-    and two steps at lr 1e-4 on the global batch 4 x 512 of step 0 and
-    its frontend inputs drawn from seed 0 (a vlm arch's ``embeds`` and
-    M-RoPE positions), as the pod worker runs them."""
+    one rank, tp = 1, uncompressed, on ``plan`` ((field, value) pairs:
+    ``FSDP_PLAN``, on one rank the replicated step, or ``ZERO1_PLAN``):
+    ``init_state(seed=0)`` and two steps at lr 1e-4 on the global batch 4
+    x 512 of step 0 and its frontend inputs drawn from seed 0 (a vlm
+    arch's ``embeds`` and M-RoPE positions), as the pod worker runs
+    them."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -2969,8 +3035,8 @@ def two_step_losses(name: str, layers: int) -> list[float]:
     from repro_torch.launch.inputs import with_frontend_inputs
     from repro_torch.train import train_step as ts
     arch = dataclasses.replace(cfgs.get(name), n_layers=layers)
-    setup = ts.build(arch, "cuda", dp_mode="fsdp", zero1=False,
-                     overlap=False, compression="none")
+    setup = ts.build(arch, "cuda", overlap=False, compression="none",
+                     **dict(plan))
     state = ts.init_state(setup, seed=0)
     batch = ts._to_device(with_frontend_inputs(arch, batch_at(DataConfig(
         vocab=arch.vocab, seq_len=512, global_batch=4, seed=0), 0), 0),
@@ -3003,8 +3069,10 @@ def tp_references(hist: dict) -> dict:
 def tp_layouts() -> dict:
     """The TP phase's bucket layouts on a rank of data 2 x model 2 (no
     allocation): the classic ZeRO-1 step's and the overlapped one's of
-    ``tinyllama-1.1b``, the MoE slice's classic ZeRO-1 one and the audio
-    cell's overlapped ZeRO-1 one (``seamless-m4t-medium``)."""
+    ``tinyllama-1.1b``, the MoE slice's classic ZeRO-1 one, and the
+    overlapped ZeRO-1 ones of the audio cell (``seamless-m4t-medium``)
+    and of the hybrid cell (``zamba2-2.7b`` cut to
+    ``TP_HYBRID_LAYERS``)."""
     import torch
 
     from repro_torch.configs import base as cfgs
@@ -3018,10 +3086,14 @@ def tp_layouts() -> dict:
                                     n_layers=TP_MOE_LAYERS), ctx,
                 device="meta")
     audio = Model(cfgs.get(AUDIO_ARCH), ctx, device="meta")
+    hybrid = Model(dataclasses.replace(cfgs.get(HYBRID_ARCH),
+                                       n_layers=TP_HYBRID_LAYERS), ctx,
+                   device="meta")
     return {"zero1": bucketing.layout_for(list(dense.parameters()), 25),
             "overlap": overlap.layout_for_model(dense, 25),
             "moe zero1": bucketing.layout_for(list(moe.parameters()), 25),
-            "audio overlap": overlap.layout_for_model(audio, 25)}
+            "audio overlap": overlap.layout_for_model(audio, 25),
+            "hybrid overlap": overlap.layout_for_model(hybrid, 25)}
 
 
 def tp_phase(kind: str, first: dict) -> dict:
@@ -3194,7 +3266,8 @@ def main() -> int:
     # the TP slice's buckets on a rank of data 2 x model 2 that no earlier
     # shape has: the classic ZeRO-1 step's last bucket, the overlapped
     # step's largest block and tail buckets, the MoE slice's last bucket,
-    # the audio cell's overlapped largest block and tail buckets
+    # the audio and hybrid cells' overlapped largest block and tail
+    # buckets
     tpl = tp_layouts()
 
     def block_tail(tov) -> tuple[int, int]:
@@ -3202,14 +3275,16 @@ def main() -> int:
         return (max(n for n, r in by_stage if r < tov.n_stages),
                 max(n for n, r in by_stage if r == tov.n_stages))
     seen = {n for *_, n in shapes}
-    dense_ov, audio_ov = block_tail(tpl["overlap"]), \
-        block_tail(tpl["audio overlap"])
+    dense_ov, audio_ov, hybrid_ov = (block_tail(tpl[k]) for k in (
+        "overlap", "audio overlap", "hybrid overlap"))
     for which, n in (
             ("zero1 last", tpl["zero1"].last_elems),
             ("overlap block", dense_ov[0]), ("overlap tail", dense_ov[1]),
             ("ep zero1 last", tpl["moe zero1"].last_elems),
             ("audio overlap block", audio_ov[0]),
-            ("audio overlap tail", audio_ov[1])):
+            ("audio overlap tail", audio_ov[1]),
+            ("hybrid overlap block", hybrid_ov[0]),
+            ("hybrid overlap tail", hybrid_ov[1])):
         if n not in seen:
             shapes.append((f"tp {which}", *matrix_shape(n), n))
             seen.add(n)

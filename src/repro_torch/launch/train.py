@@ -28,8 +28,8 @@ As in the JAX package, a reduction axis of size 1 is dropped, so a
 one-rank run aggregates nothing.
 
 ``--tp N`` adds the ``model`` axis of size N, innermost (the JAX
-package's ``make_pod_mesh(..., tp)``; every family but hybrid and
-ssm): with ``--mesh local`` the world is ``data x model``
+package's ``make_pod_mesh(..., tp)``; every family): with ``--mesh
+local`` the world is ``data x model``
 (``launch.mesh.init_mesh``), with ``--mesh pod`` ``pod x data x model``
 and ``procs x local-devices x tp`` ranks.  Each rank reads the rows of
 its DP coordinate; a TP state cannot be checkpointed yet.

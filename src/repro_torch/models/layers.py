@@ -32,7 +32,8 @@ the JAX package's raw ``psum`` transposes to a second sum over
 ``model``, which is where its gradients pick up a factor of ``tp``).
 Column-parallel weights are sharded over ``model`` on their output dim,
 row-parallel ones and the vocabulary tables on their input (first) dim,
-the MoE experts on the expert dim (``tp_dim``).
+the MoE experts on the expert dim, the hybrid and ssm families' leaves
+by their names under ``groups.`` (``tp_dim``).
 """
 from __future__ import annotations
 
@@ -329,17 +330,45 @@ def fsdp_dim(name: str) -> "int | None":
 
 _TP_COLUMN = frozenset(["wq", "wk", "wv", "gate", "up", "fc1"])
 _TP_ROW = frozenset(["wo", "down", "fc2"])
+#: the hybrid and ssm families' leaves under ``groups.`` that ``model``
+#: shards along their last dim (the Mamba2 heads, head-major; the mLSTM
+#: heads x v-parts; the LoRA ``b`` like its base weight's columns) and
+#: along their second-to-last (the row linears); every other leaf there
+#: is replicated over ``model``
+_TP_GROUP_LAST = frozenset(
+    ["mamba." + n for n in ("A_log", "D", "conv_x", "dt_bias", "in_dt",
+                            "in_x.w", "in_z.w", "norm")]
+    + ["mlstm." + n for n in ("norm", "up_v.w", "up_z.w")]
+    + [f"lora.{n}.b" for n in ("gate", "up", "wq")])
+_TP_GROUP_ROW = frozenset(["mamba.out.w", "mlstm.out.w"])
 
 
 def tp_dim(name: str, kv_replicated: bool = False) -> "int | None":
     """The dim, counted from the end, along which ``model`` shards the
-    dense, MoE, vlm or enc-dec leaf ``name`` (the JAX package's
-    ``PartitionSpec``): -1 for column linears (``wq``, ``wk``, ``wv``,
+    leaf ``name``, a full name (the JAX package's ``PartitionSpec``).
+
+    Under ``groups.`` (the hybrid and ssm families) the name after the
+    prefix decides, never its last part alone: -1 for the Mamba2
+    ``in_x.w``, ``in_z.w``, ``in_dt``, ``conv_x``, ``norm``, ``A_log``,
+    ``D`` and ``dt_bias``, the mLSTM ``up_v.w``, ``up_z.w`` and ``norm``
+    and the LoRA ``b``; -2 for the two ``out.w``; None for the rest (the
+    Mamba2 ``in_bc``, ``conv_bc`` and ``ln``, the mLSTM q/k/gate weights,
+    ``conv`` and ``ln``, every sLSTM leaf, whose ``ffn.up``/``ffn.down``
+    and ``norm`` share last parts with sharded leaves, and the LoRA
+    ``a``).
+
+    Elsewhere (the dense, MoE, vlm and enc-dec leaves and the shared
+    zamba2 block): -1 for column linears (``wq``, ``wk``, ``wv``,
     ``gate``, ``up``, ``fc1``; not ``wk``/``wv`` when the KV heads are
     replicated over ``model``), -2 for row linears (``wo``, ``down``,
     ``fc2``) and the vocabulary tables, -3 for the stacked MoE experts
     ``(.., E, d_in, d_out)``; None for a leaf replicated over ``model``
     (norms, the router, the shared-expert gate)."""
+    if name.startswith("groups."):
+        rest = name[len("groups."):]
+        if rest in _TP_GROUP_LAST:
+            return -1
+        return -2 if rest in _TP_GROUP_ROW else None
     parts = name.split(".")
     if len(parts) >= 2 and parts[-2] == "experts":
         return -3

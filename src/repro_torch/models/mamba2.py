@@ -1,8 +1,8 @@
 """Mamba2 (SSD) blocks: the chunked-parallel training scan.  Counterpart of
-``repro.models.mamba2`` at tensor-parallel degree 1 (``ssd_reference``,
-``_segsum``, ``ssd_chunked``, ``causal_conv``, ``_grouped_rmsnorm``,
-``mamba_block_apply`` and the block's parameter layout); the decode step
-and its cache belong to serving and are not here.
+``repro.models.mamba2`` (``ssd_reference``, ``_segsum``, ``ssd_chunked``,
+``causal_conv``, ``_grouped_rmsnorm``, ``mamba_block_apply`` and the
+block's parameter layout); the decode step and its cache belong to
+serving and are not here.
 
 State-space duality, chunked (Mamba2 paper §6): within a chunk of ``c``
 steps the recurrence is a masked quadratic form; across chunks a Python
@@ -26,6 +26,15 @@ A block's parameters arrive as a dict keyed by their names under
 ``groups.mamba.`` (``"in_x.w"``, ``"A_log"``, ...), one block's slice of
 the stacked leaves.  ``A_log``, ``D`` and ``dt_bias`` are fp32 whatever
 the parameter dtype (``FP32_LEAVES``), as the JAX package draws them.
+
+Tensor parallelism (``ctx.tp > 1``): the SSD heads are split over
+``model`` in the head-major channel layout, so each rank's columns of
+``in_x``/``in_z``/``in_dt``/``conv_x``/``norm`` and its entries of
+``A_log``/``D``/``dt_bias`` are ``H / tp`` whole heads, and ``out`` is
+row-parallel, between ``tp_copy`` and ``tp_reduce``.  The ``(2 N)``-wide
+B/C projection and its conv kernel are replicated and read under
+``tp_shared`` (each rank's gradient covers only its heads' use of them);
+the gated norm is per head, so it needs no collective.
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import ShardCtx, linear, rmsnorm
+from repro_torch.models.layers import (ShardCtx, linear, maybe_tp_shared,
+                                       rmsnorm, sp_shared, tp_copy,
+                                       tp_reduce)
 
 #: the block's leaves kept in fp32 whatever the parameter dtype
 FP32_LEAVES = ("A_log", "D", "dt_bias")
@@ -196,19 +207,21 @@ def _grouped_rmsnorm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
 
 def mamba_block_apply(p: dict, x: torch.Tensor, cfg,
                       ctx: ShardCtx) -> torch.Tensor:
-    """Pre-norm Mamba2 block.  x: (B, S, d) in the compute dtype; returns
-    ``x + mamba(norm(x))``."""
+    """Pre-norm Mamba2 block.  x: (B, S, d) in the compute dtype (this
+    rank's slice of the sequence under SP); returns ``x +
+    mamba(norm(x))``, on this rank's ``H / tp`` heads under TP."""
     _, _, hd, n, _ = dims(cfg)
-    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    h = rmsnorm(sp_shared(p["ln"], ctx), x, cfg.norm_eps)
+    h = tp_copy(h, ctx)                          # the whole sequence
     b, s, _ = h.shape
-    xs = linear(p["in_x.w"], h, ctx)                        # (B,S,d_in)
+    xs = linear(p["in_x.w"], h, ctx)                        # (B,S,d_in/tp)
     z = linear(p["in_z.w"], h, ctx)
-    bc = linear(p["in_bc"], h, ctx)                         # (B,S,2N)
+    bc = linear(maybe_tp_shared(p["in_bc"], ctx), h, ctx)   # (B,S,2N)
     dt = F.softplus(linear(p["in_dt"], h, ctx).float()
-                    + p["dt_bias"].float())                 # (B,S,H)
+                    + p["dt_bias"].float())                 # (B,S,H/tp)
     with record_function(CONV):
         xs = causal_conv(xs, p["conv_x"])
-        bc = causal_conv(bc, p["conv_bc"])
+        bc = causal_conv(bc, maybe_tp_shared(p["conv_bc"], ctx))
     Bm, Cm = bc[..., :n], bc[..., n:]
     A = -torch.exp(p["A_log"].float())
     xh = xs.reshape(b, s, -1, hd)
@@ -217,4 +230,4 @@ def mamba_block_apply(p: dict, x: torch.Tensor, cfg,
     y = y + p["D"].float()[:, None] * xh.float()
     y = y.reshape(b, s, -1).to(ctx.compute_dtype)
     y = _grouped_rmsnorm(p["norm"], y, z, hd, cfg.norm_eps)
-    return x + linear(p["out.w"], y, ctx)
+    return x + tp_reduce(linear(p["out.w"], y, ctx), ctx)

@@ -33,7 +33,10 @@ under ``groups.``, which sort after ``embed`` and ``final_norm``:
 A group runs the shared dense block with ``w + a @ b`` (rank
 ``ZAMBA_LORA_RANK``, fp32 product cast to ``w``'s dtype) in place of
 ``attn.wq``, ``mlp.gate`` and ``mlp.up``, then its ``attn_every`` Mamba2
-blocks (``models.mamba2``).  ``lora.*.b`` starts at zero.
+blocks (``models.mamba2``).  ``lora.*.b`` starts at zero.  Under TP the
+patch is made in shard space, ``w_local + a @ b_local``: ``b`` is
+sharded like ``w``'s columns, and ``a``, replicated, is read under
+``tp_shared``.
 
 The ssm family (xLSTM) stacks ``G = n_layers // slstm_every`` groups
 under ``groups.``, each ``slstm_every - 1`` mLSTM blocks then one sLSTM
@@ -79,18 +82,20 @@ function, the vocabulary tables in the lookup and in each loss chunk.
 rank's slice before it draws the next, so the global parameters are the
 same at every FSDP degree and one leaf is the largest transient.
 
-Tensor parallelism (``ctx.tp > 1``, the dense, MoE, audio and vlm
-families): every leaf that ``layers.tp_dim`` names holds this rank's
-slice along that dim (composed with the FSDP dim: a column weight is
-``P(fsdp, model)``), at the global shapes of the JAX package at that
-``tp``: the vocabulary padded to a multiple of ``tp`` (``pad_vocab``),
-the q heads to the ``head_layout``'s ``n_h_pad``, the experts to
-``E_pad``.  The kv weights are replicated over ``model`` when ``kv_heads
-< tp``.  ``init_params`` draws each global leaf and slices it, so a seed
-gives the same global weights at any ``tp`` where nothing is padded, as
-the JAX package's init does.  The hybrid and ssm families raise
-``NotImplementedError`` at ``tp > 1``.  ``loss`` takes the rotary
-positions from the labels, which hold the whole sequence under SP too.
+Tensor parallelism (``ctx.tp > 1``, every family): every leaf that
+``layers.tp_dim`` names holds this rank's slice along that dim (composed
+with the FSDP dim: a column weight is ``P(fsdp, model)``), at the global
+shapes of the JAX package at that ``tp``: the vocabulary padded to a
+multiple of ``tp`` (``pad_vocab``), the q heads (and the zamba2 LoRA
+``wq.b`` columns with them) to the ``head_layout``'s ``n_h_pad``, the
+experts to ``E_pad``.  The kv weights are replicated over ``model`` when
+``kv_heads < tp``.  The Mamba2 blocks hold ``H / tp`` SSD heads, the
+mLSTM blocks ``xlstm.vh_layout``'s heads x v-parts, and the sLSTM
+blocks run replicated.  ``init_params`` draws each global leaf and
+slices it, so a seed gives the same global weights at any ``tp`` where
+nothing is padded, as the JAX package's init does.  ``loss`` takes the
+rotary positions from the labels, which hold the whole sequence under SP
+too.
 Under SP a whole-sequence float input (the vlm ``embeds``, the audio
 ``enc_embeds`` and both stacks' sinusoidal positions, built over the
 whole sequence) is sliced to this rank's part of the sequence
@@ -129,7 +134,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models import xlstm
 from repro_torch.models.layers import (ShardCtx, embedding_lookup, fsdp_dim,
-                                       gather_params, head_layout, pad_vocab,
+                                       gather_params, head_layout,
+                                       maybe_tp_shared, pad_vocab,
                                        rmsnorm, sinusoidal_positions,
                                        sp_scatter_embeds, sp_shared, tp_copy,
                                        tp_dim, trunc_normal_)
@@ -142,10 +148,8 @@ DEC_PREFIX, ENC_PREFIX = "dec_blocks.", "enc_blocks."
 #: leaves (the JAX package's ``params`` key)
 STACK_PREFIX = {"dense": BLOCK_PREFIX, "vlm": BLOCK_PREFIX,
                 "moe": BLOCK_PREFIX, "hybrid": "groups.", "ssm": "groups."}
-#: the families the port builds
+#: the families the port builds (at any ``tp``)
 FAMILIES = (*STACK_PREFIX, "audio")
-#: the families the port builds at ``tp > 1``
-TP_FAMILIES = ("dense", "moe", "audio", "vlm")
 #: each family's rotary scheme (``ArchConfig.rope``): the ssm family has
 #: no positional input, the audio family adds sinusoidal positions under
 #: "none", the vlm family rotates by M-RoPE
@@ -205,12 +209,15 @@ def _attn_layout(cfg, prefix: str, lead: tuple, tp: int = 1) -> list:
         (prefix + "ln2.scale", (*lead, d), None)]
 
 
-def _hybrid_layout(cfg) -> list:
-    """The zamba2 groups and the shared block, in leaf order."""
+def _hybrid_layout(cfg, tp: int = 1) -> list:
+    """The zamba2 groups and the shared block, in leaf order (the q heads
+    and the LoRA ``wq.b`` columns padded as ``head_layout`` pads them at
+    ``tp``)."""
     d = cfg.d_model
     g = (cfg.n_layers // cfg.ssm.attn_every,)
-    d_out = {"gate": cfg.d_ff, "up": cfg.d_ff,
-             "wq": cfg.n_heads * cfg.head_dim}
+    n_q = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, tp).n_h_pad \
+        if tp > 1 else cfg.n_heads
+    d_out = {"gate": cfg.d_ff, "up": cfg.d_ff, "wq": n_q * cfg.head_dim}
     out = []
     for name in sorted(d_out):
         out += [(f"groups.lora.{name}.a", (*g, d, ZAMBA_LORA_RANK),
@@ -219,7 +226,7 @@ def _hybrid_layout(cfg) -> list:
                  "zeros")]
     out += mamba2.param_layout(cfg, (*g, cfg.ssm.attn_every),
                                "groups.mamba.")
-    out += _attn_layout(cfg, SHARED_PREFIX, ())
+    out += _attn_layout(cfg, SHARED_PREFIX, (), tp)
     return out + _mlp_layout(SHARED_PREFIX + "mlp.", (), d, cfg.d_ff)
 
 
@@ -247,7 +254,7 @@ def param_layout(cfg, tp: int = 1) -> list[tuple[str, tuple[int, ...],
     tail = [] if cfg.tie_embeddings \
         else [("unembed.table", (v, d), 0.02)]
     if cfg.family == "hybrid":
-        return io + _hybrid_layout(cfg) + tail
+        return io + _hybrid_layout(cfg, tp) + tail
     if cfg.family == "ssm":
         return io + _xlstm_layout(cfg) + tail
     if cfg.family == "audio":
@@ -277,9 +284,10 @@ def param_dims(cfg) -> dict[str, "int | None"]:
 def tp_dims(cfg, tp: int) -> dict[str, "int | None"]:
     """name -> the dim of the leaf (counted from its first) that ``model``
     shards at ``tp``, or None (every leaf at ``tp == 1``): the dims of
-    the JAX package's ``abstract_init`` specs that name ``model``."""
-    kv_rep = tp > 1 and head_layout(cfg.n_heads, cfg.n_kv_heads,
-                                    cfg.head_dim, tp).kv_replicated
+    the JAX package's ``abstract_init`` specs that name ``model``.  The
+    ssm family has no attention, so its heads take no ``head_layout``."""
+    kv_rep = tp > 1 and cfg.family != "ssm" and head_layout(
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, tp).kv_replicated
     out = {}
     for name, shape, _ in param_layout(cfg, tp):
         dim = tp_dim(name, kv_rep) if tp > 1 else None
@@ -329,10 +337,28 @@ def init_leaf_(p: torch.Tensor, init: "float | str | None",
         trunc_normal_(p, init, generator)
 
 
-def _lora_patch(w: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """``w + a @ b``, the product in fp32 and cast to ``w``'s dtype."""
+def _lora_patch(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                ctx: ShardCtx) -> torch.Tensor:
+    """``w + a @ b``, the product in fp32 and cast to ``w``'s dtype.
+    Under TP ``w`` and ``b`` are this rank's columns and ``a`` is read
+    under ``tp_shared``: its gradient here covers only those columns
+    (JAX ``_lora_patch``)."""
+    a = maybe_tp_shared(a, ctx)
     return w + (a.float() @ b.float()).to(w.dtype)
+
+
+def _check_recurrent_heads(cfg, tp: int) -> None:
+    """``ValueError`` unless the recurrent blocks split over ``model`` at
+    ``tp``: whole Mamba2 heads on every rank, or an mLSTM layout of
+    ``xlstm.vh_layout``."""
+    if cfg.family == "hybrid":
+        heads = mamba2.dims(cfg)[1]
+        if heads % tp:
+            raise ValueError(f"{cfg.name}: {heads} SSD heads do not split "
+                             f"over tp={tp}")
+    elif cfg.family == "ssm":
+        _, hn, _, dv = xlstm.mlstm_dims(cfg)
+        xlstm.vh_layout(hn, dv, tp)
 
 
 class Model(nn.Module):
@@ -349,13 +375,8 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family!r} family is not ported "
                 f"(the port has {', '.join(FAMILIES)})")
-        if ctx.tp > 1 and cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism (tp={ctx.tp}) of the "
-                f"{cfg.family!r} family is not ported yet; the port runs "
-                f"it for the {', '.join(TP_FAMILIES)} families, and TP "
-                f"of the hybrid and ssm families is the next slice "
-                f"(ROADMAP)")
+        if ctx.tp > 1:
+            _check_recurrent_heads(cfg, ctx.tp)
         if cfg.rope != ROPE.get(cfg.family, "rope"):
             raise NotImplementedError(f"{cfg.name}: rope={cfg.rope!r} in "
                                       f"the {cfg.family!r} family")
@@ -529,7 +550,7 @@ class Model(nn.Module):
         patched = dict(shared)
         for w, name in LORA_TARGETS.items():
             patched[w] = _lora_patch(shared[w], p_g[f"lora.{name}.a"],
-                                     p_g[f"lora.{name}.b"])
+                                     p_g[f"lora.{name}.b"], ctx)
         remat = self._remat()
         dense = self._gathered(tf.dense_block_apply)
         args = (patched, x, positions, cfg, ctx)

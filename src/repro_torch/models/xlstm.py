@@ -1,10 +1,9 @@
 """xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
 (scalar memory, sequential scan), Beck et al., 2024.  Counterpart of
-``repro.models.xlstm`` at tensor-parallel degree 1 (``mlstm_reference``,
-``mlstm_chunked``, ``mlstm_block_apply``, ``slstm_scan``,
+``repro.models.xlstm`` (``mlstm_reference``, ``mlstm_chunked``,
+``_vh_layout``, ``_slice_heads``, ``mlstm_block_apply``, ``slstm_scan``,
 ``slstm_block_apply`` and the blocks' parameter layouts); the decode step
-and the caches belong to serving and are not here, and the heads x
-v-parts split of tensor parallelism is the identity at degree 1.
+and the caches belong to serving and are not here.
 
 mLSTM is a gated linear-attention recurrence with exponential input gates
 and a running-max stabiliser.  ``mlstm_chunked`` is the chunkwise form:
@@ -42,6 +41,23 @@ the profiler ranges ``MLSTM`` and ``SLSTM``.  A block's parameters arrive
 as a dict keyed by their names under ``groups.mlstm.`` or
 ``groups.slstm.`` (``"up_v.w"``, ``"r_gates"``, ...), one block's slice of
 the stacked leaves.
+
+Tensor parallelism (``ctx.tp > 1``).  The mLSTM value dim is
+column-sharded as heads x v-parts (``vh_layout``): at ``tp <= n_heads``
+each rank holds ``n_heads / tp`` whole heads; past it each head's value
+rows (the rows of its ``C``, independent given the head's q, k and
+gates) split over ``r = tp / n_heads`` ranks, and the grouped norm's
+group is the ``dv / r`` values a rank holds, another function than at
+``tp = 1``, as in the JAX package.  q, k and the gates come from
+replicated weights read under ``tp_shared`` and are sliced to this
+rank's head(s) (``slice_heads``); ``out`` is row-parallel, between
+``tp_copy`` and ``tp_reduce``.  The sLSTM block runs replicated over
+``model``: without SP every rank computes it whole from the same input
+and holds the whole gradient of every leaf and of its input, so it has
+no collective; under SP ``tp_copy`` gathers the sequence, every rank
+scans all of it, keeps its own tokens' outputs (the global positions
+``m S/tp ...``) and runs the FFN on them, so every leaf is read under
+``sp_shared``.
 """
 from __future__ import annotations
 
@@ -52,8 +68,11 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import ShardCtx, linear, rmsnorm
+from repro_torch.models.layers import (ShardCtx, linear, maybe_tp_shared,
+                                       rmsnorm, sp_shared, tp_copy,
+                                       tp_reduce)
 from repro_torch.models.mamba2 import _grouped_rmsnorm, causal_conv
+from repro_torch.parallel.collectives import tp_index
 
 NEG = -1e30
 #: run the sLSTM recurrent product and gate inputs in bf16 (the state
@@ -223,25 +242,63 @@ def mlstm_chunked(q, k, v, i_gate, f_gate, chunk: int, carry=None):
     return y[:, :l], (C, n, m)
 
 
+def vh_layout(n_heads: int, dv: int, tp: int) -> tuple[int, int, int]:
+    """(heads a rank holds, values a rank holds per head, ``r``) of the
+    heads x v-parts split over ``tp`` ranks (JAX ``_vh_layout``): whole
+    heads while ``tp <= n_heads``, else one head's ``dv / r`` values,
+    ``r = tp / n_heads`` ranks to a head.  ``ValueError`` when neither
+    divides."""
+    if tp <= n_heads:
+        if n_heads % tp:
+            raise ValueError(f"{n_heads} mLSTM heads over tp={tp}")
+        return n_heads // tp, dv, 1
+    r = tp // n_heads
+    if tp % n_heads or dv % r:
+        raise ValueError(f"{n_heads} mLSTM heads of {dv} values over "
+                         f"tp={tp}")
+    return 1, dv // r, r
+
+
+def slice_heads(t: torch.Tensor, hn: int, ctx: ShardCtx) -> torch.Tensor:
+    """(B, S, hn, ...) computed for every head -> this model rank's heads
+    along dim 2: its ``hn / tp``, or past ``tp = hn`` the one head its
+    v-part belongs to (JAX ``_slice_heads``); ``t`` itself at ``tp =
+    1``."""
+    if ctx.tp <= 1:
+        return t
+    if ctx.tp <= hn:
+        per = hn // ctx.tp
+        return t.narrow(2, tp_index() * per, per)
+    return t.narrow(2, tp_index() // (ctx.tp // hn), 1)
+
+
 def mlstm_block_apply(p: dict, x: torch.Tensor, cfg,
                       ctx: ShardCtx) -> torch.Tensor:
-    """Pre-norm mLSTM block.  x: (B, S, d) in the compute dtype; returns
-    ``x + out(norm(mlstm(...)) * silu(z))``."""
+    """Pre-norm mLSTM block.  x: (B, S, d) in the compute dtype (this
+    rank's slice of the sequence under SP); returns ``x +
+    out(norm(mlstm(...)) * silu(z))``, on this rank's heads x v-parts
+    under TP."""
     _, hn, dqk, dv = mlstm_dims(cfg)
-    h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    h_loc, v_loc, _ = vh_layout(hn, dv, ctx.tp)
+    h = rmsnorm(sp_shared(p["ln"], ctx), x, cfg.norm_eps)
+    h = tp_copy(h, ctx)                          # the whole sequence
     b, s, _ = h.shape
-    v = linear(p["up_v.w"], h, ctx)                         # (B,S,d_in)
+    v = linear(p["up_v.w"], h, ctx)                         # (B,S,d_in/tp)
     z = linear(p["up_z.w"], h, ctx)
-    hc = causal_conv(h, p["conv"])
-    q = linear(p["wq"], hc, ctx).reshape(b, s, hn, dqk)
-    k = linear(p["wk"], hc, ctx).reshape(b, s, hn, dqk)
-    gif = h.float() @ p["w_if"].float() + p["b_if"].float()
+    hc = causal_conv(h, maybe_tp_shared(p["conv"], ctx))
+    q = linear(maybe_tp_shared(p["wq"], ctx), hc, ctx).reshape(b, s, hn, dqk)
+    k = linear(maybe_tp_shared(p["wk"], ctx), hc, ctx).reshape(b, s, hn, dqk)
+    gif = h.float() @ maybe_tp_shared(p["w_if"], ctx).float() \
+        + maybe_tp_shared(p["b_if"], ctx).float()
+    q, k = slice_heads(q, hn, ctx), slice_heads(k, hn, ctx)
+    ig = slice_heads(gif[..., :hn, None], hn, ctx)[..., 0]
+    fg = slice_heads(gif[..., hn:, None], hn, ctx)[..., 0]
     with record_function(MLSTM):
-        y, _ = mlstm_chunked(q, k, v.reshape(b, s, hn, dv), gif[..., :hn],
-                             gif[..., hn:], cfg.ssm.chunk)
-    y = y.reshape(b, s, hn * dv).to(ctx.compute_dtype)
-    y = _grouped_rmsnorm(p["norm"], y, z, dv, cfg.norm_eps)
-    return x + linear(p["out.w"], y, ctx)
+        y, _ = mlstm_chunked(q, k, v.reshape(b, s, h_loc, v_loc), ig, fg,
+                             cfg.ssm.chunk)
+    y = y.reshape(b, s, h_loc * v_loc).to(ctx.compute_dtype)
+    y = _grouped_rmsnorm(p["norm"], y, z, v_loc, cfg.norm_eps)
+    return x + tp_reduce(linear(p["out.w"], y, ctx), ctx)
 
 
 # --------------------------------------------------------------------------
@@ -300,9 +357,16 @@ def slstm_block_apply(p: dict, x: torch.Tensor, cfg,
                       ctx: ShardCtx) -> torch.Tensor:
     """Pre-norm sLSTM block, then the gated FFN (``gelu`` in its tanh
     form, as ``jax.nn.gelu``'s default).  x: (B, S, d) in the compute
-    dtype."""
+    dtype.  Replicated over ``model``; under SP ``x`` is this rank's
+    slice of the sequence, the scan runs over the gathered whole and its
+    output is sliced back to this rank's tokens."""
     d, hn = cfg.d_model, cfg.n_heads
+    sp = ctx.tp > 1 and ctx.seq_parallel
+    if sp:
+        p = {name: sp_shared(w, ctx) for name, w in p.items()}
     h = rmsnorm(p["ln"], x, cfg.norm_eps)
+    if sp:
+        h = tp_copy(h, ctx)                      # the whole sequence
     b, s, _ = h.shape
     hc = causal_conv(h, p["conv"])
     wg, bg = p["w_gates"].float(), p["b_gates"].float()
@@ -315,6 +379,9 @@ def slstm_block_apply(p: dict, x: torch.Tensor, cfg,
     with record_function(SLSTM):
         y, _ = slstm_scan(gates, p["r_gates"], hn)
     y = y.reshape(b, s, d).to(ctx.compute_dtype)
+    if sp:                                       # this rank's tokens
+        n = s // ctx.tp
+        y = y.narrow(1, tp_index() * n, n)
     x = x + rmsnorm(p["norm"], y, cfg.norm_eps)
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     a, g = linear(p["ffn.up"], h2, ctx).chunk(2, dim=-1)

@@ -82,7 +82,7 @@ global norm (and Adafactor its factored means) over the FSDP axes
 refuses FSDP with the JAX package's ``ValueError``.
 
 Tensor parallelism (a mesh with a ``model`` axis: ``launch.mesh.init_mesh``
-or ``init_pod_mesh(..., tp=)``; the dense, MoE, audio and vlm families):
+or ``init_pod_mesh(..., tp=)``; every family):
 ``build`` reads the degree from the mesh and builds ``ShardCtx(tp=...,
 seq_parallel=plan.seq_parallel and tp > 1)``, as the JAX package does.
 The DP axes stay ``pod``/``data``: every DP reduction (the loss's token
@@ -122,7 +122,7 @@ from repro_torch.core import bucketing
 from repro_torch.core.compression import base as cbase
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.layers import ShardCtx, fsdp_dim
-from repro_torch.models.model import FAMILIES, TP_FAMILIES, Model
+from repro_torch.models.model import FAMILIES, Model
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import commplan as cp
 from repro_torch.train import optimizer as opt_mod
@@ -208,16 +208,12 @@ class TrainSetup:
                 for n, _ in self.model.named_parameters()]
 
 
-def _check_ported(arch: ArchConfig, plan, tp: int = 1) -> None:
+def _check_ported(arch: ArchConfig, plan) -> None:
     if plan.dp_mode not in ("ddp", "fsdp"):
         raise ValueError(f"dp_mode={plan.dp_mode!r}")
     todo = []
     if arch.family not in FAMILIES:
         todo.append(f"the {arch.family!r} family")
-    if tp > 1 and arch.family not in TP_FAMILIES:
-        todo.append(f"tensor parallelism (tp={tp}) of the {arch.family!r} "
-                    f"family: the next slice, after the "
-                    f"{', '.join(TP_FAMILIES)} families")
     if plan.param_dtype not in ("float32", "bfloat16"):
         todo.append(f"param_dtype={plan.param_dtype!r}")
     if todo:
@@ -254,7 +250,7 @@ def build(arch: ArchConfig, device: "str | torch.device | None" = None,
     sizes = mesh_mod.axis_sizes()
     dp_axes = mesh_mod.present_axes()
     tp = mesh_mod.tp_size()
-    _check_ported(arch, plan, tp)
+    _check_ported(arch, plan)
     if plan.dp_mode == "fsdp":
         fsdp_axes = tuple(a for a in dp_axes
                           if (a != "pod" or plan.fsdp_shard_pods)

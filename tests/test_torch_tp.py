@@ -2,11 +2,13 @@
 layouts, the sharded dim and global shape of every leaf, the slicing of
 global parameters to each model rank and back, the sinusoidal positions
 of each sequence-parallel slice, the mesh's coordinates, and the
-refusals (the hybrid and ssm families at ``tp > 1``; TP checkpoints).
+refusals (a ``tp`` the recurrent blocks' heads do not split over; TP
+checkpoints).
 Each layout is held against the JAX package's (``layers.head_layout``,
 ``layers.pad_vocab``, ``Model.abstract_init`` specs); the multi-rank
-steps are ``test_torch_tp_step.py`` (dense, MoE) and
-``test_torch_tp_families.py`` (audio, vlm)."""
+steps are ``test_torch_tp_step.py`` (dense, MoE),
+``test_torch_tp_families.py`` (audio, vlm) and
+``test_torch_tp_recurrent.py`` (hybrid, ssm)."""
 import dataclasses
 import types
 
@@ -16,7 +18,7 @@ import pytest
 DENSE_MOE = ("tinyllama-1.1b", "granite-8b", "mistral-nemo-12b", "qwen3-32b",
              "qwen2-moe-a2.7b", "arctic-480b")
 AUDIO_VLM = ("seamless-m4t-medium", "qwen2-vl-7b")
-#: the families that still refuse ``tp > 1``
+#: the recurrent families (hybrid, ssm)
 OTHER = ("zamba2-2.7b", "xlstm-350m")
 ALL = DENSE_MOE + AUDIO_VLM + OTHER
 
@@ -141,7 +143,11 @@ def test_kv_heads_replicate_past_tp():
                                             ("seamless-m4t-medium", 2, 2),
                                             ("seamless-m4t-medium", 4, 1),
                                             ("qwen2-vl-7b", 2, 1),
-                                            ("qwen2-vl-7b", 4, 2)])
+                                            ("qwen2-vl-7b", 4, 2),
+                                            ("zamba2-2.7b", 2, 2),
+                                            ("zamba2-2.7b", 4, 1),
+                                            ("xlstm-350m", 2, 2),
+                                            ("xlstm-350m", 8, 1)])
 def test_load_slices_and_concatenation_round_trip(monkeypatch, name, tp,
                                                   fsdp):
     """``convert.load_params`` keeps each rank's slice of the JAX global
@@ -258,21 +264,29 @@ def test_sp_slices_take_the_global_sinusoids(monkeypatch, tp, sp):
 
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_refuse_tp(name):
-    """The hybrid and ssm families raise at ``tp > 1``, from ``Model`` and
-    from ``train_step``'s check, naming the next slice; at ``tp = 1`` they
-    build.  The audio and vlm families build at ``tp`` 2 and 4, with SP
-    and without (``test_audio_and_vlm_build_at_tp``)."""
+    """The hybrid and ssm families refuse only a ``tp`` their recurrent
+    heads do not split over (``ValueError``: 16 SSD heads over 3 or 32
+    ranks, 4 mLSTM heads over 3 or 6); they
+    build at ``tp`` 2, 4 and (the mLSTM v-parts) 8, with SP and without,
+    each leaf at its local shape, and ``train_step``'s check passes
+    them."""
     from repro_torch.configs import base as tcfgs
     from repro_torch.models.layers import ShardCtx
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, local_shape, param_layout
     from repro_torch.train import train_step as tts
     cfg = tcfgs.reduced(tcfgs.get(name))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Model(cfg, ShardCtx(tp=2), device="meta")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tts._check_ported(cfg, cfg.plan, tp=2)
-    Model(cfg, ShardCtx(), device="meta")
-    tts._check_ported(cfg, cfg.plan, tp=1)
+    tts._check_ported(cfg, cfg.plan)
+    for tp in (3, 6) if cfg.family == "ssm" else (3, 32):
+        with pytest.raises(ValueError):
+            Model(cfg, ShardCtx(tp=tp), device="meta")
+    for tp in (2, 4, 8) if cfg.family == "ssm" else (2, 4):
+        for sp in (False, True):
+            model = Model(cfg, ShardCtx(tp=tp, seq_parallel=sp),
+                          device="meta")
+            for (leaf, shape, _), (_, p) in zip(param_layout(cfg, tp),
+                                                model.named_parameters()):
+                assert tuple(p.shape) == local_shape(
+                    leaf, shape, 1, tp, model.tp_dims[leaf]), leaf
 
 
 @pytest.mark.parametrize("name", AUDIO_VLM)
@@ -285,8 +299,8 @@ def test_audio_and_vlm_build_at_tp(name):
     from repro_torch.models.model import Model, local_shape, param_layout
     from repro_torch.train import train_step as tts
     cfg = tcfgs.reduced(tcfgs.get(name))
+    tts._check_ported(cfg, cfg.plan)
     for tp in (2, 4):
-        tts._check_ported(cfg, cfg.plan, tp=tp)
         for sp in (False, True):
             model = Model(cfg, ShardCtx(tp=tp, seq_parallel=sp),
                           device="meta")
