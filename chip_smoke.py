@@ -132,9 +132,9 @@ Phases, each fatal on failure:
      the same checks as above (no run profiled: the breakdown of one
      zamba2 step costs 40-50 s of host time).  Then
      the ssm slice (``family_phase("ssm", ...)``): ``xlstm-350m`` at full
-     width and depth
-     (3 groups of 7 mLSTM blocks and 1 sLSTM block, d_model 1024, 4
-     heads, vocab 50,304; 314,143,912 parameters) on its own plan (DDP,
+     width cut to ``FAMILY_LAYERS["ssm"]`` = 16 of 24 layers
+     (2 of its 3 groups of 7 mLSTM blocks and 1 sLSTM block, d_model
+     1024, 4 heads, vocab 50,304) on its own plan (DDP,
      ZeRO-1, ``remat="full"``): ZeRO-1 2 PowerSGD steps, 1 SignSGD and
      1 QSGD;
      the overlapped ZeRO-1 step 2 PowerSGD under ``overlap`` and 2 under
@@ -173,7 +173,8 @@ Phases, each fatal on failure:
      ``zero1 overlap none``, PowerSGD from this run): whether the
      feedback flips buckets to syncSGD is printed, not checked;
   7. checkpoint: the arch as configured (ZeRO-1, bf16 parameters, the
-     classic step, PowerSGD on the data axis; a 19.8 GB checkpoint) in a
+     classic step, PowerSGD on the data axis) at full width cut to
+     ``CKPT_LAYERS`` = 11 of 22 layers (an 11 GB checkpoint) in a
      temporary directory: 3 uninterrupted steps (A); a ``Trainer`` whose
      data iterator sends SIGTERM to its own process at the second batch
      and must save step 2 and return (B); a fresh ``Trainer`` that
@@ -264,7 +265,22 @@ Phases, each fatal on failure:
      FSDP), the leaves replicated over ``model`` the same bits on every
      rank, the PowerSGD launches per bucket and step, the card under 75
      GiB in use, and serial == overlap; each rank's peak and the step
-     times are printed.
+     times are printed.  Two cells resume from a checkpoint (the worker's
+     ``ckpt=true``): the FSDP x TP cell and ``tinyllama-1.1b`` at full
+     width cut to ``TP_CKPT_LAYERS`` = 4 layers with classic ZeRO-1 and
+     PowerSGD (first loss within ``TP_RTOL`` of a one-rank forward at
+     that depth); each saves step 1 (its FSDP and TP leaves written
+     slice by slice into the JAX package's global layout, the ZeRO-1 shards and the
+     PowerSGD ``q``/``err`` rows stacked over the ranks), and a fresh
+     setup restores it and takes step 2, whose loss and every rank's
+     on-card state fingerprints must be the uninterrupted run's
+     (``resume_identical``); the bytes, the save and restore seconds and
+     the host peaks are printed.  Then this process restores the FSDP x
+     TP cell's file on one rank at ``tp = 1`` with no FSDP
+     (``tp_elastic``): its parameters must be the cell's gathered ones
+     bit for bit, its fp32 forward on the cell's batch the cell's fp32
+     forward of the saved state within ``TP_RTOL``, and its bf16 forward
+     the cell's second loss within ``TP_ELASTIC_BF16_RTOL``.
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
@@ -277,7 +293,7 @@ HSDP shard buckets (6,553,600 and the last, 6,171,136) and the TP
 slice's shard buckets that no earlier shape has (``tp_layouts``: the
 classic ZeRO-1 step's last, the overlapped step's largest block and
 tail, the MoE slice's last, the audio and hybrid cells' overlapped
-largest block and tail); the ``kernels``
+largest block and tail, the resume cell's last); the ``kernels``
 line counts each kernel's launches in
 the overlapped ZeRO-1 run that drives it, in the live cells
 (``experiment_launches``), in the adaptive run (``adaptive_launches``),
@@ -298,9 +314,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1785,10 +1803,23 @@ def ssm_profiles() -> dict:
 
 
 AUDIO_ARCH = "seamless-m4t-medium"
-#: the families whose arch runs at full width and depth through
-#: ``family_phase``: (tag, arch)
+#: the families whose arch runs at full width through ``family_phase``,
+#: at full depth unless ``FAMILY_LAYERS`` cuts it: (tag, arch)
 FAMILY_PHASES = (("hybrid", HYBRID_ARCH), ("ssm", SSM_ARCH),
                  ("audio", AUDIO_ARCH))
+#: family phases cut in depth: xLSTM to 2 of its 3 groups (its steps are
+#: host-bound, 4.6-8.0 s at full depth, measured on one H100), which
+#: keeps the overlapped step's two stages
+FAMILY_LAYERS = {"ssm": 16}
+
+
+def family_arch(tag: str, name: str):
+    """A family phase's arch: ``name`` at full width and depth, or cut to
+    ``FAMILY_LAYERS[tag]`` layers."""
+    from repro_torch.configs import base as cfgs
+    if tag not in FAMILY_LAYERS:
+        return name
+    return dataclasses.replace(cfgs.get(name), n_layers=FAMILY_LAYERS[tag])
 
 
 def audio_block_params(arch, ctx, device, gen) -> dict:
@@ -2472,6 +2503,10 @@ def adaptive_cell() -> dict:
 #: whose fetch run B sends itself SIGTERM
 CKPT_STEPS = 3
 CKPT_KILL_AT = 2
+#: the checkpoint phase's depth, 11 of tinyllama's 22 layers: at full
+#: depth its 19.8 GB took two saves of ~17 s and a restore of ~15 s
+#: (measured on one H100)
+CKPT_LAYERS = 11
 
 
 class SigtermAt:
@@ -2498,10 +2533,10 @@ class SigtermAt:
         self.p.seek(step)
 
 
-def checkpoint_phase(n_buckets: int) -> dict:
-    """Full-size tinyllama-1.1b as the arch configures it (ZeRO-1, bf16
-    parameters, the classic step) with PowerSGD on the size-1 data axis,
-    in a temporary directory: run A takes ``CKPT_STEPS`` steps; run B, a
+def checkpoint_phase() -> dict:
+    """tinyllama-1.1b at full width cut to ``CKPT_LAYERS`` layers, as the
+    arch configures it (ZeRO-1, bf16 parameters, the classic step) with
+    PowerSGD on the size-1 data axis, in a temporary directory: run A takes ``CKPT_STEPS`` steps; run B, a
     ``Trainer`` with a checkpoint directory, gets SIGTERM from its own data
     iterator at batch ``CKPT_KILL_AT`` and must save that step and return;
     run C, a fresh ``Trainer`` on the directory, restores it and takes the
@@ -2509,21 +2544,26 @@ def checkpoint_phase(n_buckets: int) -> dict:
     state has A's bits (``state_prints``, fingerprints taken on the
     card).  Returns the sizes and times."""
     import resource
-    import shutil
-    import tempfile
 
     import torch
 
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.configs import base as cfgs
+    from repro_torch.core import bucketing
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.kernels import build as kbuild
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.models.model import Model
     from repro_torch.train import train_step as ts
     from repro_torch.train.schedule import ScheduleConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    arch = cfgs.get("tinyllama-1.1b")
+    arch = dataclasses.replace(cfgs.get("tinyllama-1.1b"),
+                               n_layers=CKPT_LAYERS)
+    n_buckets = bucketing.layout_for(list(Model(
+        arch, ShardCtx(param_dtype=torch.bfloat16), device="meta"
+    ).parameters()), arch.plan.bucket_mb).n_buckets
     dcfg = DataConfig(vocab=arch.vocab, seq_len=512, global_batch=4, seed=0)
 
     def trainer(ckpt_dir=None, kill_at=None):
@@ -2661,10 +2701,12 @@ def pod_specs() -> dict:
     }
 
 
-def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
+def run_ranks(nproc: int, module: str, args, label: str,
+              timeout: float = POD_TIMEOUT_S) -> tuple[str, float]:
     """``torchrun`` of ``module`` on ``nproc`` ranks of this host, in a
-    session of its own that is killed whole if it outlives POD_TIMEOUT_S;
-    fails unless every rank exits 0.  Returns (stdout, wall s)."""
+    session of its own that is killed whole if it outlives ``timeout``
+    seconds; fails unless every rank exits 0.  Returns (stdout, wall
+    s)."""
     import signal
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
@@ -2675,7 +2717,7 @@ def run_ranks(nproc: int, module: str, args, label: str) -> tuple[str, float]:
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=POD_TIMEOUT_S)
+        out, err = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
@@ -2900,6 +2942,13 @@ TP_FSDP_LAYERS = 4
 #: one-rank ZeRO-1 step peaks at 68.5 GiB (measured on one H100), and four
 #: ranks would put about 78 GiB on the card
 TP_HYBRID_LAYERS = 12
+#: the ZeRO-1 resume cell's depth: at full depth its state (the fp32
+#: master/m/v shards and the PowerSGD error feedback of four ranks, the
+#: bf16 parameters) would be about 24 GB on disk
+TP_CKPT_LAYERS = 4
+#: the TP torchrun group's time limit (its cells took 118.6 s before the
+#: two resume cells, measured on one H100)
+TP_TIMEOUT_S = 450
 #: the ssm TP cell's depth, 1 of xLSTM's 3 groups: the sLSTM scan is
 #: host-bound (~2 x 10^5 launches a one-rank step, 4.6-8.0 s, measured on
 #: one H100), every model rank scans the whole sequence under SP, and
@@ -2927,6 +2976,12 @@ TP_STEP_RTOL = 2e-3
 #: the planted fault (A_log, D, dt_bias of model rank 0 on every rank)
 #: gave 1.45e-3
 TP_HYBRID_RTOL = 2e-4
+#: the one-rank elastic restore's bf16 forward against the FSDP x TP
+#: cell's second loss (bf16, tp 2): the same parameters, bit for bit, so
+#: the gap is bf16 rounding of each model rank's partial sums, 3.53e-5 on
+#: one H100 (PERF.md, section 6, PR 28); its fp32 forward is held to the
+#: cell's fp32 forward of the same state within TP_RTOL
+TP_ELASTIC_BF16_RTOL = 2e-4
 
 #: label -> (the worker's ``--variant`` fields, the one-rank tp = 1
 #: reference (``tp_references``): a run of the train phase by label, whose
@@ -2952,11 +3007,20 @@ TP_RUNS = {
         f"compression=powersgd,steps=2",
         ("forward", MOE_ARCH, TP_MOE_LAYERS, "bfloat16"), (TP_MOE_RTOL,),
         [], ["data"], PSGD_PER_BUCKET),
-    # uncompressed: after one update a wrong gradient shows in the loss
+    # uncompressed: after one update a wrong gradient shows in the loss;
+    # resumed from its checkpoint of step 1 (global leaves split over
+    # data and model, AdamW moments), which tp_elastic restores on one rank
     "tp fsdp none": (f"dp_mode=fsdp,zero1=false,layers={TP_FSDP_LAYERS},"
-                     f"steps=2", ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS,
-                                  FSDP_PLAN),
+                     f"steps=2,ckpt=true",
+                     ("steps", "tinyllama-1.1b", TP_FSDP_LAYERS, FSDP_PLAN),
                      (TP_RTOL, TP_STEP_RTOL), ["data"], [], {}),
+    # classic ZeRO-1 PowerSGD cut to TP_CKPT_LAYERS, resumed from its
+    # checkpoint of step 1: the per-rank ZeRO-1 shards and PowerSGD q/err
+    # rows under TP
+    "tp zero1 powersgd ckpt": (
+        f"compression=powersgd,layers={TP_CKPT_LAYERS},steps=2,ckpt=true",
+        ("forward", "tinyllama-1.1b", TP_CKPT_LAYERS, "bfloat16"),
+        (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
     # full width and depth on its plan (ZeRO-1, remat="full"): the
     # two-stack overlapped backward, the memory's tp_copy and the SP slice
     # of the frames and of both stacks' sinusoids
@@ -3069,7 +3133,8 @@ def tp_references(hist: dict) -> dict:
 def tp_layouts() -> dict:
     """The TP phase's bucket layouts on a rank of data 2 x model 2 (no
     allocation): the classic ZeRO-1 step's and the overlapped one's of
-    ``tinyllama-1.1b``, the MoE slice's classic ZeRO-1 one, and the
+    ``tinyllama-1.1b``, the classic ZeRO-1 one of the resume cell (cut
+    to ``TP_CKPT_LAYERS``), the MoE slice's classic ZeRO-1 one, and the
     overlapped ZeRO-1 ones of the audio cell (``seamless-m4t-medium``)
     and of the hybrid cell (``zamba2-2.7b`` cut to
     ``TP_HYBRID_LAYERS``)."""
@@ -3089,17 +3154,22 @@ def tp_layouts() -> dict:
     hybrid = Model(dataclasses.replace(cfgs.get(HYBRID_ARCH),
                                        n_layers=TP_HYBRID_LAYERS), ctx,
                    device="meta")
+    cut = Model(dataclasses.replace(cfgs.get("tinyllama-1.1b"),
+                                    n_layers=TP_CKPT_LAYERS), ctx,
+                device="meta")
     return {"zero1": bucketing.layout_for(list(dense.parameters()), 25),
+            "zero1 ckpt": bucketing.layout_for(list(cut.parameters()), 25),
             "overlap": overlap.layout_for_model(dense, 25),
             "moe zero1": bucketing.layout_for(list(moe.parameters()), 25),
             "audio overlap": overlap.layout_for_model(audio, 25),
             "hybrid overlap": overlap.layout_for_model(hybrid, 25)}
 
 
-def tp_phase(kind: str, first: dict) -> dict:
+def tp_phase(kind: str, first: dict, ckpt_dir: str, smi: str) -> dict:
     """The TP cells of ``TP_RUNS``: one ``torchrun`` of
     ``train/pod_worker.py`` on 4 ranks of this card as data 2 x model 2,
-    running each as a ``--variant`` in turn. Each must give finite losses;
+    running each as a ``--variant`` in turn (a ``ckpt=true`` cell saves
+    under ``ckpt_dir``). Each must give finite losses;
     the configured axes (``tp`` 2, SP on, the FSDP and compress axes); its
     first losses within their limits of the one-rank tp = 1 reference's
     (``first``: ``TP_RUNS``' reference -> its losses, ``tp_references``);
@@ -3107,13 +3177,16 @@ def tp_phase(kind: str, first: dict) -> dict:
     (gathered over ``data`` under FSDP); the leaves replicated over
     ``model`` the same bits on every rank; the PowerSGD launches per
     bucket and step; the card under ``TP_CARD_GIB`` in use; and the
-    overlapped cell's serial schedule the same bits.  Prints each rank's
-    peak, the step times and every cell's gaps before it fails on any.
-    Returns {label: the worker's record}."""
+    overlapped cell's serial schedule the same bits; a resumed cell
+    ``resume_identical``.  Prints each rank's peak, the step times, the
+    resumed cells' bytes, seconds and host peaks (with ``smi``, the
+    card's name and power limit) and every cell's gaps before it fails on
+    any.  Returns {label: the worker's record}."""
     variants = [f"--variant={label}:{fields}"
                 for label, (fields, *_) in TP_RUNS.items()]
     out, wall = run_ranks(4, "repro_torch.train.pod_worker",
-                          (*TP_WORKER_ARGS, *variants), "tp")
+                          (*TP_WORKER_ARGS, "--ckpt-dir", ckpt_dir,
+                           *variants), "tp", TP_TIMEOUT_S)
     got = {rec["label"]: rec
            for rec in json.loads(out.strip().splitlines()[-1])["variants"]}
     log(f"[tp] {len(got)} variants in one torchrun group of 4 ranks "
@@ -3150,6 +3223,20 @@ def tp_phase(kind: str, first: dict) -> dict:
             bad.append(f"launches {rec['launches']}, want {want}")
         if rec["card_used_gb"] >= TP_CARD_GIB:
             bad.append(f"card in use {rec['card_used_gb']:.2f} GiB")
+        if "ckpt=true" in TP_RUNS[label][0]:
+            if rec.get("resume_identical") is not True:
+                bad.append(f"resumed run not the uninterrupted one: losses "
+                           f"{rec.get('resume_losses')} vs "
+                           f"{rec['losses'][1:]}")
+            log(f"[tp] {label} checkpoint ({smi}): step 1 "
+                f"{rec.get('ckpt_bytes', 0):,} bytes, save "
+                f"{rec.get('save_s', 0):.2f} s, restore "
+                f"{rec.get('restore_s', 0):.2f} s (slowest rank), resumed "
+                f"losses {rec.get('resume_losses')} (uninterrupted "
+                f"{rec['losses'][1:]}), identical "
+                f"{rec.get('resume_identical')}; host peak GiB per rank "
+                f"{rec.get('host_peak_gb')}; device peak GiB per rank "
+                f"{rec['peak_mem_gb']}")
         log(f"[tp] {label}: {rec['n_params']:,} parameters ({rec['arch']}, "
             f"{rec['n_layers']} layers), dp_mode {rec['dp_mode']}, zero1 "
             f"{rec['zero1']}, overlap {rec['overlap']}, fsdp "
@@ -3172,6 +3259,84 @@ def tp_phase(kind: str, first: dict) -> dict:
     if failed:
         raise AssertionError(" | ".join(failed))
     return recs
+
+
+def tp_elastic(rec: dict, smi: str) -> dict:
+    """The FSDP x TP cell's checkpoint of step 1 (``rec``: its record,
+    written at data 2 x model 2) restored in this process on one rank at
+    tp = 1 with no FSDP: its parameters must be the cell's gathered ones
+    bit for bit (``ckpt_prints``); its forward on the cell's batch in
+    fp32 must give the cell's fp32 forward of the saved state
+    (``ckpt_loss_fp32``) within ``TP_RTOL``, and in bf16 the cell's
+    second loss within ``TP_ELASTIC_BF16_RTOL``.  Returns the sizes and
+    times."""
+    import resource
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import base as cfgs
+    from repro_torch.data.synthetic import DataConfig, batch_at
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.pod_worker import fingerprint, forward_loss
+    dev = torch.device("cuda", 0)
+    mesh_mod.init_world(dev)
+    try:
+        arch = dataclasses.replace(cfgs.get("tinyllama-1.1b"),
+                                   n_layers=TP_FSDP_LAYERS)
+        setup = ts.build(arch, dev, overlap=False, compression="none",
+                         **dict(FSDP_PLAN))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, cursor = CheckpointManager(rec["ckpt_path"], setup).restore(1)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        prints = [fingerprint(p) for p in setup.model.parameters()]
+        batch = batch_at(DataConfig(vocab=arch.vocab, seq_len=512,
+                                    global_batch=4, seed=0), 0)
+        loss = forward_loss(setup, batch, torch.bfloat16)
+        loss32 = forward_loss(setup, batch, torch.float32)
+        want, want32 = rec["losses"][1], rec["ckpt_loss_fp32"]
+        gap = abs(loss - want) / abs(want)
+        gap32 = abs(loss32 - want32) / abs(want32)
+        same = prints == [tuple(p) for p in rec["ckpt_prints"]]
+        out = dict(loss=loss, want=want, gap=gap, loss_fp32=loss32,
+                   want_fp32=want32, gap_fp32=gap32, params_identical=same,
+                   restore_s=restore_s, cursor=cursor, tp=setup.tp,
+                   fsdp_axes=list(setup.fsdp_axes),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   host_peak_gib=resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        log(f"[tp elastic] ({smi}) {rec['arch']} {rec['n_layers']} layers, "
+            f"written at data 2 x model 2 with FSDP, restored on one rank "
+            f"(tp {setup.tp}, fsdp {setup.fsdp_axes}) in {restore_s:.2f} s: "
+            f"fp32 forward {loss32!r} vs the cell's {want32!r} (rel "
+            f"{gap32:.3g}, limit {TP_RTOL:g}); bf16 forward {loss!r} vs the "
+            f"cell's second loss {want!r} (rel {gap:.3g}, limit "
+            f"{TP_ELASTIC_BF16_RTOL:g}); parameters the cell's gathered "
+            f"bits {same}; peak {out['peak_gib']:.2f} GiB since the build, "
+            f"host peak {out['host_peak_gib']:.2f} GiB (this process's, "
+            f"every phase)")
+        del state, setup, batch
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    bad = []
+    if not (same and cursor == 1):
+        bad.append(f"parameters differ from the cell's (or cursor {cursor})")
+    if not gap32 <= TP_RTOL:
+        bad.append(f"fp32 loss {loss32!r} vs {want32!r}: rel {gap32:.3g} > "
+                   f"{TP_RTOL:g}")
+    if not gap <= TP_ELASTIC_BF16_RTOL:
+        bad.append(f"bf16 loss {loss!r} vs {want!r}: rel {gap:.3g} > "
+                   f"{TP_ELASTIC_BF16_RTOL:g}")
+    if bad:
+        raise AssertionError("tp elastic: " + "; ".join(bad))
+    return out
 
 
 def main() -> int:
@@ -3252,7 +3417,8 @@ def main() -> int:
                             ("classic", torch.float32))}
     family_buckets = {}
     for tag, name in FAMILY_PHASES:
-        family_buckets[tag], more = family_layouts(tag, name)
+        family_buckets[tag], more = family_layouts(tag,
+                                                   family_arch(tag, name))
         shapes += more
     # the vlm slice: full width cut to VLM_LAYERS blocks (DDP), and the
     # HSDP phase's shard buckets (full width, FSDP_LAYERS block, fp32
@@ -3284,7 +3450,8 @@ def main() -> int:
             ("audio overlap block", audio_ov[0]),
             ("audio overlap tail", audio_ov[1]),
             ("hybrid overlap block", hybrid_ov[0]),
-            ("hybrid overlap tail", hybrid_ov[1])):
+            ("hybrid overlap tail", hybrid_ov[1]),
+            ("zero1 ckpt last", tpl["zero1 ckpt"].last_elems)):
         if n not in seen:
             shapes.append((f"tp {which}", *matrix_shape(n), n))
             seen.add(n)
@@ -3433,8 +3600,8 @@ def main() -> int:
             f"metrics of {len(kept['metrics'])} steps")
         del kept
         log(f"[moe] phase in {time.perf_counter() - t0:.1f} s")
-        family_runs = {tag: family_phase(tag, name, family_buckets[tag],
-                                         hist, counts)
+        family_runs = {tag: family_phase(tag, family_arch(tag, name),
+                                         family_buckets[tag], hist, counts)
                        for tag, name in FAMILY_PHASES}
         # the vlm slice on one rank: DDP (the arch's own plan is FSDP,
         # whose phase runs four ranks below), ZeRO-1 as the other
@@ -3450,7 +3617,7 @@ def main() -> int:
             adaptive_phase(hist, ovs["zero1"].layout)
         log(f"[adaptive] phase in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        checkpoint_phase(nz)
+        checkpoint_phase()
         log(f"[ckpt] phase in {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
@@ -3484,8 +3651,15 @@ def main() -> int:
     fsdp = fsdp_phase(kind)
     log(f"[fsdp] {len(fsdp)} cells in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tp = tp_phase(kind, tp_references(hist))
-    log(f"[tp] {len(tp)} cells in {time.perf_counter() - t0:.1f} s")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    try:
+        tp = tp_phase(kind, tp_references(hist), ckpt_dir, smi)
+        log(f"[tp] {len(tp)} cells in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tp_elastic(tp["tp fsdp none"], smi)
+        log(f"[tp elastic] in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {

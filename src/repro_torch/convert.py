@@ -19,6 +19,19 @@ comparisons run on global arrays.  Under TP the same holds along the
 arrays at that ``tp`` (vocabulary, q heads and experts padded as
 ``models.model.param_layout`` pads them) are sliced to this rank's
 ``model`` index on load and gathered over ``model`` back.
+
+The padded global layout of a leaf at one ``tp`` and its logical layout
+(``tp = 1``'s shapes) convert both ways (``to_logical``, ``to_padded``,
+``relayout``): the vocabulary rows past ``vocab`` (``pad_vocab``), the q
+heads of each kv group past its ``g`` in ``head_layout``'s ``(kv,
+g_pad, hd)`` order (``wq``/``wo`` of every attention, the zamba2 LoRA
+``wq.b`` columns; JAX ``layers.pad_q_columns``), and the experts past
+``n_experts`` (``E_pad``, the router's columns with them).  Padding comes
+back as zeros: no token reads it (the ids stop at ``vocab`` and the
+padded logits are masked, ``local_head_mask`` zeroes the padded heads,
+the padded experts get ``-inf`` router logits).  The Mamba2 heads and
+the mLSTM heads x v-parts keep one global layout at every ``tp``.  A
+checkpoint restored at another ``tp`` goes through ``relayout``.
 """
 from __future__ import annotations
 
@@ -77,6 +90,18 @@ def load_params(model: torch.nn.Module, tree: Mapping) -> None:
             p.copy_(src)
 
 
+def gather_global(t: torch.Tensor, split: Sequence) -> torch.Tensor:
+    """``t``, one rank's slice of a global array, gathered along each dim
+    over the mesh axes ``split`` names for it (``()``: a whole dim), on
+    ``t``'s device: a collective of those axes' groups."""
+    from repro_torch.parallel.collectives import all_gather
+    t = t.detach()
+    for dim, axes in enumerate(split):
+        if axes:
+            t = all_gather(t, axes, dim)
+    return t
+
+
 def to_global(model: torch.nn.Module, name: str, t: torch.Tensor
               ) -> torch.Tensor:
     """A tensor laid out as leaf ``name``'s local shard (the parameter,
@@ -85,16 +110,15 @@ def to_global(model: torch.nn.Module, name: str, t: torch.Tensor
     FSDP and TP groups; ``t`` itself, on the host, when the leaf is not
     sharded."""
     from repro_torch.models.layers import fsdp_dim
-    from repro_torch.parallel.collectives import all_gather
+    split = [()] * t.ndim
     axes = tuple(model.ctx.fsdp_axes)
     dim = fsdp_dim(name)
-    t = t.detach()
     if axes and dim is not None and getattr(model, "fsdp_size", 1) > 1:
-        t = all_gather(t, axes, dim % t.ndim)
+        split[dim % t.ndim] = axes
     tdim = getattr(model, "tp_dims", {}).get(name)
     if tdim is not None:
-        t = all_gather(t, ("model",), tdim)
-    return t.cpu()
+        split[tdim] += ("model",)
+    return gather_global(t, split).cpu()
 
 
 def global_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
@@ -142,3 +166,111 @@ def agg_states(compressor, states: Sequence[Any], index: Optional[int] = 0,
     ``None`` when there is none.  Keys stay on the host."""
     template = compressor.init_state(1, None, device="meta")
     return tuple(_state(template, st, index, device) for st in states)
+
+
+# --------------------------------------------------------------------------
+# the padded global layouts and the logical one
+# --------------------------------------------------------------------------
+#: the q-head weights of every attention (the dense and vlm blocks, the
+#: zamba2 shared block, the audio family's self- and cross-attention): the
+#: columns of ``wq`` and the rows of ``wo``
+_Q_COLUMNS = ("attn.wq.w", "self.wq.w", "cross.wq.w")
+_Q_ROWS = ("attn.wo.w", "self.wo.w", "cross.wo.w")
+
+
+def padded_dim(name: str) -> "Optional[tuple[str, int]]":
+    """(kind, dim counted from the end) of the dim of leaf ``name`` that
+    the JAX package pads at ``tp > 1``: ``"vocab"`` (the rows of the
+    tables), ``"heads"`` (the q heads: ``wq`` columns, ``wo`` rows, the
+    LoRA ``wq.b`` columns), ``"experts"`` (the stacked experts, the
+    router's columns); None for a leaf with one layout at every
+    ``tp``."""
+    if name in ("embed.table", "unembed.table"):
+        return "vocab", -2
+    if name.endswith(_Q_COLUMNS) or name == "groups.lora.wq.b":
+        return "heads", -1
+    if name.endswith(_Q_ROWS):
+        return "heads", -2
+    if name.startswith("blocks.moe.experts."):
+        return "experts", -3
+    if name == "blocks.moe.router":
+        return "experts", -1
+    return None
+
+
+def _layout_sizes(cfg, kind: str, tp: int) -> tuple:
+    """The padded dim's shape at ``tp``, and its logical shape: ``(n,)``
+    for the vocabulary and the experts, ``(kv, g, hd)`` for the heads."""
+    from repro_torch.models.layers import head_layout, pad_vocab
+    from repro_torch.models.moe import pad_experts
+    if kind == "vocab":
+        return (pad_vocab(cfg.vocab, tp),), (cfg.vocab,)
+    if kind == "experts":
+        e = cfg.moe.n_experts
+        return (pad_experts(e, tp),), (e,)
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kv
+    g_pad = head_layout(cfg.n_heads, kv, hd, tp).g_pad if tp > 1 else g
+    return (kv, g_pad, hd), (kv, g, hd)
+
+
+def _last(arr: np.ndarray, dim: int, shape: tuple) -> np.ndarray:
+    """``arr`` with ``dim`` moved last and split into ``shape``."""
+    a = np.moveaxis(arr, dim, -1)
+    return a.reshape(a.shape[:-1] + tuple(shape))
+
+
+def _back(a: np.ndarray, k: int, dim: int) -> np.ndarray:
+    """The inverse of ``_last``: the ``k`` trailing dims merged and moved
+    back to ``dim``."""
+    a = a.reshape(a.shape[:a.ndim - k] + (-1,))
+    return np.ascontiguousarray(np.moveaxis(a, -1, dim))
+
+
+def to_logical(cfg, name: str, arr: np.ndarray, tp: int,
+               dim: "Optional[int]" = None) -> np.ndarray:
+    """``arr``, leaf ``name`` in the JAX package's padded global layout
+    at ``tp``, without its padding: the logical layout.  ``dim``: the
+    padded dim of ``arr`` when it is not the leaf's own (an optimizer
+    statistic of the leaf).  ``arr`` itself for a leaf with no padded
+    dim."""
+    kd = padded_dim(name)
+    if kd is None:
+        return arr
+    kind, own = kd
+    dim = own if dim is None else dim
+    padded, logical = _layout_sizes(cfg, kind, tp)
+    if padded == logical:
+        return arr
+    a = _last(arr, dim, padded)
+    a = a[(..., *(slice(0, n) for n in logical))]
+    return _back(a, len(padded), dim)
+
+
+def to_padded(cfg, name: str, arr: np.ndarray, tp: int,
+              dim: "Optional[int]" = None) -> np.ndarray:
+    """The inverse of ``to_logical``: ``arr`` in the logical layout ->
+    the padded global layout at ``tp``, the padding zeros of ``arr``'s
+    dtype."""
+    kd = padded_dim(name)
+    if kd is None:
+        return arr
+    kind, own = kd
+    dim = own if dim is None else dim
+    padded, logical = _layout_sizes(cfg, kind, tp)
+    if padded == logical:
+        return arr
+    a = _last(arr, dim, logical)
+    pad = [(0, 0)] * (a.ndim - len(logical)) \
+        + [(0, p - n) for p, n in zip(padded, logical)]
+    return _back(np.pad(a, pad), len(padded), dim)
+
+
+def relayout(cfg, name: str, arr: np.ndarray, tp_from: int, tp_to: int,
+             dim: "Optional[int]" = None) -> np.ndarray:
+    """``arr`` from the padded global layout at ``tp_from`` to that at
+    ``tp_to``, through the logical layout."""
+    if tp_from == tp_to:
+        return arr
+    return to_padded(cfg, name, to_logical(cfg, name, arr, tp_from, dim),
+                     tp_to, dim)

@@ -12,8 +12,7 @@ vlm (``qwen2-vl-7b``) families build, but their steps read
 yield (nor does the JAX package's), so the first step raises a
 ``KeyError`` naming it (``train/pod_worker.py`` feeds them).
 ``--overlap`` and ``--adaptive`` force ``dp_mode="ddp"`` and say so, as
-in the JAX package.  An FSDP state cannot be checkpointed yet
-(``checkpoint.manager.check_unsharded``).
+in the JAX package.
 ``--accum`` splits each rank's batch into microbatches,
 ``--overlap`` runs the overlapped step (``repro_torch.train.overlap``:
 each bucket aggregated between backward stages) and ``--sync-every N``
@@ -23,7 +22,12 @@ this world size and batch before the step is built
 (``adaptive.controller.resolve_plan``; overlapped syncSGD when nothing is
 predicted to win).  ``--ckpt-dir`` resumes from the newest checkpoint
 there and saves every ``--ckpt-every`` steps and at the end; SIGTERM or
-SIGINT ends the run after the step under way, with a checkpoint.
+SIGINT ends the run after the step under way, with a checkpoint.  Every
+plan saves (FSDP, HSDP, ``--tp``, the pod mesh): each rank writes its
+slices of the sharded leaves into the JAX package's global layout, and a
+run restores the
+newest checkpoint at another world, FSDP degree or ``--tp`` too
+(``checkpoint.manager``).
 As in the JAX package, a reduction axis of size 1 is dropped, so a
 one-rank run aggregates nothing.
 
@@ -32,7 +36,7 @@ package's ``make_pod_mesh(..., tp)``; every family): with ``--mesh
 local`` the world is ``data x model``
 (``launch.mesh.init_mesh``), with ``--mesh pod`` ``pod x data x model``
 and ``procs x local-devices x tp`` ranks.  Each rank reads the rows of
-its DP coordinate; a TP state cannot be checkpointed yet.
+its DP coordinate.
 
 Meshes: ``--mesh local`` (default) puts every rank on one ``data`` axis;
 ``--mesh pod`` builds the two-tier ``pod x data`` mesh

@@ -532,19 +532,25 @@ def unembed_logits(table: torch.Tensor, x: torch.Tensor,
 
 
 def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
-                        ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+                        ctx: ShardCtx = ShardCtx(),
+                        vocab: "int | None" = None) -> torch.Tensor:
     """Per-token cross-entropy in fp32: logsumexp - gold logit.  Under TP
     ``logits`` are this rank's ``(B, S, V/tp)`` and ``labels`` global ids:
     the maximum (a stabilizer, without gradient), the sum of the
     exponentials and the gold logit are reduced over ``model`` by sums
     whose backward is the identity, so each rank's gradient is that of the
-    one loss."""
+    one loss.  The columns past ``vocab`` (``pad_vocab``'s padding) are
+    masked to ``-inf``, so the loss is that of the logical vocabulary at
+    any ``tp`` (the JAX package counts them in its softmax)."""
     ll = logits.float()
     if ctx.tp == 1:
         lse = torch.logsumexp(ll, dim=-1)
         gold = torch.gather(ll, -1, labels[..., None])[..., 0]
         return lse - gold
     shard = ll.shape[-1]
+    if vocab is not None and shard * ctx.tp > vocab:
+        col = coll.tp_index() * shard + torch.arange(shard, device=ll.device)
+        ll = ll.masked_fill(col >= vocab, float("-inf"))
     with torch.no_grad():
         m = coll.pmax_tp(ll.amax(dim=-1))
     sumexp = tp_reduce(torch.exp(ll - m[..., None]).sum(-1), ctx,

@@ -32,7 +32,8 @@ backward; the slot writes and reads move each kept value once, and a
 dropped assignment's value is zero.
 
 Expert parallelism (``ctx.tp > 1``; the JAX package's training layout,
-its ``moe_ep_axis=None``; the 2-D serving layout is not ported): the
+experts over ``model``; its 2-D serving layout, experts over ``data``
+and ``d_ff`` over ``model``, is not ported): the
 experts, padded to ``E_pad``, a multiple of ``tp``, with ``-inf`` router
 logits on the padding, are stacked ``(E_pad / tp, ...)`` on each model
 rank.  The ``(E_pad, C, d)`` buffer

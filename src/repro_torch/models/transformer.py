@@ -144,10 +144,10 @@ def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _chunk_loss(table: torch.Tensor, xb: torch.Tensor, lb: torch.Tensor,
-                ctx: ShardCtx) -> torch.Tensor:
+                ctx: ShardCtx, vocab: int) -> torch.Tensor:
     with record_function(LM_LOSS):
         logits = unembed_logits(table, xb, ctx)
-        per_tok = vocab_parallel_xent(logits, lb.clamp(min=0), ctx)
+        per_tok = vocab_parallel_xent(logits, lb.clamp(min=0), ctx, vocab)
         return (per_tok * (lb >= 0)).sum()
 
 
@@ -156,7 +156,8 @@ def lm_loss(final_scale: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
             xent_chunk: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
     """Memory-bounded LM loss: the logits are produced and consumed one
     sequence chunk at a time, each chunk recomputed in the backward pass,
-    so peak memory holds one chunk of logits.  labels < 0 are masked out.
+    so peak memory holds one chunk of logits.  labels < 0 are masked out,
+    and so are the padded vocabulary columns (``vocab_parallel_xent``).
     Returns (sum of token losses, token count), both local (the same on
     every model rank: the sequence is gathered after the final norm)."""
     x = tp_copy(rmsnorm(sp_shared(final_scale, ctx), x, cfg.norm_eps), ctx)
@@ -172,10 +173,10 @@ def lm_loss(final_scale: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
         xb = x[:, c * chunk:(c + 1) * chunk]
         lb = labels[:, c * chunk:(c + 1) * chunk]
         if torch.is_grad_enabled():
-            loss = checkpoint(_chunk_loss, table, xb, lb, ctx,
+            loss = checkpoint(_chunk_loss, table, xb, lb, ctx, cfg.vocab,
                               use_reentrant=False)
         else:
-            loss = _chunk_loss(table, xb, lb, ctx)
+            loss = _chunk_loss(table, xb, lb, ctx, cfg.vocab)
         total = total + loss
         count = count + (lb >= 0).sum()
     return total, count

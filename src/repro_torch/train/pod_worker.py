@@ -70,6 +70,21 @@ axes (``dp_replicas_identical``); whether the leaves replicated over
 ``model`` hold the same bits on every rank (``model_replicated_identical``);
 the bucket sizes the compressor saw.
 
+Resume (a variant's ``ckpt=true``, with ``--ckpt-dir``): the variant's
+steps run once, uninterrupted, with a checkpoint of step 1 saved in
+``<ckpt-dir>/<label>`` (``checkpoint.manager.CheckpointManager``: the
+FSDP and TP leaves written slice by slice into the JAX package's global
+layout, the per-rank leaves stacked); then a fresh setup restores it and takes the
+steps after it.  Recorded: ``resume_identical`` (its losses and every
+rank's state fingerprints after the last step are the uninterrupted
+run's, bit for bit), ``ckpt_bytes`` (the step's files), ``save_s`` and
+``restore_s`` (the slowest rank's), ``ckpt_prints`` (the fingerprints of
+the saved global parameters, gathered on the card), ``ckpt_loss_fp32``
+(the saved state's loss on the batch with fp32 compute: a reader at
+another layout can match it without the bf16 rounding of the partial
+sums over ``model``), each rank's host peak (``host_peak_gb``, the
+process's maximum resident set) and ``ckpt_path``.
+
 Every rank runs the same program; rank 0's last stdout line is the JSON
 record, the other ranks keep stdout silent (logs go to stderr).  The
 default arch is the reduced one, as in the JAX package;
@@ -88,6 +103,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import sys
 import time
 
@@ -138,6 +154,9 @@ def main(argv=None) -> dict:
                     help="FSDP: run this plan variant after the others in "
                          "the same processes (repeatable); 'steps=N' sets "
                          "its step count")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="where a variant with ckpt=true saves its "
+                         "checkpoint of step 1 (a directory per variant)")
     ap.add_argument("--json", action="store_true",
                     help="rank 0 prints the JSON record as its last stdout "
                          "line")
@@ -207,6 +226,10 @@ def main(argv=None) -> dict:
                 name, layers = fields.pop("arch", None), \
                     fields.pop("layers", None)
                 serial = bool(fields.pop("serial", False))
+                ckpt = bool(fields.pop("ckpt", False))
+                if ckpt and not args.ckpt_dir:
+                    raise SystemExit(f"variant {label!r}: ckpt=true needs "
+                                     f"--ckpt-dir")
                 if name:
                     vcfg = base.get(name)
                     if not args.full_width:
@@ -218,8 +241,11 @@ def main(argv=None) -> dict:
                 plan = dataclasses.replace(vcfg.plan, **fields)
                 if plan.dp_mode == "fsdp":
                     plan = dataclasses.replace(plan, overlap=False)
-                rec = _variant_run(args, dataclasses.replace(
-                    vcfg, plan=plan), dev, log, t_start, n_steps, serial)
+                rec = _variant_run(
+                    args, dataclasses.replace(vcfg, plan=plan), dev, log,
+                    t_start, n_steps, serial,
+                    os.path.join(args.ckpt_dir, label.replace(" ", "_"))
+                    if ckpt else None)
                 # what the variant named: plan fields, arch, layers, serial
                 rec.update(label=label, plan_overrides={
                     **plan_overrides, **named} or None,
@@ -386,17 +412,20 @@ def _mesh_desc(args) -> dict:
     return dict(mesh_axes=axes, mesh_shape=shape)
 
 
-def _run_steps(setup, make, batch, n_steps: int, cuda: bool, dev):
-    """``n_steps`` steps of ``make(setup)`` from ``init_state(seed=0)`` on
-    ``batch``, each timed on its own; returns (state, losses, step
-    seconds)."""
+def _run_steps(setup, make, batch, n_steps: int, cuda: bool, dev,
+               state=None, after_first=None):
+    """``n_steps`` steps of ``make(setup)`` from ``state`` (default
+    ``init_state(seed=0)``) on ``batch``, each timed on its own;
+    ``after_first(state)`` runs after the first step, outside its time.
+    Returns (state, losses, step seconds)."""
     import torch
 
     from repro_torch.train import train_step as ts
-    state = ts.init_state(setup, seed=0)
+    if state is None:
+        state = ts.init_state(setup, seed=0)
     step = make(setup)
     losses, step_s = [], []
-    for _ in range(n_steps):
+    for i in range(n_steps):
         if cuda:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -405,16 +434,101 @@ def _run_steps(setup, make, batch, n_steps: int, cuda: bool, dev):
             torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t0)
         losses.append(m["loss"].item())
+        if i == 0 and after_first is not None:
+            after_first(state)
     return state, losses, step_s
 
 
+def _timed(fn, cuda: bool, dev) -> float:
+    """Seconds of ``fn()``, the device synchronised at both ends."""
+    import torch
+    if cuda:
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
+def forward_loss(setup, batch: dict, dtype) -> float:
+    """The DP-global loss of one forward pass of ``setup``'s model on this
+    rank's ``batch``, computing in ``dtype`` (every rank calls it)."""
+    import torch
+
+    from repro_torch.parallel import commplan as cp
+    from repro_torch.train import train_step as ts
+    model = setup.model
+    ctx = model.ctx
+    model.ctx = dataclasses.replace(ctx, compute_dtype=dtype)
+    try:
+        with torch.no_grad():
+            loss_sum, ntok, _ = model.loss(ts._to_device(batch, setup.device))
+    finally:
+        model.ctx = ctx
+    if setup.dp_axes:
+        loss_sum = cp.psum(loss_sum, setup.dp_axes)
+        ntok = cp.psum(ntok, setup.dp_axes)
+    return (loss_sum / ntok.float()).item()
+
+
+def _global_prints(setup) -> list:
+    """The fingerprints of every global parameter, each gathered on its
+    device over the axes that shard it (every rank calls it)."""
+    from repro_torch.checkpoint.manager import leaf_splits
+    from repro_torch.convert import gather_global
+    splits = leaf_splits(setup)
+    out = []
+    for name, p in setup.model.named_parameters():
+        g = gather_global(p, splits[name])
+        out.append(fingerprint(g))
+        del g
+    return out
+
+
+def _resume(cfg, batch, n_steps: int, losses: list, prints: list,
+            saved: dict, path: str, cuda: bool, dev, log) -> dict:
+    """A fresh setup restores the checkpoint of step 1 at ``path`` and
+    takes steps 2..``n_steps``; its losses and state fingerprints against
+    the uninterrupted run's (``losses``, ``prints``).  Returns this
+    rank's fields."""
+    import resource
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.train import train_step as ts
+    fresh = ts.build(cfg, dev)
+    got = {}
+
+    def restore():
+        got["state"], got["cursor"] = CheckpointManager(
+            path, fresh).restore(1)
+    restore_s = _timed(restore, cuda, dev)
+    state, r_losses, _ = _run_steps(fresh, ts.make_step, batch,
+                                    n_steps - 1, cuda, dev, got["state"])
+    same = r_losses == losses[1:] and got["cursor"] == 1 and [
+        fingerprint(t) for t in _state_tensors(state)] == prints
+    del state, got, fresh
+    gc.collect()
+    step_dir = os.path.join(path, "step_000000001")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    log(f"resume: restore {restore_s:.2f} s, losses {r_losses}, "
+        f"identical {same}, {nbytes:,} bytes")
+    return dict(same=same, restore_s=restore_s, save_s=saved["save_s"],
+                resume_losses=r_losses, ckpt_bytes=nbytes,
+                host_peak_gb=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss / 2**20)
+
+
 def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
-              serial: bool = False) -> dict:
+                 serial: bool = False, ckpt_path: "str | None" = None
+                 ) -> dict:
     """One variant cell (FSDP, or under ``--tp`` the DDP step too):
     build, ``n_steps`` timed steps, the checks; with ``serial`` (an
     overlapped DDP plan) the serial schedule's run from the same seed
-    and batch after it, compared bit for bit.  Returns the record (every
-    rank)."""
+    and batch after it, compared bit for bit; with ``ckpt_path`` a
+    checkpoint of step 1 saved there and the resume from it
+    (``_resume``).  Returns the record (every rank)."""
     import torch
     import torch.distributed as dist
 
@@ -448,9 +562,20 @@ def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
         f"buckets, zero1 {setup.zero1}, overlap {setup.overlap}, "
         f"gather_quant {model.ctx.gather_quant}")
     kbuild.reset_launches()
-    state, losses, step_s = _run_steps(setup, ts.make_step, batch, n_steps,
-                                       cuda, dev)
+    saved: dict = {}
+
+    def save(state):
+        from repro_torch.checkpoint.manager import CheckpointManager
+        saved["save_s"] = _timed(lambda: CheckpointManager(
+            ckpt_path, setup).save(1, state, cursor=1), cuda, dev)
+        saved["prints"] = _global_prints(setup)
+        saved["loss_fp32"] = forward_loss(setup, batch, torch.float32)
+    state, losses, step_s = _run_steps(
+        setup, ts.make_step, batch, n_steps, cuda, dev,
+        after_first=save if ckpt_path else None)
     launches = dict(kbuild.LAUNCHES)
+    final_prints = [fingerprint(t) for t in _state_tensors(state)] \
+        if ckpt_path else None
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
     used = None
     if cuda:
@@ -485,8 +610,14 @@ def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
         full.append(gathered[-1])
         del g
     rep = setup.model_replicated()
+    resumed = None
+    if ckpt_path:
+        state = None
+        gc.collect()
+        resumed = _resume(cfg, batch, n_steps, losses, final_prints, saved,
+                          ckpt_path, cuda, dev, log)
     everyone = [None] * world
-    dist.all_gather_object(everyone, dict(
+    dist.all_gather_object(everyone, dict(resumed=resumed,
         key=key, model=coords.get("model", 0), local=local,
         gathered=gathered, unsharded=unsharded, full=full, peak=peak,
         used=used, serial=same_serial))
@@ -534,7 +665,22 @@ def _variant_run(args, cfg, dev, log, t_start, n_steps: int,
         model_replicated_leaves=sum(rep),
         serial_equals_overlap=None if same_serial is None
         else all(e["serial"] for e in everyone),
+        **(_resume_fields(everyone, saved, ckpt_path) if ckpt_path else {}),
         wall_s=time.perf_counter() - t_start)
+
+
+def _resume_fields(everyone: list, saved: dict, path: str) -> dict:
+    """The record's resume fields from every rank's ``_resume``."""
+    res = [e["resumed"] for e in everyone]
+    return dict(
+        resume_identical=all(r["same"] for r in res),
+        resume_losses=res[0]["resume_losses"],
+        ckpt_bytes=res[0]["ckpt_bytes"],
+        save_s=max(r["save_s"] for r in res),
+        restore_s=max(r["restore_s"] for r in res),
+        host_peak_gb=[r["host_peak_gb"] for r in res],
+        ckpt_prints=saved["prints"], ckpt_loss_fp32=saved["loss_fp32"],
+        ckpt_path=path)
 
 
 def _state_tensors(state) -> list:

@@ -5,8 +5,11 @@ Checkpoints (``ckpt_dir``): the trainer restores the newest complete
 checkpoint there before its first step and moves the data to its cursor
 (``seek``), saves every ``ckpt_every`` steps (0: only at the end), keeps
 the newest ``keep_ckpts``, and saves once more at the end.  Saving is a
-collective (``checkpoint.manager``), so every rank runs it; it falls
-outside each step's timed region.
+collective (``checkpoint.manager``: each rank writes its slices of the
+FSDP and TP leaves into the JAX package's global layout), so every rank
+runs it; it falls
+outside each step's timed region.  The newest checkpoint restores at
+another world, FSDP degree or ``tp`` too.
 
 Preemption: ``run`` traps SIGTERM and SIGINT for its duration.  A signal
 sets ``stop_requested``; the step under way finishes, the trainer saves

@@ -758,21 +758,6 @@ def test_every_arch_builds_on_its_own_plan(name, own_world):
             tts.build(cfg, "cpu", overlap=True)
 
 
-def test_fsdp_checkpoints_are_refused():
-    """A state whose parameters FSDP shards is not saved (its leaves are
-    rank slices, a file the JAX package could not read); an unsharded
-    setup passes the check."""
-    import types
-
-    from repro_torch.checkpoint import manager
-    sharded = types.SimpleNamespace(fsdp_axes=("data",), zero1=False)
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        manager.to_tree(sharded, {})
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        manager.abstract_state(sharded)
-    manager.check_unsharded(types.SimpleNamespace(fsdp_axes=()))
-
-
 # ------------------------------------------------------ the sharded dims
 @pytest.mark.parametrize("name", ["arctic-480b", "granite-8b",
                                   "mistral-nemo-12b", "qwen2-moe-a2.7b",

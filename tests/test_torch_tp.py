@@ -2,15 +2,14 @@
 layouts, the sharded dim and global shape of every leaf, the slicing of
 global parameters to each model rank and back, the sinusoidal positions
 of each sequence-parallel slice, the mesh's coordinates, and the
-refusals (a ``tp`` the recurrent blocks' heads do not split over; TP
-checkpoints).
+refusal of a ``tp`` the recurrent blocks' heads do not split over (TP
+checkpoints are ``test_torch_ckpt_sharded.py``'s).
 Each layout is held against the JAX package's (``layers.head_layout``,
 ``layers.pad_vocab``, ``Model.abstract_init`` specs); the multi-rank
 steps are ``test_torch_tp_step.py`` (dense, MoE),
 ``test_torch_tp_families.py`` (audio, vlm) and
 ``test_torch_tp_recurrent.py`` (hybrid, ssm)."""
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -339,18 +338,6 @@ def test_frontend_inputs_are_drawn_for_the_global_batch(name):
             assert torch.equal(torch.cat([p["mrope_positions"]
                                           for p in parts], 1),
                                glob["mrope_positions"])
-
-
-def test_tp_checkpoints_are_refused():
-    """A state whose parameters ``model`` shards is not saved (its leaves
-    are rank slices); the same setup at ``tp = 1`` passes the check."""
-    from repro_torch.checkpoint import manager
-    sharded = types.SimpleNamespace(fsdp_axes=(), tp=2, zero1=False)
-    with pytest.raises(NotImplementedError, match="TP"):
-        manager.to_tree(sharded, {})
-    with pytest.raises(NotImplementedError, match="TP"):
-        manager.abstract_state(sharded)
-    manager.check_unsharded(types.SimpleNamespace(fsdp_axes=(), tp=1))
 
 
 def _int_view(t):
