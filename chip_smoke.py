@@ -121,12 +121,13 @@ Phases, each fatal on failure:
      wrapping int64 sums of each state tensor's bit patterns, the second
      of a 64-bit hash of each pattern with its position), not on a host
      copy of the state.  Then the hybrid slice
-     (``family_phase("hybrid", ...)``): ``zamba2-2.7b`` at full width and
-     depth (54 Mamba2 blocks in 9 groups, d_model
+     (``family_phase("hybrid", ...)``): ``zamba2-2.7b`` at full width cut
+     to ``FAMILY_LAYERS["hybrid"]`` = 24 of 54 layers (4 of its 9 groups
+     of a shared block and 6 Mamba2 blocks; d_model
      2560, d_inner 5120, 80 SSD heads of 64, state 64, chunk 256, vocab
-     32,000; 2,440,081,568 parameters) on its own plan (DDP, ZeRO-1,
-     ``remat="full"``): ZeRO-1 (187 bf16 buckets) 2 PowerSGD steps, 1
-     SignSGD, 1 QSGD; the overlapped ZeRO-1 step (34 leaf-aligned
+     32,000; 2,440,081,568 parameters at full depth) on its own plan (DDP,
+     ZeRO-1, ``remat="full"``): ZeRO-1 2 PowerSGD steps, 1
+     SignSGD, 1 QSGD; the overlapped ZeRO-1 step (leaf-aligned
      buckets) 2 PowerSGD under ``overlap`` and 2 under ``serial``, which
      must agree bit for bit; the classic fp32 step 1 step uncompressed;
      the same checks as above (no run profiled: the breakdown of one
@@ -174,7 +175,7 @@ Phases, each fatal on failure:
      feedback flips buckets to syncSGD is printed, not checked;
   7. checkpoint: the arch as configured (ZeRO-1, bf16 parameters, the
      classic step, PowerSGD on the data axis) at full width cut to
-     ``CKPT_LAYERS`` = 11 of 22 layers (an 11 GB checkpoint) in a
+     ``CKPT_LAYERS`` = 6 of 22 layers (a 6 GB checkpoint) in a
      temporary directory: 3 uninterrupted steps (A); a ``Trainer`` whose
      data iterator sends SIGTERM to its own process at the second batch
      and must save step 2 and return (B); a fresh ``Trainer`` that
@@ -232,8 +233,9 @@ Phases, each fatal on failure:
      global batch 4 x 512 of step 0 (seed 0): ``tinyllama-1.1b`` at full
      width and depth on its plan (ZeRO-1, bf16 parameters, SP on),
      PowerSGD rank 4 over ``data`` on each model rank's 42 shard buckets,
-     the classic step and the overlapped one (34 buckets) with its
-     serial schedule run after it from the same seed; ``qwen2-moe-a2.7b``
+     the classic step, and the overlapped one cut to ``TP_CKPT_LAYERS`` =
+     4 layers with its serial schedule run after it from the same seed
+     (first loss against the 4-layer one-rank forward); ``qwen2-moe-a2.7b``
      at full width cut to ``TP_MOE_LAYERS`` = 1 block, DDP with ZeRO-1,
      30 of the 60 experts on each model rank, PowerSGD;
      ``tinyllama-1.1b`` at full width cut to ``TP_FSDP_LAYERS`` = 4
@@ -280,7 +282,41 @@ Phases, each fatal on failure:
      (``tp_elastic``): its parameters must be the cell's gathered ones
      bit for bit, its fp32 forward on the cell's batch the cell's fp32
      forward of the saved state within ``TP_RTOL``, and its bf16 forward
-     the cell's second loss within ``TP_ELASTIC_BF16_RTOL``.
+     the cell's second loss within ``TP_ELASTIC_BF16_RTOL``;
+ 12. serve: prefill and one-token decode with a KV cache
+     (``serving/``), weights from ``serve_params`` (seed 0), no
+     compression kernel launched.  On one rank, bf16: ``tinyllama-1.1b``
+     at full width and depth and ``qwen2-moe-a2.7b`` at full width
+     (``SERVE_MOE_LAYERS``) through ``Engine.generate`` (4 requests of
+     32, 100, 128 and 128 tokens, 16 new, cache 256), twice, the same
+     greedy tokens required; ``qwen2-vl-7b`` (``SERVE_VLM_LAYERS``)
+     through ``Model.prefill`` and ``Model.decode`` with seeded
+     ``embeds`` and M-RoPE positions, 8 steps; each with prefill ms,
+     decode ms a token, tokens/s and the peak printed, one
+     ``Model.decode`` under the sync debug mode "error" and one more
+     under the profiler (its kernels and device ms); then, on an fp32
+     copy of each from the same seed (the MoE at its no-drop capacity),
+     one decode step against a fresh prefill over the same tokens within
+     ``SERVE_CONSIST_RTOL``.  These run alone on the card.  Then one
+     torchrun group of four ranks on the card as data 2 x model 2 (this
+     script's ``--serve-worker``, every collective gloo) starts while
+     this process runs the one-rank runs of ``SERVE_GROUP``:
+     ``tinyllama-1.1b`` TP at batch 4; at batch 1 with the cache
+     context-parallel over ``data`` (a prompt of 600 in a cache of
+     1024); ``qwen3-32b`` cut to 2 of 64 layers with ``serve_fsdp``;
+     ``arctic-480b`` cut to 1 of 35 layers in the 2-D MoE layout
+     (``serve_moe_ep_data``; no-drop capacity, a prompt of 64) in fp32
+     and in bf16; prefill and 8 decode steps fed the one-rank run's
+     greedy tokens, each step's logits within ``SERVE_GROUP_RTOL`` (by
+     dtype) of the one-rank run's (of an MoE cell, on the rows whose
+     token picked the one-rank run's experts, at most
+     ``SERVE_FLIP_SHARE`` of them flipped: none in fp32), the same
+     greedy tokens on
+     every rank, the layout the cell names, the card under
+     ``TP_CARD_GIB``.  ``python3
+     chip_smoke.py --serve-probe`` measures the gaps that set both
+     limits: clean in bf16 and fp32, and with faults planted
+     (``serve_fault``).
 
 The kernels are timed at the overlapped ZeRO-1 step's block and tail
 buckets (the block bucket is the headline case of each record), the
@@ -1697,12 +1733,15 @@ def ssm_block_syncs(device: str = "cuda") -> None:
 def kernel_profile(fn) -> dict:
     """Device time (ms) and kernel count of one call of ``fn`` under the
     profiler, split into GEMMs and the rest, and its three costliest
-    kernels.  The xLSTM profiler ranges are left out: on the device
-    timeline a range is an annotation spanning its kernels and the gaps
-    between them, not a kernel."""
+    kernels.  The port's profiler ranges (the xLSTM ones and
+    ``ranged_layers``') are left out: on the device timeline a range is
+    an annotation spanning its kernels and the gaps between them, not a
+    kernel."""
     import torch
 
     from repro_torch.models import xlstm
+    ranges = {xlstm.MLSTM, xlstm.SLSTM,
+              *(r for rs in ranged_layers().values() for r in rs)}
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1717,7 +1756,7 @@ def kernel_profile(fn) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if not us or not str(getattr(ev, "device_type", "")).endswith(
-                "CUDA") or ev.key in (xlstm.MLSTM, xlstm.SLSTM):
+                "CUDA") or ev.key in ranges:
             continue
         out["ms"] += us / 1e3
         out["kernels"] += ev.count
@@ -1809,8 +1848,10 @@ FAMILY_PHASES = (("hybrid", HYBRID_ARCH), ("ssm", SSM_ARCH),
                  ("audio", AUDIO_ARCH))
 #: family phases cut in depth: xLSTM to 2 of its 3 groups (its steps are
 #: host-bound, 4.6-8.0 s at full depth, measured on one H100), which
-#: keeps the overlapped step's two stages
-FAMILY_LAYERS = {"ssm": 16}
+#: keeps the overlapped step's two stages; zamba2 to 4 of its 9 groups
+#: (38.5-59.9 s at full depth, measured on one H100), for the time the
+#: serve phase takes
+FAMILY_LAYERS = {"ssm": 16, "hybrid": 24}
 
 
 def family_arch(tag: str, name: str):
@@ -2503,10 +2544,10 @@ def adaptive_cell() -> dict:
 #: whose fetch run B sends itself SIGTERM
 CKPT_STEPS = 3
 CKPT_KILL_AT = 2
-#: the checkpoint phase's depth, 11 of tinyllama's 22 layers: at full
-#: depth its 19.8 GB took two saves of ~17 s and a restore of ~15 s
-#: (measured on one H100)
-CKPT_LAYERS = 11
+#: the checkpoint phase's depth, 6 of tinyllama's 22 layers: at full
+#: depth its 19.8 GB took two saves of ~17 s and a restore of ~15 s, at
+#: 11 layers the phase 37.4-51.7 s (measured on one H100)
+CKPT_LAYERS = 6
 
 
 class SigtermAt:
@@ -2701,23 +2742,29 @@ def pod_specs() -> dict:
     }
 
 
-def run_ranks(nproc: int, module: str, args, label: str,
-              timeout: float = POD_TIMEOUT_S) -> tuple[str, float]:
+def start_ranks(nproc: int, module: str, args) -> tuple:
     """``torchrun`` of ``module`` on ``nproc`` ranks of this host, in a
-    session of its own that is killed whole if it outlives ``timeout``
-    seconds; fails unless every rank exits 0.  Returns (stdout, wall
-    s)."""
-    import signal
+    session of its own, started and not waited for (``wait_ranks``).
+    Returns (the process, its start time)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), "-m", module, *args]
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
+                            start_new_session=True), time.perf_counter()
+
+
+def wait_ranks(started: tuple, label: str,
+               timeout: float = POD_TIMEOUT_S) -> tuple[str, float]:
+    """Waits for ``start_ranks``' group, killed whole if it outlives
+    ``timeout`` seconds from its start; fails unless every rank exits 0.
+    Returns (stdout, wall s)."""
+    import signal
+    proc, t0 = started
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(
+            timeout=max(1.0, timeout - (time.perf_counter() - t0)))
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
@@ -2733,6 +2780,12 @@ def run_ranks(nproc: int, module: str, args, label: str,
                              f"(both streams in chiprun_out/{label}"
                              f"_ranks.log):\n{out[-2000:]}\n{err[-6000:]}")
     return out, wall
+
+
+def run_ranks(nproc: int, module: str, args, label: str,
+              timeout: float = POD_TIMEOUT_S) -> tuple[str, float]:
+    """``start_ranks`` then ``wait_ranks``: (stdout, wall s)."""
+    return wait_ranks(start_ranks(nproc, module, args), label, timeout)
 
 
 def pod_phase(kind: str) -> dict:
@@ -2996,9 +3049,12 @@ TP_ELASTIC_BF16_RTOL = 2e-4
 TP_RUNS = {
     "tp zero1 powersgd": ("compression=powersgd,steps=2", "zero1 powersgd",
                           (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
+    # cut to TP_CKPT_LAYERS (full depth: 25.7 s of the group on one H100)
     "tp zero1 overlap powersgd": (
-        "compression=powersgd,overlap=true,serial=true,steps=2",
-        "zero1 powersgd", (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
+        f"compression=powersgd,overlap=true,serial=true,steps=2,"
+        f"layers={TP_CKPT_LAYERS}",
+        ("forward", "tinyllama-1.1b", TP_CKPT_LAYERS, "bfloat16"),
+        (TP_RTOL,), [], ["data"], PSGD_PER_BUCKET),
     # 30 of the 60 experts on each model rank, cut to TP_MOE_LAYERS
     # blocks; under SP each model rank routes its own tokens with a
     # capacity of its own, another routing than the one-rank pass's
@@ -3132,8 +3188,8 @@ def tp_references(hist: dict) -> dict:
 
 def tp_layouts() -> dict:
     """The TP phase's bucket layouts on a rank of data 2 x model 2 (no
-    allocation): the classic ZeRO-1 step's and the overlapped one's of
-    ``tinyllama-1.1b``, the classic ZeRO-1 one of the resume cell (cut
+    allocation): the classic ZeRO-1 step's of ``tinyllama-1.1b``, the
+    overlapped one's and the resume cell's classic ZeRO-1 one (both cut
     to ``TP_CKPT_LAYERS``), the MoE slice's classic ZeRO-1 one, and the
     overlapped ZeRO-1 ones of the audio cell (``seamless-m4t-medium``)
     and of the hybrid cell (``zamba2-2.7b`` cut to
@@ -3159,7 +3215,7 @@ def tp_layouts() -> dict:
                 device="meta")
     return {"zero1": bucketing.layout_for(list(dense.parameters()), 25),
             "zero1 ckpt": bucketing.layout_for(list(cut.parameters()), 25),
-            "overlap": overlap.layout_for_model(dense, 25),
+            "overlap": overlap.layout_for_model(cut, 25),
             "moe zero1": bucketing.layout_for(list(moe.parameters()), 25),
             "audio overlap": overlap.layout_for_model(audio, 25),
             "hybrid overlap": overlap.layout_for_model(hybrid, 25)}
@@ -3337,6 +3393,779 @@ def tp_elastic(rec: dict, smi: str) -> dict:
     if bad:
         raise AssertionError("tp elastic: " + "; ".join(bad))
     return out
+
+
+# --------------------------------------------------------------- serving
+#: the serving cells' weights: ``serve_params`` from this seed
+SERVE_SEED = 0
+#: the one-rank Engine cells: the JAX launcher's default cache length,
+#: ``max_new`` and four requests with prompts of three lengths
+SERVE_CACHE = 256
+SERVE_MAX_NEW = 16
+SERVE_PROMPTS = (32, 100, 128, 128)
+#: the MoE and vlm cells' depths, 12 of 24 and 14 of 28 blocks (at full
+#: depth, 26.66 and 14.18 GiB of bf16 parameters, the cells took 7.6-14.0
+#: and 3.7-4.1 s on one H100): cut first for chip_smoke's time limit
+SERVE_MOE_LAYERS = 12
+SERVE_VLM_LAYERS = 14
+#: the vlm cell: batch 4 x 128 (an image of 64 patches, then text) and
+#: the decode steps of the vlm and four-rank cells
+SERVE_VLM_BATCH, SERVE_VLM_PROMPT = 4, 128
+SERVE_STEPS = 8
+#: the prefill -> decode consistency limit: a decode step's logits
+#: against a fresh prefill over the same tokens, max |diff| over
+#: max(1, max |prefill|), in fp32 (weights, compute and cache; in bf16 the
+#: MoE's routing flips on near-ties and its clean gap passes the planted
+#: fault's) (PERF.md §6, PR 29)
+SERVE_CONSIST_RTOL = 1e-3
+#: the four-rank cells on one card as data 2 x model 2, one torchrun
+#: group: label -> (arch, layers (None: all), global batch, prompt,
+#: cache length, dtype).  An MoE cell runs at the no-drop capacity
+#: (``no_drop``), in fp32 and in bf16 (as JAX serves); its prompt of 64
+#: keeps the fp32 cell under ``TP_CARD_GIB``.  In bf16 the partial sums
+#: of four ranks can flip a near-tied pick (0.186 at one step of 9,
+#: PR 29), so an MoE cell's rows are held where they picked the one-rank
+#: run's experts (``serve_route_gaps``)
+SERVE_GROUP = {
+    "serve tp": ("tinyllama-1.1b", None, 4, 128, 256, "bfloat16"),
+    "serve cp": ("tinyllama-1.1b", None, 1, 600, 1024, "bfloat16"),
+    "serve fsdp": ("qwen3-32b", 2, 4, 128, 256, "bfloat16"),
+    "serve moe2d": ("arctic-480b", 1, 4, 64, 256, "float32"),
+    "serve moe2d bf16": ("arctic-480b", 1, 4, 64, 256, "bfloat16"),
+}
+#: each four-rank cell's logits against the one-rank run of the same
+#: global parameters, every step: max |diff| over max(1, max |one rank|),
+#: by dtype: clean 7.1e-3 to 2.07e-2 in bf16, 1.46e-6 to 4.11e-6 in fp32;
+#: planted faults 0.354 to 0.558 (PERF.md §6, PR 29)
+SERVE_GROUP_RTOL = {"bfloat16": 6e-2, "float32": 1e-4}
+#: by dtype, the share of an MoE cell's rows (steps x batch) that may
+#: pick other experts than the one-rank run: in bf16 a near tie flips
+#: now and then, a fault before the router moves every row; in fp32 none
+SERVE_FLIP_SHARE = {"bfloat16": 0.25, "float32": 0.0}
+SERVE_TIMEOUT_S = 300
+#: the file the main process writes once the references are saved and
+#: its memory is freed: the four ranks wait for it
+SERVE_READY = "references_ready"
+
+
+def serve_arch(name: str, layers: "int | None" = None):
+    """The full-width arch ``name``, cut to ``layers`` when given."""
+    from repro_torch.configs import base as cfgs
+    arch = cfgs.get(name)
+    return dataclasses.replace(arch, n_layers=layers) if layers else arch
+
+
+def no_drop(arch):
+    """``arch`` with an MoE capacity factor of experts / top-k: every
+    expert has a slot for every token, so no pick is dropped at any batch
+    or mesh.  Other archs as they are."""
+    if not arch.moe.n_experts:
+        return arch
+    return dataclasses.replace(arch, moe=dataclasses.replace(
+        arch.moe, capacity_factor=arch.moe.n_experts / arch.moe.top_k))
+
+
+def serve_setup(arch, batch: int, cache_len: int, device,
+                dtype: str = "bfloat16"):
+    """``build_serve`` on the current mesh and ``serve_params`` from
+    ``SERVE_SEED``: bf16 parameters, compute and cache, as the JAX
+    package serves, or all fp32 with ``dtype="float32"``."""
+    import torch
+
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.serving import serve_step as ss
+    dt = getattr(torch, dtype)
+    setup = ss.build_serve(arch, ShapeConfig("serve", "decode", cache_len,
+                                             batch), param_dtype=dt,
+                           device=device, compute_dtype=dt)
+    setup.cache_dtype = dt
+    ss.serve_params(setup, torch.Generator(
+        device=setup.device).manual_seed(SERVE_SEED))
+    return setup
+
+
+def serve_prompt(vocab: int, b: int, s: int, seed: int):
+    import numpy as np
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+
+
+def serve_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / max(1.0, float(want.float().abs().max())))
+
+
+def route_probe() -> tuple:
+    """Records the router logits of every ``moe._route`` call in this
+    process (fp32, the real experts, kept on the device: no host sync)
+    until undone.  Returns (the list of calls, the function that takes
+    the probe out)."""
+    from repro_torch.models import moe
+    calls, route = [], moe._route
+
+    def probe(router_w, x, mc, e_pad):
+        out = route(router_w, x, mc, e_pad)
+        calls.append(out[2][:, :mc.n_experts].detach().clone())
+        return out
+    moe._route = probe
+    return calls, lambda: setattr(moe, "_route", route)
+
+
+def routed_rows(calls: list, b: int) -> list:
+    """Per call of a one-layer MoE model (prefill, then each decode
+    step), the (b, E) router logits of each row's last token, the one
+    whose logits the call returns: at one layer the cache holds K and V
+    from before the MoE, so that token's pick alone moves those logits."""
+    return [c.view(b, -1, c.shape[-1])[:, -1].float().cpu() for c in calls]
+
+
+def serve_route_gaps(mine, ref, mine_r, ref_r, top_k: int) -> tuple:
+    """Per step, the gap of an MoE cell's logits over the rows whose last
+    token picked the one-rank run's top-k experts (0 when none did), and
+    the rows that picked others: (step, row, the one-rank router margin
+    between its k-th and (k+1)-th logit, the largest router-logit
+    difference on the row).  A pick flips only where that difference is
+    at least half the margin: the witness of a near tie."""
+    if not len(mine) == len(ref) == len(mine_r) == len(ref_r):
+        raise AssertionError("the route check reads one router call a "
+                             "model call: a one-layer MoE cell")
+    held, flips = [], []
+    for i, (a, b, ra, rb) in enumerate(zip(mine, ref, mine_r, ref_r)):
+        pick_a = ra.topk(top_k).indices.sort(-1).values
+        pick_b = rb.topk(top_k).indices.sort(-1).values
+        same = (pick_a == pick_b).all(-1)
+        top = rb.topk(top_k + 1).values
+        for r in (~same).nonzero().flatten().tolist():
+            flips.append(dict(step=i, row=r, margin=float(
+                top[r, top_k - 1] - top[r, top_k]), router_diff=float(
+                (ra[r] - rb[r]).abs().max())))
+        held.append(serve_gap(a[same], b[same]) if bool(same.any())
+                    else 0.0)
+    return held, flips
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_run(setup, first: dict, steps: int, fed=None,
+              more=None) -> dict:
+    """Prefill ``first`` (a global batch), then ``steps`` decode steps
+    through ``make_prefill`` / ``make_decode``: each step feeds the
+    greedy token of the last logits, or ``fed[i]`` (B,) when given;
+    ``more(i)`` adds inputs to step ``i`` (the vlm positions).  Returns
+    the logits of every call on the host (fp32), the greedy tokens of
+    each, and the prefill and per-step decode seconds (synchronised)."""
+    import numpy as np
+
+    from repro_torch.serving import serve_step as ss
+    dev = setup.device
+    prefill, decode = ss.make_prefill(setup), ss.make_decode(setup)
+    b = setup.global_batch
+    s = next(iter(first.values())).shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(first)
+    _sync(dev)
+    out = {"prefill_s": time.perf_counter() - t0, "decode_s": [],
+           "logits": [logits.float().cpu()], "greedy": []}
+    cur = np.full((b,), s, np.int32)
+    for i in range(steps):
+        tok = logits[:, :setup.arch.vocab].argmax(-1).cpu().numpy()
+        out["greedy"].append(tok.tolist())
+        batch = {"tokens": (tok if fed is None else fed[i])[:, None],
+                 "cur_len": cur}
+        if more is not None:
+            batch.update(more(i))
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(cache, batch)
+        _sync(dev)
+        out["decode_s"].append(time.perf_counter() - t0)
+        out["logits"].append(logits.float().cpu())
+        cur = cur + 1
+    out["greedy"].append(logits[:, :setup.arch.vocab].argmax(
+        -1).cpu().numpy().tolist())
+    return out
+
+
+def serve_consistency(arch, first: dict, step: dict, whole: dict,
+                      device) -> float:
+    """``arch`` in fp32 (weights from ``SERVE_SEED``, compute and cache):
+    a decode step after the prefill of ``first`` against a fresh prefill
+    of ``whole`` (the same tokens and one more; a function of the fp32
+    model for inputs that read its weights), the gap of the last
+    position's logits.  The inputs are on the card already."""
+    b = next(iter(first.values())).shape[0]
+    setup = serve_setup(arch, b, SERVE_CACHE, device, "float32")
+    model, dt = setup.model, setup.cache_dtype
+    if callable(whole):
+        whole = whole(model)
+    _, cache = model.prefill(first, model.new_cache(b, SERVE_CACHE, dt))
+    got, _ = model.decode(cache, step)
+    want, _ = model.prefill(whole, model.new_cache(b, SERVE_CACHE, dt))
+    del setup, model, cache
+    serve_free()
+    return serve_gap(got, want)
+
+
+def serve_decode_probe(model, first: dict, step: dict,
+                       cache_len: int) -> dict:
+    """One ``Model.decode`` after a prefill, its inputs on the card
+    already, under the sync debug mode "error" (fatal on a host sync);
+    then the same step again under the profiler: returns its kernel count
+    and device ms (``kernel_profile``)."""
+    import torch
+    b = next(iter(first.values())).shape[0]
+    _, cache = model.prefill(first, model.new_cache(b, cache_len))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode(cache, step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return kernel_profile(lambda: model.decode(cache, step))
+
+
+def decode_profile_text(prof: "dict | None", decode_ms: float) -> str:
+    """The log's words for ``serve_decode_probe``'s profile beside the
+    median decode step's wall ms."""
+    if not prof:
+        return "decode not profiled"
+    return (f"one decode step under the profiler: {prof['kernels']} "
+            f"kernels, {prof['ms']:.2f} device ms ({prof['gemm_ms']:.2f} "
+            f"of GEMMs), idle share of the median step "
+            f"{1 - prof['ms'] / decode_ms:.3f}")
+
+
+def serve_free() -> None:
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def serve_engine_cell(label: str, arch, smi: str,
+                      device="cuda") -> dict:
+    """``arch`` on one rank through the Engine: ``len(SERVE_PROMPTS)``
+    requests (prompts of ``SERVE_PROMPTS`` tokens, ``SERVE_MAX_NEW`` new
+    tokens each, cache ``SERVE_CACHE``), generated twice (the same greedy
+    tokens required); the prefill and decode calls timed; one
+    ``Model.decode`` under the sync debug mode "error" and one under the
+    profiler (``serve_decode_probe``); then, on an fp32
+    copy of the arch from the same seed, one decode step against a fresh
+    prefill (``SERVE_CONSIST_RTOL``; the MoE family at its no-drop
+    capacity: at the config's, the prompt's tokens crowd into the same
+    experts and the prefill drops picks that decode keeps)."""
+    import torch
+
+    from repro_torch.serving.engine import Engine, Request
+    dev = torch.device(device)
+    t_cell = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup = serve_setup(arch, len(SERVE_PROMPTS), SERVE_CACHE, dev)
+    setup_s = time.perf_counter() - t_cell
+    model = setup.model
+    rows = [serve_prompt(arch.vocab, 1, n, 100 + i)[0].tolist()
+            for i, n in enumerate(SERVE_PROMPTS)]
+    eng = Engine(setup)
+    calls = {"prefill": [], "decode": []}
+
+    def timed(fn, into):
+        def run(*args):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            _sync(dev)
+            into.append(time.perf_counter() - t0)
+            return out
+        return run
+    eng._prefill = timed(eng._prefill, calls["prefill"])
+    eng._decode = timed(eng._decode, calls["decode"])
+    runs = []
+    for _ in range(2):
+        reqs = [Request(i, p, max_new=SERVE_MAX_NEW)
+                for i, p in enumerate(rows)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        done = eng.generate(reqs)
+        _sync(dev)
+        runs.append(([r.out for r in done], time.perf_counter() - t0))
+    tokens = sum(len(o) for o in runs[1][0])
+    b, s = len(rows), 128
+    toks = torch.as_tensor(serve_prompt(arch.vocab, b, s + 1, 7),
+                           device=dev)
+    first, whole = {"tokens": toks[:, :s]}, {"tokens": toks}
+    step = {"tokens": toks[:, s:], "cur_len": torch.full(
+        (b,), s, dtype=torch.int32, device=dev)}
+    prof = serve_decode_probe(model, first, step, SERVE_CACHE) \
+        if dev.type == "cuda" else None
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 \
+        if dev.type == "cuda" else None
+    del eng, setup, model
+    serve_free()
+    gap = serve_consistency(no_drop(arch), first, step, whole, dev)
+    rec = dict(
+        label=label, arch=arch.name, n_layers=arch.n_layers,
+        n_params=n_params, batch=b, prompts=list(SERVE_PROMPTS),
+        max_new=SERVE_MAX_NEW, cache_len=SERVE_CACHE,
+        same_tokens=runs[0][0] == runs[1][0],
+        prefill_ms=[1e3 * x for x in calls["prefill"]],
+        decode_ms_median=1e3 * statistics.median(calls["decode"][-15:]),
+        decode_ms=[1e3 * x for x in calls["decode"]],
+        generate_s=[w for _, w in runs], tokens=tokens,
+        tokens_per_s=tokens / runs[1][1], consistency_gap=gap,
+        decode_profile=prof, setup_s=setup_s, peak_gib=peak,
+        wall_s=time.perf_counter() - t_cell)
+    log(f"[{label}] ({smi}) {arch.name} {arch.n_layers} layers "
+        f"({n_params:,} parameters, bf16), Engine: {b} requests of "
+        f"{list(SERVE_PROMPTS)} tokens, {SERVE_MAX_NEW} new, cache "
+        f"{SERVE_CACHE}: prefill ms {[round(x, 2) for x in rec['prefill_ms']]}"
+        f", decode ms a token (median) {rec['decode_ms_median']:.2f}, "
+        f"{tokens} tokens in {runs[1][1]:.3f} s = "
+        f"{rec['tokens_per_s']:.1f} tokens/s; "
+        f"{decode_profile_text(prof, rec['decode_ms_median'])}; the two "
+        f"runs' tokens equal {rec['same_tokens']}; decode syncs none; peak "
+        f"{peak or 0:.2f} GiB; fp32 decode vs a fresh prefill {gap:.3g} "
+        f"(limit {SERVE_CONSIST_RTOL:g}); setup {setup_s:.1f} s, cell "
+        f"{rec['wall_s']:.1f} s; first request -> {runs[0][0][0]}")
+    return rec
+
+
+def serve_vlm_cell(smi: str, device="cuda") -> dict:
+    """``qwen2-vl-7b`` at full width cut to ``SERVE_VLM_LAYERS`` on one
+    rank through ``Model.prefill`` and ``Model.decode`` (the Engine passes
+    only tokens): seeded ``embeds`` of batch ``SERVE_VLM_BATCH`` x
+    ``SERVE_VLM_PROMPT`` and M-RoPE positions (an image, then text),
+    ``SERVE_STEPS`` greedy decode steps at the text positions after
+    them; the same sync and fp32 consistency checks as the Engine cells
+    (the decoded token enters the fresh prefill as its table row)."""
+    import torch
+
+    from repro_torch.launch.inputs import vlm_positions
+    dev = torch.device(device)
+    t_cell = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    arch = serve_arch(VLM_ARCH, SERVE_VLM_LAYERS)
+    b, s = SERVE_VLM_BATCH, SERVE_VLM_PROMPT
+    setup = serve_setup(arch, b, SERVE_CACHE, dev)
+    setup_s = time.perf_counter() - t_cell
+    model = setup.model
+    gen = torch.Generator().manual_seed(23)
+    embeds = torch.randn(b, s, arch.d_model, generator=gen)
+    mrope = vlm_positions(b, s + SERVE_STEPS + 1)
+    run = serve_run(setup, {"embeds": embeds,
+                            "mrope_positions": mrope[..., :s]},
+                    SERVE_STEPS, more=lambda i: {
+                        "mrope_positions": mrope[..., s + i:s + i + 1]})
+    finite = all(bool(torch.isfinite(x).all()) for x in run["logits"])
+    tok = torch.as_tensor(run["greedy"][0], device=dev)
+    first = {"embeds": embeds.to(dev),
+             "mrope_positions": mrope[..., :s].to(dev)}
+    step = {"tokens": tok[:, None], "cur_len": torch.full(
+        (b,), s, dtype=torch.int32, device=dev),
+        "mrope_positions": mrope[..., s:s + 1].to(dev)}
+
+    def whole(m):
+        row = m.embed.table.detach()[tok][:, None].float()
+        return {"embeds": torch.cat([first["embeds"], row], 1),
+                "mrope_positions": mrope[..., :s + 1].to(dev)}
+    prof = serve_decode_probe(model, first, step, SERVE_CACHE) \
+        if dev.type == "cuda" else None
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 \
+        if dev.type == "cuda" else None
+    del setup, model
+    serve_free()
+    gap = serve_consistency(arch, first, step, whole, dev)
+    total = run["prefill_s"] + sum(run["decode_s"])
+    rec = dict(label="serve vlm", arch=arch.name, n_layers=arch.n_layers,
+               n_params=n_params, batch=b, prompt=s, steps=SERVE_STEPS,
+               finite=finite, prefill_ms=1e3 * run["prefill_s"],
+               decode_ms_median=1e3 * statistics.median(run["decode_s"]),
+               tokens_per_s=b * SERVE_STEPS / total, consistency_gap=gap,
+               decode_profile=prof, setup_s=setup_s, peak_gib=peak,
+               wall_s=time.perf_counter() - t_cell)
+    log(f"[serve vlm] ({smi}) {arch.name} {arch.n_layers} layers "
+        f"({n_params:,} parameters, bf16), Model.prefill of {b} x {s} "
+        f"embeds with M-RoPE positions, {SERVE_STEPS} decode steps: "
+        f"prefill {rec['prefill_ms']:.2f} ms, decode ms a token (median) "
+        f"{rec['decode_ms_median']:.2f}, {rec['tokens_per_s']:.1f} tokens/s;"
+        f" {decode_profile_text(prof, rec['decode_ms_median'])}; finite "
+        f"{finite}; decode syncs none; peak {peak or 0:.2f} GiB; "
+        f"fp32 decode vs a fresh prefill {gap:.3g} (limit "
+        f"{SERVE_CONSIST_RTOL:g}); setup {setup_s:.1f} s, cell "
+        f"{rec['wall_s']:.1f} s")
+    return rec
+
+
+def serve_group_inputs(label: str, dtype: str = "auto") -> tuple:
+    """(arch, global batch, cache length, the prompt batch, dtype) of a
+    four-rank cell; ``dtype`` "auto" is the cell's own."""
+    name, layers, b, s, cache_len, own = SERVE_GROUP[label]
+    arch = no_drop(serve_arch(name, layers))
+    return (arch, b, cache_len, serve_prompt(arch.vocab, b, s, 31),
+            own if dtype == "auto" else dtype)
+
+
+def serve_references(work: str, device="cuda", dtype: str = "auto",
+                     cells=tuple(SERVE_GROUP)) -> None:
+    """Each four-rank cell's one-rank run (the same global parameters,
+    depth, prompt and dtype; greedy decode; an MoE cell's router rows,
+    ``routed_rows``) in this process, saved under ``work`` for the group
+    and freed before the group goes on."""
+    import torch
+    for label in cells:
+        arch, b, cache_len, prompt, dt = serve_group_inputs(label, dtype)
+        setup = serve_setup(arch, b, cache_len, device, dt)
+        calls, undo = route_probe()
+        try:
+            run = serve_run(setup, {"tokens": prompt}, SERVE_STEPS)
+        finally:
+            undo()
+        ref = {"logits": run["logits"], "greedy": run["greedy"]}
+        if calls:
+            ref["router"] = routed_rows(calls, b)
+        torch.save(ref, os.path.join(work, label.replace(" ", "_") + ".pt"))
+        del setup
+        serve_free()
+
+
+def serve_fault(fault: str):
+    """Plants ``fault`` in this process's port (monkeypatched, for the
+    limits probe; ``"none"`` plants nothing): ``"off0"`` every rank's
+    cache span at offset 0; ``"nolse"`` no log-sum-exp merge of the
+    context-parallel attention; ``"nopsum2d"`` no sum over ``model`` after
+    the 2-D layout's down projection; ``"nowrite"`` decode's token not
+    written into the cache.  Returns a function that takes it out."""
+    import types
+
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tf
+    module, name, value = {
+        "none": (tf, "cache_offset", tf.cache_offset),
+        "off0": (tf, "cache_offset", lambda n, ctx: 0),
+        "nolse": (attention, "coll", types.SimpleNamespace(
+            pmax=lambda t, axes: t, psum=lambda t, axes: t)),
+        "nopsum2d": (moe, "tp_reduce", lambda x, ctx, **kw: x),
+        "nowrite": (tf, "cache_write", lambda cache, k, v, st, ctx, w=(
+            tf.cache_write): None if st.mode == "decode"
+            else w(cache, k, v, st, ctx))}[fault]
+    old = getattr(module, name)
+    setattr(module, name, value)
+    return lambda: setattr(module, name, old)
+
+
+def serve_worker(work: str, device: str = "cuda", dtype: str = "auto",
+                 fault: str = "none", cells: str = "") -> int:
+    """One rank of the four-rank serving group (``torchrun``, data 2 x
+    model 2, gloo): the ``SERVE_GROUP`` cells (``cells``, comma-separated,
+    or all) from the same seed in ``dtype`` ("auto": each cell's own),
+    fed the one-rank run's greedy tokens, with ``fault`` planted
+    (``serve_fault``); rank 0 saves the logits and prints one JSON line of
+    records."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    serve_fault(fault)
+    dev = mesh_mod.local_device(device)
+    mesh_mod.init_world(dev)
+    mesh_mod.init_mesh(2, dev)
+    rank = dist.get_rank()
+    recs = []
+    # the group starts while this script's main process still runs its
+    # one-rank cells and the references; it holds the card until they end
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(work, SERVE_READY)):
+        if time.perf_counter() - t0 > SERVE_TIMEOUT_S:
+            raise TimeoutError("no serve references")
+        time.sleep(0.2)
+    try:
+        for label in (cells.split(",") if cells else SERVE_GROUP):
+            arch, b, cache_len, prompt, dt = serve_group_inputs(label,
+                                                                dtype)
+            ref = torch.load(os.path.join(
+                work, label.replace(" ", "_") + ".pt"))
+            fed = [np.asarray(t) for t in ref["greedy"]]
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            setup = serve_setup(arch, b, cache_len, dev, dt)
+            setup_s = time.perf_counter() - t0
+            calls, undo = route_probe()
+            try:
+                run = serve_run(setup, {"tokens": prompt}, SERVE_STEPS,
+                                fed=fed)
+            finally:
+                undo()
+            row0 = 0 if setup.context_parallel else \
+                mesh_mod.rank(setup.dp_axes) * setup.batch_local
+            everyone = [None] * dist.get_world_size()
+            used = None
+            if dev.type == "cuda":
+                free, total = torch.cuda.mem_get_info(dev)
+                used = (total - free) / 2**30
+            dist.all_gather_object(everyone, dict(
+                greedy=run["greedy"], used=used, row0=row0,
+                router=routed_rows(calls, setup.batch_local),
+                peak=(torch.cuda.max_memory_allocated(dev) / 2**30
+                      if dev.type == "cuda" else None)))
+            dist.barrier()
+            wall = time.perf_counter() - t0
+            if rank == 0:
+                router = None
+                if calls:       # each call's rows, placed by their ranks
+                    router = [torch.zeros(b, arch.moe.n_experts)
+                              for _ in everyone[0]["router"]]
+                    for e in everyone:
+                        for whole, part in zip(router, e["router"]):
+                            whole[e["row0"]:e["row0"] + len(part)] = part
+                torch.save({"logits": run["logits"], "router": router},
+                           os.path.join(work, "group_" + label.replace(
+                               " ", "_") + ".pt"))
+                recs.append(dict(
+                    label=label, arch=arch.name, n_layers=arch.n_layers,
+                    dtype=dt,
+                    batch=b, prompt=prompt.shape[1], cache_len=cache_len,
+                    context_parallel=setup.context_parallel,
+                    fsdp_axes=list(setup.ctx.fsdp_axes),
+                    moe_ep_axis=setup.ctx.moe_ep_axis, tp=setup.ctx.tp,
+                    cache_len_local=setup.cache_len_local,
+                    same_greedy=all(e["greedy"] == everyone[0]["greedy"]
+                                    for e in everyone),
+                    prefill_ms=1e3 * run["prefill_s"],
+                    decode_ms_median=1e3 * statistics.median(
+                        run["decode_s"]),
+                    setup_s=setup_s, wall_s=wall,
+                    peak_gib=[e["peak"] for e in everyone],
+                    card_used_gib=max((e["used"] or 0) for e in everyone)))
+            del setup, run
+            serve_free()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps({"serve": recs}), flush=True)
+    return 0
+
+
+SERVE_LAYOUT = {"serve tp": (False, [], None),
+                "serve cp": (True, [], None),
+                "serve fsdp": (False, ["data"], None),
+                "serve moe2d": (False, [], "data"),
+                "serve moe2d bf16": (False, [], "data")}
+
+
+def serve_group(work: str, smi: str, dtype: str = "auto",
+                fault: str = "none", cells=tuple(SERVE_GROUP),
+                device: str = "cuda", before=None) -> tuple[dict, list]:
+    """One ``torchrun`` group of four ranks on this card running
+    ``cells`` (``serve_worker``) in ``dtype`` ("auto": each cell's own)
+    with ``fault`` planted.  This process (which must hold no process
+    group: it makes and ends its own) first runs ``before()`` (the timed
+    one-rank cells, alone on the card and the host), then starts the
+    ranks and, while they start, runs the cells' one-rank references,
+    frees the card and lets the ranks go on (``SERVE_READY``).  Returns
+    (the records by label, each with its per-step ``gaps`` to the
+    reference (the MoE cells also the ``held_gaps`` and ``flips`` of
+    ``serve_route_gaps``), and the failed checks: a gap over
+    ``SERVE_GROUP_RTOL`` of its dtype (of an MoE cell, on the rows that
+    picked the one-rank run's experts), more flipped picks than
+    ``SERVE_FLIP_SHARE`` of its dtype, non-finite logits, the ranks' greedy tokens
+    apart, another layout than the cell's, the card at ``TP_CARD_GIB``
+    or more)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    import signal
+    started = None
+    try:
+        mesh_mod.init_world(torch.device(device))
+        try:
+            if before is not None:
+                before()
+            started = start_ranks(4, "chip_smoke", [
+                "--serve-worker", work, device, dtype, fault,
+                ",".join(cells)])
+            t0 = time.perf_counter()
+            serve_references(work, device, dtype, cells)
+            ref_s = time.perf_counter() - t0
+        finally:
+            torch.distributed.destroy_process_group()
+            serve_free()
+        open(os.path.join(work, SERVE_READY), "w").close()
+    except BaseException:
+        if started is not None:
+            os.killpg(started[0].pid, signal.SIGKILL)
+            started[0].communicate()
+        raise
+    out, wall = wait_ranks(started, f"serve_{fault}", SERVE_TIMEOUT_S)
+    got = {r["label"]: r for r in json.loads(
+        out.strip().splitlines()[-1])["serve"]}
+    log(f"[serve] {dtype}, fault {fault}: one-rank references in "
+        f"{ref_s:.1f} s; {len(got)} cells in one torchrun group of 4 ranks "
+        f"(data 2 x model 2) in {wall:.1f} s from its start")
+    failed = []
+    for label in cells:
+        rec = got[label]
+        stem = label.replace(" ", "_") + ".pt"
+        ref = torch.load(os.path.join(work, stem))
+        group = torch.load(os.path.join(work, "group_" + stem))
+        mine = group["logits"]
+        gaps = [serve_gap(a, b) for a, b in zip(mine, ref["logits"])]
+        rec["gaps"] = held = gaps
+        rtol = SERVE_GROUP_RTOL[rec["dtype"]]
+        bad = []
+        routed = ""
+        if "router" in ref:
+            top_k = serve_group_inputs(label)[0].moe.top_k
+            held, flips = serve_route_gaps(mine, ref["logits"],
+                                           group["router"], ref["router"],
+                                           top_k)
+            rec["held_gaps"], rec["flips"] = held, flips
+            n_rows = len(mine) * mine[0].shape[0]
+            share = SERVE_FLIP_SHARE[rec["dtype"]]
+            if len(flips) > share * n_rows:
+                bad.append(f"{len(flips)} of {n_rows} rows picked other "
+                           f"experts than one rank (at most {share:g})")
+            routed = (f"; on the rows that picked one rank's experts "
+                      f"{[float(f'{g:.3g}') for g in held]}, flipped "
+                      f"picks {len(flips)} of {n_rows} rows "
+                      f"{json.dumps(flips)}")
+        bad += [f"step {i}: {g:.3g} > {rtol:g}"
+                for i, g in enumerate(held) if not g <= rtol]
+        if not all(bool(torch.isfinite(x).all()) for x in mine):
+            bad.append("non-finite logits")
+        if not rec["same_greedy"]:
+            bad.append("the ranks' greedy tokens differ")
+        if (rec["context_parallel"], rec["fsdp_axes"], rec["moe_ep_axis"],
+                rec["tp"]) != (*SERVE_LAYOUT[label], 2):
+            bad.append(f"layout {rec}")
+        if rec["card_used_gib"] >= TP_CARD_GIB:
+            bad.append(f"card in use {rec['card_used_gib']:.2f} GiB")
+        log(f"[{label}] ({smi}) {rec['dtype']}, fault {fault}: "
+            f"{rec['arch']} "
+            f"{rec['n_layers']} layers, batch {rec['batch']} x "
+            f"{rec['prompt']}, cache {rec['cache_len']} "
+            f"({rec['cache_len_local']} a rank), context parallel "
+            f"{rec['context_parallel']}, fsdp {rec['fsdp_axes']}, experts "
+            f"over {rec['moe_ep_axis']}, tp {rec['tp']}: prefill "
+            f"{rec['prefill_ms']:.1f} ms, decode ms (median) "
+            f"{rec['decode_ms_median']:.1f}; logits vs one rank per step "
+            f"{[float(f'{g:.3g}') for g in gaps]}{routed} (limit "
+            f"{rtol:g}); greedy tokens equal on every rank "
+            f"{rec['same_greedy']}; peak GiB a rank "
+            f"{[p and round(p, 2) for p in rec['peak_gib']]}; card in use "
+            f"{rec['card_used_gib']:.2f} GiB; setup {rec['setup_s']:.1f} s, "
+            f"wall_s {rec['wall_s']:.1f}")
+        if bad:
+            failed.append(f"{label}: " + "; ".join(bad))
+    return got, failed
+
+
+def serve_phase(kind: str, smi: str) -> dict:
+    """The serving slice.  On one rank, alone on the card:
+    ``tinyllama-1.1b`` at full width and depth and ``qwen2-moe-a2.7b`` at
+    full width (``SERVE_MOE_LAYERS``) through the Engine
+    (``serve_engine_cell``), ``qwen2-vl-7b`` (``SERVE_VLM_LAYERS``)
+    through ``Model.prefill`` and ``Model.decode`` (``serve_vlm_cell``).
+    Then the four-rank cells of ``SERVE_GROUP`` against their one-rank
+    runs (``serve_group``), whose ranks start while this process runs
+    the references.  No compression kernel runs.  Returns the records by
+    label."""
+    from repro_torch.kernels import build as kbuild
+    t_phase = time.perf_counter()
+    kbuild.reset_launches()
+    recs = {}
+
+    def one_rank():
+        recs["serve tinyllama"] = serve_engine_cell(
+            "serve tinyllama", serve_arch("tinyllama-1.1b"), smi)
+        recs["serve moe"] = serve_engine_cell(
+            "serve moe", serve_arch(MOE_ARCH, SERVE_MOE_LAYERS), smi)
+        recs["serve vlm"] = serve_vlm_cell(smi)
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        got, failed = serve_group(work, smi, before=one_rank)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label, rec in recs.items():
+        if not rec.get("same_tokens", True) or not rec.get("finite", True):
+            failed.append(f"{label}: the two Engine runs' tokens differ "
+                          f"(or non-finite logits)")
+        if not rec["consistency_gap"] <= SERVE_CONSIST_RTOL:
+            failed.append(f"{label}: decode vs a fresh prefill "
+                          f"{rec['consistency_gap']:.3g} > "
+                          f"{SERVE_CONSIST_RTOL:g}")
+    recs.update(got)
+    launched = sum(kbuild.LAUNCHES.values())
+    if launched:
+        failed.append(f"serving launched compression kernels: "
+                      f"{dict(kbuild.LAUNCHES)}")
+    log(f"[serve] phase in {time.perf_counter() - t_phase:.1f} s; "
+        f"compression kernel launches {launched}")
+    log("[serve] records: " + json.dumps(recs))
+    if failed:
+        raise AssertionError(" | ".join(failed))
+    return recs
+
+
+def serve_probe() -> int:
+    """``python3 chip_smoke.py --serve-probe``: the gaps that set the
+    serve limits.  The one-rank cells (``serve_engine_cell``,
+    ``serve_vlm_cell``: their fp32 decode against a fresh prefill), then
+    ``serve tinyllama`` with decode's cache write skipped
+    (``serve_fault``); the four-rank cells against their one-rank runs
+    in bf16 and in fp32, then with a fault planted: a context-parallel
+    cell with every span at offset 0 and without the log-sum-exp merge,
+    the 2-D MoE cell without the sum over ``model``.  Logs every gap and
+    checks nothing."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    dev = torch.device("cuda", 0)
+    for fault in ("none", "nowrite"):
+        undo = serve_fault(fault)
+        mesh_mod.init_world(dev)
+        try:
+            log(f"[serve probe] fault {fault}:")
+            serve_engine_cell("serve tinyllama", serve_arch(
+                "tinyllama-1.1b"), smi)
+            if fault == "none":
+                serve_engine_cell("serve moe", serve_arch(
+                    MOE_ARCH, SERVE_MOE_LAYERS), smi)
+                serve_vlm_cell(smi)
+        finally:
+            undo()
+            torch.distributed.destroy_process_group()
+            serve_free()
+    for dtype, fault, cells in (
+            ("bfloat16", "none", tuple(SERVE_GROUP)),
+            ("float32", "none", tuple(SERVE_GROUP)),
+            ("auto", "off0", ("serve cp",)),
+            ("auto", "nolse", ("serve cp",)),
+            ("auto", "nopsum2d", ("serve moe2d", "serve moe2d bf16"))):
+        work = tempfile.mkdtemp(prefix="chip_smoke_serve_probe_")
+        try:
+            serve_group(work, smi, dtype, fault, cells)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return 0
 
 
 def main() -> int:
@@ -3660,6 +4489,7 @@ def main() -> int:
         log(f"[tp elastic] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    serve_phase(kind, smi)
 
     # name -> (source, TPU kernel it replaces, the run that counts it)
     sources = {
@@ -3721,4 +4551,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-worker"]:
+        sys.exit(serve_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-probe"]:
+        sys.exit(serve_probe())
     sys.exit(main())

@@ -18,7 +18,13 @@ comparisons run on global arrays.  Under TP the same holds along the
 ``model`` dim of each leaf (``Model.tp_dims``): the JAX tree's global
 arrays at that ``tp`` (vocabulary, q heads and experts padded as
 ``models.model.param_layout`` pads them) are sliced to this rank's
-``model`` index on load and gathered over ``model`` back.
+``model`` index on load and gathered over ``model`` back.  The serving
+layouts load the same way (``serving.serve_step``): TP shards; FSDP
+shards over the DP axes under ``serve_fsdp``; the 2-D MoE layout, whose
+experts are sliced along the expert dim over ``data`` and along
+``d_ff`` over ``model`` (``Model.slice_spans``).  A JAX serving tree
+arrives as numpy, bf16 (raw 16-bit patterns) or fp32, each leaf in its
+own dtype.
 
 The padded global layout of a leaf at one ``tp`` and its logical layout
 (``tp = 1``'s shapes) convert both ways (``to_logical``, ``to_padded``,
@@ -118,6 +124,9 @@ def to_global(model: torch.nn.Module, name: str, t: torch.Tensor
     tdim = getattr(model, "tp_dims", {}).get(name)
     if tdim is not None:
         split[tdim] += ("model",)
+    edim = getattr(model, "ep_dims", {}).get(name)
+    if edim is not None and getattr(model, "ep_size", 1) > 1:
+        split[edim] += (model.ctx.moe_ep_axis,)
     return gather_global(t, split).cpu()
 
 

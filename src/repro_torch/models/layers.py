@@ -57,6 +57,13 @@ class ShardCtx:
     #: Megatron sequence parallelism: activations between the TP regions
     #: are sharded over the sequence dim (only with ``tp > 1``)
     seq_parallel: bool = False
+    #: serving's context parallelism: the mesh axes the KV cache is
+    #: sharded over along its sequence dim; () = none
+    cache_seq_axes: tuple[str, ...] = ()
+    #: the MoE expert-parallel axis: None = ``model`` (training); "data"
+    #: = the 2-D serving layout (experts over ``data``, ``d_ff`` over
+    #: ``model``)
+    moe_ep_axis: "str | None" = None
 
 
 def _int8_gather(w: torch.Tensor, axes: tuple[str, ...], axis: int
@@ -175,17 +182,18 @@ class _GradScale(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-class _AllToAllTp(torch.autograd.Function):
-    """``collectives.all_to_all_tp`` forward; the same exchange, which is
-    its own inverse, backward."""
+class _AllToAll(torch.autograd.Function):
+    """``collectives.all_to_all`` over ``axes`` forward; the same
+    exchange, which is its own inverse, backward."""
 
     @staticmethod
-    def forward(ctx, x):
-        return coll.all_to_all_tp(x)
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return coll.all_to_all(x, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return coll.all_to_all_tp(g)
+        return coll.all_to_all(g, ctx.axes), None
 
 
 def tp_copy(x: torch.Tensor, ctx: ShardCtx, seq_axis: int = 1
@@ -221,8 +229,8 @@ def grad_scale(w: torch.Tensor, scale: float) -> torch.Tensor:
     return _GradScale.apply(w, scale) if scale != 1.0 else w
 
 
-def all_to_all_tp(x: torch.Tensor) -> torch.Tensor:
-    return _AllToAllTp.apply(x)
+def all_to_all(x: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    return _AllToAll.apply(x, tuple(axes))
 
 
 # --------------------------------------------------------------------------
@@ -552,7 +560,7 @@ def vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
         col = coll.tp_index() * shard + torch.arange(shard, device=ll.device)
         ll = ll.masked_fill(col >= vocab, float("-inf"))
     with torch.no_grad():
-        m = coll.pmax_tp(ll.amax(dim=-1))
+        m = coll.pmax(ll.amax(dim=-1), (coll.TP_AXIS,))
     sumexp = tp_reduce(torch.exp(ll - m[..., None]).sum(-1), ctx,
                        seq_parallel=False)
     lse = m + torch.log(sumexp)

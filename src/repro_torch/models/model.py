@@ -1,6 +1,6 @@
 """The model as an ``nn.Module``: every family of
 ``repro.models.model.Model`` (dense, vlm, MoE, hybrid, ssm and audio;
-init and loss).
+init and loss; prefill and decode for the dense, vlm and MoE families).
 
 The parameters are stored as the JAX package stores them: one stacked
 leaf per block weight, weights laid out ``(d_in, d_out)``, under the JAX
@@ -78,9 +78,10 @@ FSDP (``ctx.fsdp_axes`` set): every leaf that ``layers.fsdp_dim`` names
 is built at its local shard shape, that dim divided by the FSDP degree,
 and gathered at use: a stage's leaves at the top of its (recomputed)
 function, the vocabulary tables in the lookup and in each loss chunk.
-``init_params`` draws each leaf whole, in leaf order, and keeps this
-rank's slice before it draws the next, so the global parameters are the
-same at every FSDP degree and one leaf is the largest transient.
+``init_params`` draws each global leaf in leaf order (above
+``DRAW_BLOCK`` elements in blocks of whole rows) and keeps this rank's
+slice before it draws the next, so the global parameters are the same
+at every FSDP degree and one block is the largest transient.
 
 Tensor parallelism (``ctx.tp > 1``, every family): every leaf that
 ``layers.tp_dim`` names holds this rank's slice along that dim (composed
@@ -119,6 +120,18 @@ audio family's encoder adds ``stage_encoder_in``, a ``stage_block`` per
 encoder block and ``stage_memory`` before them.  ``stacks`` lists the
 stacked collections in backward-completion order: one for every family
 but audio, whose decoder's gradients are final before its encoder's.
+
+Serving (the dense, vlm and MoE families, ``SERVE_FAMILIES``; JAX
+``Model.prefill``, ``decode`` and ``cache_shape``): ``prefill`` runs the
+blocks once over the prompt and ``decode`` over one token at ``cur_len``,
+both under ``torch.inference_mode()``, each block writing its layer's
+slice of the cache ``{"k", "v"}`` ``(n_layers, B, Sc, kv_local, hd)``
+(``new_cache``, bf16 as the JAX package's, allocated once) in place;
+each returns the last position's vocabulary-parallel logits and the
+cache.  The hybrid, ssm and audio families raise
+``NotImplementedError`` (``check_serving``).  Under the 2-D MoE serving
+layout (``ctx.moe_ep_axis``) each expert leaf holds its slice of the
+experts along ``ep_dims`` and, at ``tp > 1``, of ``d_ff`` (``tp_dims``).
 """
 from __future__ import annotations
 
@@ -158,6 +171,13 @@ ROPE = {"ssm": "none", "audio": "none", "vlm": "mrope"}
 ZAMBA_LORA_RANK = 64
 #: shared-block weight -> the LoRA adapter patched into it in every group
 LORA_TARGETS = {"attn.wq.w": "wq", "mlp.gate.w": "gate", "mlp.up.w": "up"}
+#: the prefix of the MoE family's stacked expert leaves
+EXPERTS = "blocks.moe.experts."
+#: the families that serve (prefill and decode with a KV cache)
+SERVE_FAMILIES = ("dense", "vlm", "moe")
+#: ``init_params`` draws a leaf of more elements than this in blocks of
+#: whole rows, so that no full-size leaf is ever whole in fp32 on a rank
+DRAW_BLOCK = 1 << 26
 #: the leaves kept in fp32 whatever the parameter dtype
 FP32_LEAVES = frozenset(
     [BLOCK_PREFIX + n for n in moe_mod.FP32_LEAVES]
@@ -281,26 +301,41 @@ def param_dims(cfg) -> dict[str, "int | None"]:
     return out
 
 
-def tp_dims(cfg, tp: int) -> dict[str, "int | None"]:
+def tp_dims(cfg, tp: int, two_d: bool = False) -> dict[str, "int | None"]:
     """name -> the dim of the leaf (counted from its first) that ``model``
     shards at ``tp``, or None (every leaf at ``tp == 1``): the dims of
     the JAX package's ``abstract_init`` specs that name ``model``.  The
-    ssm family has no attention, so its heads take no ``head_layout``."""
+    ssm family has no attention, so its heads take no ``head_layout``.
+    ``two_d``: the 2-D MoE serving layout, whose experts ``model`` shards
+    along ``d_ff`` (the last dim of ``gate`` and ``up``, the
+    second-to-last of ``down``)."""
     kv_rep = tp > 1 and cfg.family != "ssm" and head_layout(
         cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, tp).kv_replicated
     out = {}
     for name, shape, _ in param_layout(cfg, tp):
         dim = tp_dim(name, kv_rep) if tp > 1 else None
+        if dim is not None and two_d and name.startswith(EXPERTS):
+            dim = -2 if name.endswith("down") else -1
         out[name] = None if dim is None else dim % len(shape)
     return out
 
 
+def ep_dims(cfg, tp: int) -> dict[str, int]:
+    """name -> the expert dim of each stacked expert leaf: the dim that
+    ``ShardCtx.moe_ep_axis`` shards in the 2-D serving layout."""
+    return {name: len(shape) - 3 for name, shape, _ in param_layout(cfg, tp)
+            if name.startswith(EXPERTS)}
+
+
 def local_shape(name: str, shape: tuple, p: int, tp: int = 1,
-                tdim: "int | None" = None) -> tuple:
+                tdim: "int | None" = None, ep: int = 1,
+                edim: "int | None" = None) -> tuple:
     """The shape of this rank's shard of ``name`` at FSDP degree ``p``,
-    and at TP degree ``tp`` along ``tdim`` (``tp_dims``)."""
+    at TP degree ``tp`` along ``tdim`` (``tp_dims``), and at the 2-D MoE
+    layout's expert-parallel degree ``ep`` along ``edim``."""
     out = list(shape)
-    for dim, n, what in ((fsdp_dim(name), p, "FSDP"), (tdim, tp, "TP")):
+    for dim, n, what in ((fsdp_dim(name), p, "FSDP"), (tdim, tp, "TP"),
+                         (edim, ep, "EP")):
         if dim is None or n == 1:
             continue
         if out[dim] % n:
@@ -347,6 +382,32 @@ def _lora_patch(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return w + (a.float() @ b.float()).to(w.dtype)
 
 
+def check_serving(cfg) -> None:
+    """``NotImplementedError`` unless the port serves ``cfg``'s family."""
+    if cfg.family not in SERVE_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.family!r} family is not ported "
+            f"yet (the next serving slice ports the hybrid, ssm and audio "
+            f"caches; the port serves {', '.join(SERVE_FAMILIES)})")
+
+
+def _check_2d(cfg, ctx: ShardCtx, ep: int) -> None:
+    """``ValueError`` unless the 2-D MoE layout applies: an MoE arch, no
+    FSDP axes (the layout shards no expert over them, as in the JAX
+    package), and the experts padded to the same count at ``tp`` and at
+    the expert-parallel degree ``ep``."""
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: moe_ep_axis on the "
+                         f"{cfg.family!r} family")
+    if ctx.fsdp_axes:
+        raise ValueError("the 2-D MoE layout with FSDP axes")
+    n = cfg.moe.n_experts
+    if moe_mod.pad_experts(n, ctx.tp) != moe_mod.pad_experts(n, ep):
+        raise ValueError(f"{n} experts pad to {moe_mod.pad_experts(n, ep)} "
+                         f"over {ep} {ctx.moe_ep_axis} ranks but to "
+                         f"{moe_mod.pad_experts(n, ctx.tp)} at tp={ctx.tp}")
+
+
 def _check_recurrent_heads(cfg, tp: int) -> None:
     """``ValueError`` unless the recurrent blocks split over ``model`` at
     ``tp``: whole Mamba2 heads on every rank, or an mLSTM layout of
@@ -369,7 +430,9 @@ class Model(nn.Module):
         ``cuda`` unless the caller asks for ``cpu`` or ``meta``.  Under
         ``ctx.fsdp_axes`` each sharded leaf has its local shape at the
         axes' size (``fsdp_size``, else read from the process group); at
-        ``ctx.tp > 1`` each leaf ``model`` shards has its slice's."""
+        ``ctx.tp > 1`` each leaf ``model`` shards has its slice's; under
+        ``ctx.moe_ep_axis`` each expert leaf holds its slice of the
+        experts at that axis's size, read from the process group."""
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -391,7 +454,15 @@ class Model(nn.Module):
         #: the FSDP degree the leaves are sharded at (1: global shapes)
         self.fsdp_size = fsdp_size
         #: name -> the dim ``model`` shards (None: replicated over it)
-        self.tp_dims = tp_dims(cfg, ctx.tp)
+        self.tp_dims = tp_dims(cfg, ctx.tp, two_d=bool(ctx.moe_ep_axis))
+        #: name -> the expert dim ``ctx.moe_ep_axis`` shards (the 2-D
+        #: MoE serving layout; empty otherwise)
+        self.ep_dims = ep_dims(cfg, ctx.tp) if ctx.moe_ep_axis else {}
+        #: the expert-parallel degree of the 2-D layout (1 without it)
+        self.ep_size = mesh_mod.size((ctx.moe_ep_axis,)) \
+            if ctx.moe_ep_axis else 1
+        if ctx.moe_ep_axis:
+            _check_2d(cfg, ctx, self.ep_size)
         self._init = {}
         self._global = {}
         for name, shape, init in param_layout(cfg, ctx.tp):
@@ -403,7 +474,8 @@ class Model(nn.Module):
                 node = getattr(node, part)
             node.register_parameter(leaf, nn.Parameter(torch.empty(
                 local_shape(name, shape, fsdp_size, ctx.tp,
-                            self.tp_dims[name]),
+                            self.tp_dims[name], self.ep_size,
+                            self.ep_dims.get(name)),
                 dtype=leaf_dtype(name, ctx), device=device)))
             self._init[name] = init
             self._global[name] = tuple(shape)
@@ -425,36 +497,83 @@ class Model(nn.Module):
         """The leaf's shape before FSDP and TP sharding."""
         return self._global[name]
 
+    def slice_spans(self, name: str) -> list[tuple[int, int]]:
+        """Per dim of the global leaf ``name``, (start, length) of this
+        rank's slice: along its FSDP dim at its index along the FSDP
+        axes, along its TP dim at its ``model`` index, along its expert
+        dim at its index along ``ctx.moe_ep_axis`` (the 2-D layout)."""
+        spans = [(0, n) for n in self._global[name]]
+        fdim = fsdp_dim(name)
+        cuts = (
+            (None if fdim is None else fdim % len(spans), self.fsdp_size,
+             lambda: mesh_mod.rank(self.ctx.fsdp_axes)),
+            (self.tp_dims[name], self.ctx.tp, coll.tp_index),
+            (self.ep_dims.get(name), self.ep_size,
+             lambda: mesh_mod.rank((self.ctx.moe_ep_axis,))))
+        for dim, deg, index in cuts:
+            if dim is not None and deg > 1:
+                start, n = spans[dim]
+                spans[dim] = (start + index() * (n // deg), n // deg)
+        return spans
+
     def shard_slice(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the global leaf ``full`` (``full`` itself
-        when the leaf is not sharded): along its FSDP dim at its index
-        along the FSDP axes, along its TP dim at its ``model`` index."""
-        dim = fsdp_dim(name)
-        if dim is not None and self.fsdp_size > 1:
-            n = full.shape[dim] // self.fsdp_size
-            full = full.narrow(dim % full.ndim,
-                               mesh_mod.rank(self.ctx.fsdp_axes) * n, n)
-        tdim = self.tp_dims[name]
-        if tdim is not None:
-            n = full.shape[tdim] // self.ctx.tp
-            full = full.narrow(tdim, coll.tp_index() * n, n)
+        when the leaf is not sharded; ``slice_spans``)."""
+        for dim, (start, n) in enumerate(self.slice_spans(name)):
+            if n != full.shape[dim]:
+                full = full.narrow(dim, start, n)
         return full
 
     def init_params(self, generator: torch.Generator) -> None:
         """Every leaf as ``param_layout`` says (truncated-normal weights,
         unit norm scales, zero LoRA ``b``, the Mamba2 ``A_log``, ``D`` and
-        ``dt_bias``), drawn in leaf order from ``generator``; under FSDP
-        each sharded leaf is drawn whole and this rank keeps its slice."""
+        ``dt_bias``), drawn in leaf order from ``generator``: a global
+        leaf of at most ``DRAW_BLOCK`` elements whole, a larger one in
+        blocks of whole rows along its leading dims, in row-major order
+        (each block one call of the leaf's init).  A sharded rank keeps
+        its slice of each, so one seed gives the same global parameters
+        on any mesh."""
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if tuple(p.shape) == self._global[name]:
-                    init_leaf_(p, self._init[name], generator)
-                    continue
-                full = torch.empty(self._global[name], dtype=p.dtype,
-                                   device=p.device)
-                init_leaf_(full, self._init[name], generator)
+                self._init_leaf(name, p, generator)
+
+    def _init_leaf(self, name: str, p: torch.Tensor,
+                   generator: torch.Generator) -> None:
+        shape, init = self._global[name], self._init[name]
+        k = next(i for i in range(len(shape) + 1)
+                 if math.prod(shape[i:]) <= DRAW_BLOCK)
+        if k == 0:
+            if tuple(p.shape) == shape:
+                init_leaf_(p, init, generator)
+            else:
+                full = torch.empty(shape, dtype=p.dtype, device=p.device)
+                init_leaf_(full, init, generator)
                 p.copy_(self.shard_slice(name, full))
-                del full
+            return
+        lead, row = shape[:k], shape[k:]
+        n, per = math.prod(lead), max(1, DRAW_BLOCK // math.prod(row))
+        spans = self.slice_spans(name)
+        rows = p.view(-1, *p.shape[k:])           # this rank's rows
+        for r0 in range(0, n, per):
+            block = torch.empty((min(per, n - r0), *row), dtype=p.dtype,
+                                device=p.device)
+            init_leaf_(block, init, generator)
+            # each block row's index along the leading dims, whether this
+            # rank keeps it, and where among this rank's rows
+            rest = torch.arange(r0, r0 + block.shape[0])
+            keep = torch.ones(block.shape[0], dtype=torch.bool)
+            local, stride = torch.zeros_like(rest), 1
+            for size, (st, ln) in zip(reversed(lead), reversed(spans[:k])):
+                i, rest = rest % size, rest // size
+                keep &= (i >= st) & (i < st + ln)
+                local += (i - st) * stride
+                stride *= ln
+            if not keep.any():
+                continue
+            for d, (st, ln) in enumerate(spans[k:]):
+                block = block.narrow(d + 1, st, ln)
+            rows.index_copy_(0, local[keep].to(p.device),
+                             block[keep.to(p.device)])
 
     # ---- the three stages of the loss; the classic step runs them in one
     # ---- autograd graph, the overlapped step one graph per stage ----------
@@ -707,6 +826,85 @@ class Model(nn.Module):
         loss_sum, ntok = self.stage_loss(self.final_norm.scale, table, x,
                                          labels, xent_chunk)
         return loss_sum, ntok, aux / self.cfg.n_layers
+
+    # ---- serving: prefill and one-token decode with a KV cache ----------
+    def _serving(self) -> None:
+        check_serving(self.cfg)
+
+    def cache_shape(self, batch_local: int, cache_len_local: int
+                    ) -> dict[str, tuple[int, ...]]:
+        """The decode cache on this rank: ``{"k", "v"}``, each
+        ``(n_layers, B_local, Sc_local, kv_local, hd)`` (the caller divides
+        the capacity by the context-parallel degree)."""
+        self._serving()
+        shape = (self.cfg.n_layers, *tf.attn_cache_shape(
+            self.cfg, self.ctx, batch_local, cache_len_local))
+        return {"k": shape, "v": shape}
+
+    def new_cache(self, batch_local: int, cache_len_local: int,
+                  dtype: torch.dtype = torch.bfloat16
+                  ) -> dict[str, torch.Tensor]:
+        """A zeroed cache of ``cache_shape`` in ``dtype`` (bf16, as the
+        JAX package's) on the model's device, allocated once: prefill and
+        decode write into it in place."""
+        dev = self.embed.table.device
+        return {k: torch.zeros(shape, dtype=dtype, device=dev)
+                for k, shape in self.cache_shape(batch_local,
+                                                 cache_len_local).items()}
+
+    def _serve_blocks(self, x: torch.Tensor, positions: torch.Tensor,
+                      mrope: "torch.Tensor | None", st: tf.StepState,
+                      cache: dict) -> torch.Tensor:
+        """Every block in order, each writing its layer's slice of
+        ``cache`` in place."""
+        fn = self._gathered(moe_mod.moe_block_apply if self.has_aux
+                            else tf.dense_block_apply)
+        for i, p_l in enumerate(self._slices(BLOCK_PREFIX)):
+            layer = {k: c[i] for k, c in cache.items()}
+            if self.has_aux:
+                x, _ = fn(p_l, x, positions, self.cfg, self.ctx, step=st,
+                          cache=layer)
+            else:
+                x = fn(p_l, x, positions, self.cfg, self.ctx, mrope,
+                       step=st, cache=layer)
+        return x
+
+    def _last_logits(self, x: torch.Tensor) -> torch.Tensor:
+        table = self.embed.table if self.cfg.tie_embeddings \
+            else self.unembed.table
+        return tf.lm_logits(self.final_norm.scale, table, x[:, -1:],
+                            self.cfg, self.ctx)[:, 0]
+
+    @torch.inference_mode()
+    def prefill(self, batch: dict, cache: dict
+                ) -> tuple[torch.Tensor, dict]:
+        """batch: ``tokens`` (B, S) (or ``embeds`` (B, S, d)), optional
+        ``positions`` (B, S), for the vlm family ``mrope_positions`` (3, B,
+        S).  Writes positions 0..S-1 into ``cache`` (``new_cache``) and
+        returns (the last position's vocabulary-parallel logits (B,
+        V/tp), ``cache``)."""
+        self._serving()
+        x = self.stage_input(batch)
+        positions = batch.get("positions")
+        if positions is None:
+            positions = positions_of(x[..., 0])
+        x = self._serve_blocks(x, positions, self.mrope_positions(batch),
+                               tf.StepState("prefill"), cache)
+        return self._last_logits(x), cache
+
+    @torch.inference_mode()
+    def decode(self, cache: dict, batch: dict
+               ) -> tuple[torch.Tensor, dict]:
+        """batch: ``tokens`` (B, 1), ``cur_len`` (B,) (the new token's
+        position), for the vlm family ``mrope_positions`` (3, B, 1).
+        Writes the token into ``cache`` at ``cur_len`` and returns (its
+        vocabulary-parallel logits (B, V/tp), ``cache``)."""
+        self._serving()
+        cur = batch["cur_len"]
+        x = self.stage_embed(self.embed.table, batch["tokens"])
+        x = self._serve_blocks(x, cur[:, None], self.mrope_positions(batch),
+                               tf.StepState("decode", cur), cache)
+        return self._last_logits(x), cache
 
 
 def positions_of(tokens: torch.Tensor) -> torch.Tensor:

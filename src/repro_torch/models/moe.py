@@ -32,8 +32,7 @@ backward; the slot writes and reads move each kept value once, and a
 dropped assignment's value is zero.
 
 Expert parallelism (``ctx.tp > 1``; the JAX package's training layout,
-experts over ``model``; its 2-D serving layout, experts over ``data``
-and ``d_ff`` over ``model``, is not ported): the
+experts over ``model``): the
 experts, padded to ``E_pad``, a multiple of ``tp``, with ``-inf`` router
 logits on the padding, are stacked ``(E_pad / tp, ...)`` on each model
 rank.  The ``(E_pad, C, d)`` buffer
@@ -50,6 +49,16 @@ JAX package, so each expert receives ``tp`` copies of each token; the
 forward is that of ``tp = 1`` and the experts' gradient, summed over the
 copies, is scaled by ``1 / tp`` (``layers.grad_scale``) so that it is
 the gradient of the loss once (JAX's is ``tp`` times it).
+
+The 2-D serving layout (``ctx.moe_ep_axis == "data"``, arctic's
+``serve_moe_ep_data``): the experts are split over ``data`` (``E_pad``
+a multiple of the ``data`` size, the same count as at ``tp``), and
+within each expert ``gate`` and ``up`` over ``model`` along ``d_ff``
+and ``down`` along its ``d_ff`` rows.  Each data rank routes its own
+tokens, the buffer goes through the all-to-all over ``data``, each model
+rank runs its ``d_ff`` slice of every local expert, and a sum over
+``model`` closes the down projection before the exchange back (JAX
+``moe_apply``'s ``two_d``).
 """
 from __future__ import annotations
 
@@ -59,9 +68,11 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.models.layers import (ShardCtx, all_to_all_tp, grad_scale,
-                                       rmsnorm, sp_shared)
-from repro_torch.models.transformer import attn_apply, mlp_apply
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models.layers import (ShardCtx, all_to_all, grad_scale,
+                                       rmsnorm, sp_shared, tp_reduce)
+from repro_torch.models.transformer import (TRAIN, StepState, attn_apply,
+                                            mlp_apply)
 
 #: the ``blocks.`` leaves the MoE layer keeps in fp32 whatever the
 #: parameter dtype, as the JAX package draws them
@@ -108,20 +119,20 @@ def _dispatch_indices(top_i: torch.Tensor, e_pad: int, cap: int):
     return flat_e, slot_of.long(), slot_of < cap
 
 
-def _ep_all_to_all(buf: torch.Tensor, ep: int, forward: bool
-                   ) -> torch.Tensor:
-    """(E_pad, C, d) <-> (E_pad / ep, ep·C, d) over ``model``: the leading
+def _ep_all_to_all(buf: torch.Tensor, ep: int, axes: tuple[str, ...],
+                   forward: bool) -> torch.Tensor:
+    """(E_pad, C, d) <-> (E_pad / ep, ep·C, d) over ``axes``: the leading
     dim of the exchange indexes the destination rank before it and the
     source rank after it."""
     if ep == 1:
         return buf
     if forward:
         e_pad, c, d = buf.shape
-        out = all_to_all_tp(buf.reshape(ep, e_pad // ep, c, d))
+        out = all_to_all(buf.reshape(ep, e_pad // ep, c, d), axes)
         return out.transpose(0, 1).reshape(e_pad // ep, ep * c, d)
     e_local, epc, d = buf.shape
     c = epc // ep
-    out = all_to_all_tp(buf.reshape(e_local, ep, c, d).transpose(0, 1))
+    out = all_to_all(buf.reshape(e_local, ep, c, d).transpose(0, 1), axes)
     return out.reshape(e_local * ep, c, d)
 
 
@@ -130,9 +141,14 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
     sequence under SP).  Returns (the MoE output of x's shape and dtype,
     the load-balancing loss).  ``p`` holds one layer's leaves under
     ``blocks.`` (``"moe.router"``, ``"moe.experts.gate"``, ...), the
-    experts this rank's ``(E_pad / tp, ...)``.  The caller adds the
-    residual."""
-    ep = ctx.tp
+    experts this rank's ``(E_pad / ep, ...)`` (and, in the 2-D layout,
+    its ``d_ff`` slice of each).  The caller adds the residual."""
+    if ctx.moe_ep_axis:
+        axes = (ctx.moe_ep_axis,)
+        ep = mesh_mod.size(axes)
+    else:
+        axes, ep = ("model",), ctx.tp
+    two_d = axes != ("model",) and ctx.tp > 1
     mc = cfg.moe
     b, s, d = x.shape
     t, k = b * s, mc.top_k
@@ -152,15 +168,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, ctx: ShardCtx):
         buf = buf.index_copy(0, dest, src).view(e_pad, cap + 1, d)[:, :cap]
 
     # ---- the EP exchange and the batched expert SwiGLU
-    buf = _ep_all_to_all(buf, ep, forward=True)       # (E_pad/ep, ep·C, d)
-    # without SP each expert sees ep copies of each token
-    dup = 1.0 if ctx.seq_parallel else 1.0 / ep
+    buf = _ep_all_to_all(buf, ep, axes, True)         # (E_pad/ep, ep·C, d)
+    # without SP each expert over model sees ep copies of each token
+    dup = 1.0 if ctx.seq_parallel or axes != ("model",) else 1.0 / ep
     w_g, w_u, w_d = (grad_scale(p["moe.experts." + n], dup).to(cd)
                      for n in ("gate", "up", "down"))
     h_g = torch.bmm(buf, w_g)
     h_u = torch.bmm(buf, w_u)
     out = torch.bmm(F.silu(h_g) * h_u, w_d)
-    out = _ep_all_to_all(out, ep, forward=False)      # (E_pad, C, d)
+    if two_d:       # the row-parallel down projection over model
+        out = tp_reduce(out, ctx, seq_parallel=False)
+    out = _ep_all_to_all(out, ep, axes, False)        # (E_pad, C, d)
 
     with record_function(COMBINE):
         # the slots back to their tokens, weighted by the router
@@ -193,11 +211,14 @@ def _aux_loss(logits: torch.Tensor, top_i: torch.Tensor,
 
 
 def moe_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                    cfg, ctx: ShardCtx):
-    """Pre-norm attention, then the pre-norm MoE FFN.  Returns (the
-    block's output, its load-balancing loss)."""
+                    cfg, ctx: ShardCtx, step: StepState = TRAIN,
+                    cache: "dict | None" = None):
+    """Pre-norm attention (its cache written in prefill and decode), then
+    the pre-norm MoE FFN.  Returns (the block's output, its
+    load-balancing loss)."""
     x = x + attn_apply(p, rmsnorm(sp_shared(p["ln1.scale"], ctx), x,
-                                  cfg.norm_eps), positions, cfg, ctx)
+                                  cfg.norm_eps), positions, cfg, ctx,
+                       step=step, cache=cache)
     m, aux = moe_apply(p, rmsnorm(sp_shared(p["ln2.scale"], ctx), x,
                                   cfg.norm_eps), cfg, ctx)
     return x + m, aux

@@ -28,15 +28,32 @@ those of the whole sequence, which the attention sees after the
 gather.  The loss gathers
 the sequence once (``tp_copy``) after the final norm and runs the
 vocabulary-parallel cross-entropy on each chunk.
+
+Serving (JAX ``StepState``, ``_cache_write``, ``attn_apply``'s prefill
+and decode branches, ``attn_cache_shape``, ``lm_logits``): a
+:class:`StepState` names the mode.  Prefill attends over the prompt as
+training does and writes its k and v at positions ``0..S-1`` into the
+layer's cache ``{"k", "v"}`` (B, Sc, kv_local, hd); decode rotates the
+one new token at position ``cur_len``, writes it at slot ``cur_len``
+and attends over the cache (``attention.decode_attention``).  The
+writes are in place, into views of the preallocated cache.  Under
+context parallelism (``ctx.cache_seq_axes``) each rank owns the span
+``[off, off + Sc)``, ``off = rank(cache_seq_axes) * Sc``, and a write
+outside it is dropped: prefill's through a slice of Python ints, decode's
+through a clamped slot whose old value is written back (no host sync).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attention
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import (HeadLayout, ShardCtx, apply_mrope,
                                        apply_rope, head_layout, linear,
                                        local_head_mask, local_kv_slice,
@@ -47,6 +64,18 @@ from repro_torch.parallel.collectives import tp_index
 
 #: the profiler ranges around the GELU MLP and one chunk of the loss head
 GELU_MLP, LM_LOSS = "mlp.gelu", "lm_loss.chunk"
+
+
+@dataclasses.dataclass(frozen=True)
+class StepState:
+    """The mode of a forward pass: ``"train"``, ``"prefill"`` or
+    ``"decode"``; in decode, ``cur_len`` (B,) is the number of valid cache
+    positions before the call (the new token's position)."""
+    mode: str = "train"
+    cur_len: Optional[torch.Tensor] = None
+
+
+TRAIN = StepState()
 
 
 def mlp_apply(p: dict, x: torch.Tensor, ctx: ShardCtx,
@@ -93,21 +122,67 @@ def kv_project(p: dict, prefix: str, h: torch.Tensor, lay: HeadLayout,
                                                        hd))
 
 
+def cache_offset(cache_len_local: int, ctx: ShardCtx) -> int:
+    """The absolute position of this rank's first cache slot: its index
+    along ``ctx.cache_seq_axes`` times the local capacity (0 without
+    context parallelism)."""
+    if not ctx.cache_seq_axes:
+        return 0
+    return mesh_mod.rank(ctx.cache_seq_axes) * cache_len_local
+
+
+def cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                st: StepState, ctx: ShardCtx) -> None:
+    """In place: prefill's k, v (B, S, kv_local, hd) at positions 0..S-1,
+    or decode's one token (B, 1, kv_local, hd) at ``st.cur_len``, into
+    the cache slots of this rank's span; writes outside it are
+    dropped."""
+    kc, vc = cache["k"], cache["v"]
+    s_local = kc.shape[1]
+    off = cache_offset(s_local, ctx)
+    if st.mode == "prefill":
+        hi = min(k.shape[1], off + s_local)
+        if hi > off:
+            kc[:, :hi - off] = k[:, off:hi]
+            vc[:, :hi - off] = v[:, off:hi]
+        return
+    slot = st.cur_len.long() - off
+    ok = ((slot >= 0) & (slot < s_local))[:, None, None]
+    slot = slot.clamp(0, s_local - 1)
+    rows = torch.arange(kc.shape[0], device=kc.device)
+    for c, new in ((kc, k), (vc, v)):
+        c[rows, slot] = torch.where(ok, new[:, 0].to(c.dtype), c[rows, slot])
+
+
+def attn_cache_shape(cfg, ctx: ShardCtx, batch_local: int,
+                     cache_len_local: int) -> tuple[int, ...]:
+    """One layer's k (or v) cache on this rank: (B_local, Sc_local,
+    kv_local, hd); the caller divides the capacity by the
+    context-parallel degree."""
+    lay = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ctx.tp)
+    return (batch_local, cache_len_local, lay.kv_local, lay.head_dim)
+
+
 def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
                ctx: ShardCtx, causal: bool = True,
                prefix: str = "attn.",
-               mrope_positions: "torch.Tensor | None" = None
+               mrope_positions: "torch.Tensor | None" = None,
+               step: StepState = TRAIN, cache: "dict | None" = None
                ) -> torch.Tensor:
     """x: the pre-normed (B, S, d) input; returns the attention output
     (the caller adds the residual) of the weights ``p[prefix + ...]``.
     q and k are rotated unless ``cfg.rope == "none"``, by M-RoPE over
     ``mrope_positions`` (3, B, S) under ``cfg.rope == "mrope"``;
-    ``causal=False`` lets every query see every key."""
+    ``causal=False`` lets every query see every key.  In prefill and
+    decode (``step``) the layer's ``cache`` is written in place; decode
+    rotates at ``step.cur_len`` and attends over the cache."""
     lay = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, ctx.tp)
     m = tp_index() if ctx.tp > 1 else 0
     h = tp_copy(x, ctx)                     # the whole sequence under SP
     b, s, _ = h.shape
     hd = cfg.head_dim
+    if step.mode == "decode":
+        positions = step.cur_len[:, None]
     q = linear(p[prefix + "wq.w"], h, ctx).reshape(b, s, lay.L, hd)
     k, v = kv_project(p, prefix, h, lay, m, ctx)
     if cfg.qk_norm:
@@ -123,7 +198,16 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
     elif cfg.rope != "none":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, positions, positions, causal=causal)
+    if step.mode != "train":
+        cache_write(cache, k, v, step, ctx)
+    if step.mode == "decode":
+        kc = cache["k"]
+        pos = torch.arange(kc.shape[1], device=kc.device) \
+            + cache_offset(kc.shape[1], ctx)
+        out = decode_attention(q, kc, cache["v"], step.cur_len + 1,
+                               pos.expand(b, -1), ctx.cache_seq_axes)
+    else:
+        out = attention(q, k, v, positions, positions, causal=causal)
     if lay.padded:
         out = out * local_head_mask(lay, m, out.device)[:, None].to(
             out.dtype)
@@ -133,14 +217,24 @@ def attn_apply(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
 
 def dense_block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cfg, ctx: ShardCtx,
-                      mrope_positions: "torch.Tensor | None" = None
+                      mrope_positions: "torch.Tensor | None" = None,
+                      step: StepState = TRAIN, cache: "dict | None" = None
                       ) -> torch.Tensor:
     x = x + attn_apply(p, rmsnorm(sp_shared(p["ln1.scale"], ctx), x,
                                   cfg.norm_eps),
                        positions, cfg, ctx,
-                       mrope_positions=mrope_positions)
+                       mrope_positions=mrope_positions, step=step,
+                       cache=cache)
     return x + mlp_apply(p, rmsnorm(sp_shared(p["ln2.scale"], ctx), x,
                                     cfg.norm_eps), ctx)
+
+
+def lm_logits(final_scale: torch.Tensor, table: torch.Tensor,
+              x: torch.Tensor, cfg, ctx: ShardCtx) -> torch.Tensor:
+    """x: (B, S, d) -> the vocabulary-parallel logits (B, S, V/tp): the
+    final norm, then this rank's rows of the table."""
+    x = tp_copy(rmsnorm(sp_shared(final_scale, ctx), x, cfg.norm_eps), ctx)
+    return unembed_logits(table, x, ctx)
 
 
 def _chunk_loss(table: torch.Tensor, xb: torch.Tensor, lb: torch.Tensor,

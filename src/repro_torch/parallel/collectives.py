@@ -9,6 +9,9 @@ of ``launch.mesh.group``.  The conventions are JAX's:
     "data")`` or ``("data",)``;
   * ``psum_tp`` / ``reduce_scatter_tp`` end a row-parallel matmul (the
     reduce-scatter form is Megatron sequence parallelism);
+  * ``pmax`` and ``psum`` over any axes merge serving's context-parallel
+    attention, and ``all_to_all`` over ``data`` is the dispatch of the
+    2-D MoE serving layout;
   * the FSDP gather stays in ``models.layers`` (``fsdp_gather``).
 
 These are plain collectives, outside autograd; the differentiable pairs
@@ -82,21 +85,21 @@ def reduce_scatter_tp(t: torch.Tensor, axis: int = 1) -> torch.Tensor:
     return reduce_scatter(t, (TP_AXIS,), axis)
 
 
-def pmax_tp(t: torch.Tensor) -> torch.Tensor:
-    """The elementwise maximum of ``t`` over TP: a new tensor."""
+def pmax(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``axes``: a new tensor."""
     out = t.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX,
-                    group=mesh_mod.group((TP_AXIS,)))
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh_mod.group(axes))
     return out
 
 
-def all_to_all_tp(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s leading dim split into tp equal chunks, chunk ``j`` sent to
-    model rank ``j``; returns the chunks received, chunk ``i`` from model
-    rank ``i`` (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``)."""
+def all_to_all(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``t``'s leading dim split into p equal chunks (p the size of
+    ``axes``), chunk ``j`` sent to the rank at index ``j`` along them;
+    returns the chunks received, chunk ``i`` from the rank at index ``i``
+    (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``)."""
     src = t.contiguous()
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=mesh_mod.group((TP_AXIS,)))
+    dist.all_to_all_single(out, src, group=mesh_mod.group(axes))
     return out
 
 

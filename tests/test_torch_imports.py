@@ -43,3 +43,21 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serving.engine",
+                                    "repro_torch.serving.serve_step",
+                                    "repro_torch.launch.serve"])
+def test_serving_imports_with_jax_blocked(module):
+    """The serving modules import in an interpreter where ``import jax``
+    and ``import repro`` fail, and load nothing of either."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+            f"import {module}\n"
+            "bad = [m for m, v in sys.modules.items() if v is not None and "
+            f"m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
